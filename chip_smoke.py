@@ -10,20 +10,29 @@ Phases (each raises on failure; the script then exits non-zero):
   1. each kernel of the two-phase search against its plain PyTorch
      version on the same tensors on the card, through FlatIndex.search
      and the three kernel wrappers directly, with CUDA-event timings;
-  2. the main path through the user's entry points: 4,096 PNGs indexed by
-     the port's indexer CLI (ResNet-50, flat l2, f32 store), the port's
-     HTTP server queried with corpus images, and the kernel launch counts
-     of that serving run.
+  2. the flat main path through the user's entry points: 4,096 PNGs
+     indexed by the port's indexer CLI (ResNet-50, flat l2, f32 store), the
+     port's HTTP server queried with corpus images, and the kernel launch
+     counts of that serving run;
+  3. IVF-PQ: an IVFPQIndex (nlist 1024, nprobe 4, m 16) built on the card
+     over 1,000,000 x 2048 clustered rows, its two kernels (k-means
+     assignment, probed scan) and the probed top-k against their plain
+     versions, the probed search against ADC and exact search; then the
+     IVF-PQ path through the entry points (the same PNGs, indexer CLI with
+     ``--index-type ivfpq --pq-rerank 64``, HTTP server) with the launch
+     counts of the build and of serving.
 
-Its last two lines are a JSON object describing the kernels and the
-result line ``{"ok": true, "device": {...}}``. Without CUDA it exits
-non-zero before printing either.
+Before its last two lines it prints a JSON object describing the five
+kernels (launches, errors, times, bounds) and the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
+exits non-zero before printing any of them.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -41,13 +50,33 @@ import numpy as np
 SEED = 0
 K = 20
 TIMING_REPS = 20
-SOURCE = "image_search_engine_tpu_torch/csrc/topk_twophase.cu"
+CSRC = "image_search_engine_tpu_torch/csrc/"
+SOURCES = {
+    "groupmin": CSRC + "topk_twophase.cu",
+    "select_topt": CSRC + "topk_twophase.cu",
+    "rescore": CSRC + "topk_twophase.cu",
+    "probed_scan": CSRC + "ivf_probed_scan.cu",
+    "kmeans_assign": CSRC + "kmeans_assign.cu",
+}
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
     "select_topt": "image_search_engine_tpu/ops/topk_pallas.py:361",
     "rescore": "image_search_engine_tpu/ops/topk_pallas.py:298",
+    "probed_scan": "image_search_engine_tpu/ops/ivf_pallas.py:36",
+    "kmeans_assign": "image_search_engine_tpu/ops/kmeans_pallas.py:26",
 }
 EPS32 = float(np.finfo(np.float32).eps)
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
+# the CUDA cores, bf16 on the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# phase 3: the repo's 1M IVF operating point at the ResNet-50 width, over
+# synthetic rows: 4,096 Gaussian centres in a 64-d latent space, projected
+# to 2048-d (the latent width is a choice, not a measured property of image
+# embeddings; recalls on this corpus describe this corpus only)
+SCALE_N, SCALE_D, SCALE_CENTRES, SCALE_LATENT = 1_000_000, 2048, 4096, 64
+NLIST, NPROBE, PQ_M = 1024, 4, 16
 
 
 def log(msg: str) -> None:
@@ -81,6 +110,15 @@ def median_ms(fn, flush, reps: int = TIMING_REPS) -> float:
         e.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+def bound(bytes_moved: float, flops: float, peak_flops: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the HBM rate and the operations over the peak rate
+    for their type."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def score_tol(q, norms) -> float:
@@ -198,15 +236,29 @@ def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scal
         raise AssertionError(f"{name}: a PAD_NORM row was returned")
     errs, mins, ids, t = check_kernels(name, qf, store, knorms, tol)
 
+    nq, d = qf.shape
+    n, isz, ng = store.shape[0], store.element_size(), mins.shape[1]
+    peak = F32_FLOPS if isz == 4 else BF16_FLOPS
+    rows = torch.unique(ids).numel() * T.GROUP  # distinct candidate rows this run reads
+    bounds = {
+        "groupmin": bound(n * d * isz + n * 4 + nq * d * isz + nq * ng * 4, 2 * nq * n * d, peak),
+        "select_topt": bound(nq * ng * 4 + nq * t * 8, 0, peak),
+        "rescore": bound(rows * (d * isz + 4) + nq * d * isz + nq * t * (4 + T.GROUP * 4),
+                         2 * nq * t * T.GROUP * d, peak),
+    }
     res = {}
-    for kname, fn, ref in (
-        ("groupmin", lambda: T.groupmin(qf, store, knorms), lambda: T.groupmin_ref(qf, store, knorms)),
-        ("select_topt", lambda: T.select_topt(mins, t), lambda: T.select_topt_ref(mins, t)),
+    for kname, fn, ref, lib in (
+        ("groupmin", lambda: T.groupmin(qf, store, knorms), lambda: T.groupmin_ref(qf, store, knorms),
+         None),
+        ("select_topt", lambda: T.select_topt(mins, t), lambda: T.select_topt_ref(mins, t),
+         lambda: torch.topk(mins, t, dim=1, largest=False)),
         ("rescore", lambda: T.rescore(qf, store, knorms, ids),
-         lambda: T.rescore_ref(qf, store, knorms, ids)),
+         lambda: T.rescore_ref(qf, store, knorms, ids), None),
     ):
         res[kname] = {"max_abs_err": errs[kname], "ms": median_ms(fn, flush),
-                      "plain_ms": median_ms(ref, flush)}
+                      "plain_ms": median_ms(ref, flush),
+                      "library_ms": None if lib is None else median_ms(lib, flush),
+                      "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
     smetric = "l2" if metric == "l2" else "ip"
     search_ms = median_ms(lambda: T.topk_twophase(qs, store, K, smetric, x_norms=norms), flush)
     scan_ms = median_ms(lambda: local_topk_with_norms(qs, store, norms, K, smetric), flush)
@@ -388,7 +440,279 @@ def phase2(workdir: Path) -> dict:
         f"request latency p50 {p50:.2f} ms (client clock, {len(lat)} requests); "
         f"certificate escalations {stats['certificate_escalations']}")
     return {"launches": counts, "p50_ms": p50,
-            "escalations": stats["certificate_escalations"]}
+            "escalations": stats["certificate_escalations"], "paths": paths}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: IVF-PQ
+# ---------------------------------------------------------------------------
+
+
+def latent_rows(n: int, centres, proj, gen, chunk: int = 1 << 17):
+    """n rows on the card: a random one of the latent ``centres`` plus unit
+    latent noise, projected by ``proj`` (latent x d), plus 0.1 isotropic
+    noise; built in chunks. Isotropic 2048-d blobs put every member of a
+    blob at nearly the same distance, so recall on them measures noise; a
+    low-dimensional latent gives neighbours that can be ranked."""
+    import torch
+
+    out = torch.empty(n, proj.shape[1], device="cuda")
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        lab = torch.randint(0, centres.shape[0], (e - s,), device="cuda", generator=gen)
+        z = centres[lab] + torch.randn(e - s, centres.shape[1], device="cuda", generator=gen)
+        out[s:e] = z @ proj + 0.1 * torch.randn(e - s, proj.shape[1], device="cuda",
+                                                generator=gen)
+    return out
+
+
+def check_assign(name: str, x, c):
+    """``assign`` against ``assign_ref`` on the same tensors. Both sum d f32
+    products in different orders, so distances may differ by 4 sqrt(d)
+    ulps of the magnitudes summed, (|x| + |c|)^2, and codes may differ only
+    where the plain version's two best distances lie within that.
+    Returns (max_abs_err, tolerance, differing codes)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import kmeans as KM
+
+    codes, dists = KM.assign(x, c)
+    rcodes, rdists = KM.assign_ref(x, c)
+    xm, cm = x.norm(dim=-1).max().item(), c.norm(dim=-1).max().item()
+    tol = 4 * math.sqrt(x.shape[-1]) * EPS32 * (xm + cm) ** 2
+    err = max_abs_err(dists, rdists)
+    if err > tol:
+        raise AssertionError(f"{name} assign: distance error {err} > tolerance {tol}")
+    bad = (codes != rcodes).view(-1, x.shape[-2])
+    xb, cb = (x, c) if x.dim() == 3 else (x[None], c[None])
+    for b in range(xb.shape[0]):
+        rows = bad[b].nonzero()[:, 0]
+        if rows.numel():
+            part = (cb[b] * cb[b]).sum(1)[None] - 2.0 * (xb[b, rows] @ cb[b].T)
+            top2 = part.topk(2, dim=1, largest=False).values
+            gap = (top2[:, 1] - top2[:, 0]).max().item()
+            if gap > 2 * tol:
+                raise AssertionError(f"{name} assign: codes differ where the best two "
+                                     f"distances are {gap} apart (tolerance {tol})")
+    return err, tol, int(bad.sum())
+
+
+def plain_probed_topk(q, bc, table, norms, lists, k, nprobe):
+    """ivf_probed_topk through each kernel's plain version (same probes)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    probe = IV.rank_buckets(q, bc, nprobe)
+    scores = IV.probed_scan_ref(q.to(table.dtype), table, norms, probe.to(torch.int32))
+    vals, pos = T.select_topt_ref(scores, k)
+    ids = lists[probe].reshape(q.shape[0], -1).gather(1, pos.long())
+    return (vals + (q * q).sum(1, keepdim=True)).clamp(min=0.0), ids
+
+
+def phase3_scale() -> dict:
+    """IVF-PQ over 1M x 2048 clustered rows: build, each kernel against its
+    plain version, timings, and the search against ADC and exact search."""
+    import torch
+
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.index.ivf import IVFPQIndex
+    from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import kmeans as KM
+
+    log("phase 3: IVF-PQ at corpus scale")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    centres = 2.0 * torch.randn(SCALE_CENTRES, SCALE_LATENT, device="cuda", generator=gen)
+    proj = torch.randn(SCALE_LATENT, SCALE_D, device="cuda", generator=gen) / SCALE_LATENT ** 0.5
+    x = latent_rows(SCALE_N, centres, proj, gen)
+    q64 = latent_rows(64, centres, proj, gen)
+    torch.cuda.synchronize()
+    KM.assign.launches = 0
+    t0 = time.perf_counter()
+    index = IVFPQIndex("l2", nlist=NLIST, nprobe=NPROBE, m=PQ_M, device="cuda").add(x)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nb, cap = index.lists.shape
+    nprobe = index._effective_nprobe()
+    log(f"  built IVFPQIndex(nlist={NLIST}, nprobe={NPROBE}, m={PQ_M}) over {SCALE_N:,} x "
+        f"{SCALE_D} f32 ({SCALE_CENTRES} centres in {SCALE_LATENT}-d, projected) in "
+        f"{build_s:.1f} s: "
+        f"{KM.assign.launches} assign launches, {nb} buckets of cap {cap}, {nprobe} probed "
+        f"per query, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # k-means assignment: one coarse call, and one batched PQ-books chunk
+    cents = torch.as_tensor(index.centroids, device="cuda")
+    err_c, tol_c, bad_c = check_assign("coarse", x, cents)
+    cells = KM.assign(x[:65536], cents)[0].long()
+    resid = (x[:65536] - cents[cells]).view(65536, PQ_M, SCALE_D // PQ_M).transpose(0, 1)
+    books = torch.as_tensor(index.pq_books, device="cuda")
+    err_b, tol_b, bad_b = check_assign("PQ books", resid, books)
+    assign_ms = median_ms(lambda: KM.assign(x, cents), flush, reps=5)
+    assign_plain_ms = median_ms(lambda: KM.assign_ref(x, cents), flush, reps=5)
+    books_ms = median_ms(lambda: KM.assign(resid, books), flush)
+    books_plain_ms = median_ms(lambda: KM.assign_ref(resid, books), flush)
+    a_bound = bound(SCALE_N * SCALE_D * 4 + NLIST * (SCALE_D * 4 + 4) + SCALE_N * 8,
+                    2 * SCALE_N * NLIST * SCALE_D, F32_FLOPS)
+    log(f"  assign N={SCALE_N:,} K={NLIST} d={SCALE_D}: err {err_c:.3g} (tol {tol_c:.3g}), "
+        f"{bad_c} codes differ at near-ties; {assign_ms:.3f} ms (plain {assign_plain_ms:.3f} "
+        f"ms, bound {a_bound[0]:.3f} ms by {a_bound[1]}); PQ books B={PQ_M} N=65,536 K=256 "
+        f"dsub={SCALE_D // PQ_M}: err {err_b:.3g} (tol {tol_b:.3g}), {bad_b} near-tie codes, "
+        f"{books_ms:.3f} ms (plain {books_plain_ms:.3f} ms)")
+    del cells, resid
+
+    # the probed scan on the serving table (bf16 reconstruction, kept
+    # resident as the engine keeps it) and on the raw f32 table
+    index.recon_cache = True
+    t0 = time.perf_counter()
+    recon, rnorms = index.recon_table()
+    torch.cuda.synchronize()
+    recon_s = time.perf_counter() - t0
+    log(f"  reconstruction table ({recon.numel() * 2 / 1e9:.2f} GB bf16) built in "
+        f"{recon_s * 1e3:.1f} ms")
+    bc, lists, _, _, _ = index._device_arrays_pq()
+    scan = {}
+    for nq in (1, 64):
+        q = q64[:nq]
+        probe = IV.rank_buckets(q, bc, nprobe).to(torch.int32).contiguous()
+        qf = q.to(recon.dtype).contiguous()
+        tol = score_tol(qf, rnorms)
+        err = max_abs_err(IV.probed_scan(qf, recon, rnorms, probe),
+                          IV.probed_scan_ref(qf, recon, rnorms, probe))
+        if err > tol:
+            raise AssertionError(f"probed_scan Q={nq}: error {err} > tolerance {tol}")
+        d, i, ok = IV.ivf_probed_topk(q, bc, recon, rnorms, lists, K, nprobe)
+        rd, ri = plain_probed_topk(q, bc, recon, rnorms, lists, K, nprobe)
+        if not bool(ok.all()):
+            raise AssertionError(f"probed top-k Q={nq}: invalid slots among the top {K}")
+        assert_same_topk(d.cpu().numpy(), i.cpu().numpy(), rd.cpu().numpy(), ri.cpu().numpy(),
+                         2 * tol, f"probed top-k Q={nq}")
+        ub = torch.unique(probe).numel()  # distinct buckets this run reads
+        scan[nq] = {
+            "max_abs_err": err, "tol": tol,
+            "ms": median_ms(lambda: IV.probed_scan(qf, recon, rnorms, probe), flush),
+            "plain_ms": median_ms(lambda: IV.probed_scan_ref(qf, recon, rnorms, probe), flush),
+            "topk_ms": median_ms(lambda: IV.ivf_probed_topk(q, bc, recon, rnorms, lists, K,
+                                                            nprobe), flush),
+            "bound": bound(ub * cap * (SCALE_D * 2 + 4) + nq * SCALE_D * 2
+                           + nq * nprobe * (4 + cap * 4), 2 * nq * nprobe * cap * SCALE_D,
+                           BF16_FLOPS),
+            "buckets": ub,
+        }
+        log(f"  probed_scan Q={nq} (bf16 table, {nprobe} probes x cap {cap}, {ub} distinct "
+            f"buckets): err {err:.3g} (tol {tol:.3g}); {scan[nq]['ms']:.4f} ms (plain "
+            f"{scan[nq]['plain_ms']:.4f} ms, bound {scan[nq]['bound'][0]:.4f} ms by "
+            f"{scan[nq]['bound'][1]}); probed top-{K} {scan[nq]['topk_ms']:.4f} ms, ids = plain "
+            f"route's")
+    qf = q64.contiguous()
+    probe = IV.rank_buckets(qf, bc, nprobe).to(torch.int32).contiguous()
+    err_raw = max_abs_err(IV.probed_scan(qf, index.packed, index.packed_norms, probe),
+                          IV.probed_scan_ref(qf, index.packed, index.packed_norms, probe))
+    if err_raw > score_tol(qf, index.packed_norms):
+        raise AssertionError(f"probed_scan on the f32 table: error {err_raw}")
+    scan["max_abs_err"] = max(scan[1]["max_abs_err"], scan[64]["max_abs_err"], err_raw)
+
+    # search quality: the probed scan against ADC, and rerank against exact
+    _, i_adc = index.search(q64, 10)
+    _, i_b = index.search_batched(q64, 10)
+    overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                             for a, b in zip(i_adc, i_b)]))
+    flat = FlatIndex("l2", device="cuda").add(x)
+    _, i_true = flat.search(q64, 10)
+    del flat
+    _, i_rr = index.search_batched(q64, 10, rerank=64)
+    _, i_rr256 = index.search_batched(q64, 10, rerank=256)
+    _, i_raw, _ = IV.ivf_probed_topk(q64, bc, index.packed, index.packed_norms, lists, 10, nprobe)
+
+    def recall(i):
+        return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                              for a, b in zip(i, i_true)]))
+
+    rec_adc, rec_rr = recall(i_b), recall(i_rr)
+    log(f"  Q=64 k=10: search_batched vs ADC search top-10 overlap {overlap:.4f} (bar 0.9); "
+        f"recall@10 vs exact FlatIndex: probing alone (raw f32 table) "
+        f"{recall(i_raw.cpu().numpy()):.4f}, ADC {rec_adc:.4f}, rerank=64 {rec_rr:.4f}, "
+        f"rerank=256 {recall(i_rr256):.4f}")
+    if overlap < 0.9 or rec_rr < rec_adc:
+        raise AssertionError(f"IVF-PQ search quality: overlap {overlap}, recall ADC {rec_adc} "
+                             f"vs rerank {rec_rr}")
+    serve_ms = {nq: median_ms(lambda: index.search_batched(q64[:nq], K, rerank=64), flush)
+                for nq in (1, 64)}
+    log(f"  search_batched(k={K}, rerank=64) incl. host transfer: Q=1 {serve_ms[1]:.3f} ms, "
+        f"Q=64 {serve_ms[64]:.3f} ms")
+    del index, recon, rnorms, x
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "scan": scan, "nprobe": nprobe, "cap": cap,
+            "assign": {"max_abs_err": max(err_c, err_b), "ms": assign_ms,
+                       "plain_ms": assign_plain_ms, "bound": a_bound}}
+
+
+def phase3_entry(workdir: Path, paths: list) -> dict:
+    """The IVF-PQ path through the entry points: the indexer CLI over phase
+    2's PNGs, then the HTTP server; assign launches counted over the build,
+    probed-scan and select launches over the served queries."""
+    from image_search_engine_tpu_torch import engine as port_engine
+    from image_search_engine_tpu_torch import indexer as port_indexer
+    from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import kmeans as KM
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    log("phase 3: the IVF-PQ path (indexer CLI --index-type ivfpq -> HTTP server)")
+    art = workdir / "artifacts_ivfpq"
+    KM.assign.launches = 0
+    t0 = time.perf_counter()
+    port_indexer.cli_main(["--data-dir", str(workdir / "images"), "--artifacts-dir", str(art),
+                           "--method", "dnn", "--dnn-model", "resnet50", "--index-type", "ivfpq",
+                           "--pq-rerank", "64", "--device", "cuda"])
+    assign_launches = KM.assign.launches
+    log(f"  indexed in {time.perf_counter() - t0:.1f} s, {assign_launches} assign launches")
+    cfg, device = port_engine.parse_args(["--artifacts-dir", str(art), "--index-type", "ivfpq",
+                                          "--port", "0", "--device", "cuda"])
+    engine, httpd = port_engine.make_server(cfg, device)
+    if type(engine.index).__name__ != "IVFPQIndex" or engine.index.ntotal != 4096:
+        raise AssertionError(f"engine loaded {type(engine.index).__name__} of "
+                             f"{engine.index.ntotal} rows")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        IV.probed_scan.launches = 0
+        T.select_topt.launches = 0
+        first, lat = 0, []
+        for i in np.linspace(0, 4095, 8).astype(int):
+            t0 = time.perf_counter()
+            status, js = post_image(base + "/similar_images", paths[i].read_bytes())
+            lat.append(time.perf_counter() - t0)
+            if status != 200:
+                raise AssertionError(f"ivfpq query {i}: HTTP {status} {js}")
+            pred = js["prediction"]
+            dists, names = [p[0] for p in pred], [p[2] for p in pred]
+            if len(pred) != K or str(paths[i]) not in names:
+                raise AssertionError(f"ivfpq query {i}: {len(pred)} results, own file absent")
+            if not (np.all(np.isfinite(dists)) and dists == sorted(dists)):
+                raise AssertionError(f"ivfpq query {i}: distances not finite ascending: {dists}")
+            first += names[0] == str(paths[i])
+        counts = {"probed_scan": IV.probed_scan.launches, "select_topt": T.select_topt.launches}
+        status, _ = post_image(base + "/similar_images", b"not an image")
+        if status != 400:
+            raise AssertionError(f"ivfpq garbage upload answered {status}, want 400")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health.get("status") != "ok" or health.get("corpus") != 4096:
+            raise AssertionError(f"ivfpq healthz: {health}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    if assign_launches == 0 or not all(v > 0 for v in counts.values()):
+        raise AssertionError(f"a kernel did not launch: assign {assign_launches} during the "
+                             f"build, {counts} while serving")
+    p50 = float(np.median(lat)) * 1e3
+    log(f"  8 queries ok (own file in the top {K}, ranked first in {first} of 8); launches "
+        f"while serving {counts}; request latency p50 {p50:.2f} ms (client clock)")
+    return {"assign_launches": assign_launches, "launches": counts, "first": first,
+            "p50_ms": p50}
 
 
 def main() -> int:
@@ -419,19 +743,40 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         served = phase2(workdir)
+        scale = phase3_scale()
+        pq_served = phase3_entry(workdir, served["paths"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     head = shapes["Q1_N1M_d2048_f32_l2"]
     kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
         "launches": served["launches"][name],
         "max_abs_err": max(s[name]["max_abs_err"] for s in shapes.values()),
         "ms": head[name]["ms"], "plain_ms": head[name]["plain_ms"],
+        "bound_ms": head[name]["bound_ms"], "bound_by": head[name]["bound_by"],
+        "library_ms": head[name]["library_ms"],
         "shape": "Q=1 N=1,000,000 d=2048 f32 l2 k=20",
     } for name in ("groupmin", "select_topt", "rescore")]
-    log(f"total {time.perf_counter() - t_start:.1f} s; serving p50 {served['p50_ms']:.2f} ms, "
-        f"escalations {served['escalations']}")
+    scan, asg = scale["scan"], scale["assign"]
+    kernels.append({
+        "name": "probed_scan", "route": "cuda", "source": SOURCES["probed_scan"],
+        "replaces": REPLACES["probed_scan"], "launches": pq_served["launches"]["probed_scan"],
+        "max_abs_err": scan["max_abs_err"], "ms": scan[1]["ms"], "plain_ms": scan[1]["plain_ms"],
+        "bound_ms": scan[1]["bound"][0], "bound_by": scan[1]["bound"][1], "library_ms": None,
+        "shape": f"Q=1 nprobe={scale['nprobe']} cap={scale['cap']} d={SCALE_D} bf16 "
+                 f"reconstruction table, N={SCALE_N:,}",
+    })
+    kernels.append({
+        "name": "kmeans_assign", "route": "cuda", "source": SOURCES["kmeans_assign"],
+        "replaces": REPLACES["kmeans_assign"], "launches": pq_served["assign_launches"],
+        "max_abs_err": asg["max_abs_err"], "ms": asg["ms"], "plain_ms": asg["plain_ms"],
+        "bound_ms": asg["bound"][0], "bound_by": asg["bound"][1], "library_ms": None,
+        "shape": f"N={SCALE_N:,} K={NLIST} d={SCALE_D} f32 (coarse quantizer)",
+    })
+    log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "
+        f"{served['p50_ms']:.2f} ms, escalations {served['escalations']}; IVF-PQ build "
+        f"{scale['build_s']:.1f} s, IVF-PQ serving p50 {pq_served['p50_ms']:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,13 @@
-"""Query engine: HTTP serving of the DNN flat index on a torch device.
+"""Query engine: HTTP serving of a DNN index on a torch device.
 
-Port of the DNN-flat part of ``image_search_engine_tpu/engine.py``. The
-HTTP contract and handler are the JAX package's own (``make_handler``):
-``POST /similar_images`` takes a multipart image upload and answers
-``{"prediction": [[distance, base64_thumbnail, path], ...]}``; ``GET
-/healthz``, ``GET /stats`` and the upload UI at ``GET /`` come with it.
-Per request: host decode and resize, then one device dispatch (embed +
-certified two-phase search, serving/fused.py), then thumbnails from the
-packed cache. BoVW, dHash, IVF, IVF-PQ, micro-batched and sharded
+Port of the single-device DNN part of ``image_search_engine_tpu/engine.py``
+for flat, cell-probe (IVF) and IVF-PQ indexes. The HTTP contract is the JAX
+package's (serving/http.py): ``POST /similar_images`` takes a multipart
+image upload and answers ``{"prediction": [[distance, base64_thumbnail,
+path], ...]}``; ``GET /healthz``, ``GET /stats`` and the upload UI at ``GET
+/`` come with it. Per request: host decode and resize, then one device
+dispatch (embed + the index family's search core, serving/fused.py), then
+thumbnails from the packed cache. BoVW, dHash, micro-batched and sharded
 serving wait for ROADMAP.md.
 
 Usage:
@@ -27,10 +27,10 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
-from image_search_engine_tpu.config import Config, DnnModel, IndexType, Method
-from image_search_engine_tpu.engine import make_handler
-from image_search_engine_tpu.utils.imageio import ThumbnailCache, load_paths_csv, thumbnail_b64
-from image_search_engine_tpu.utils.profiling import ServingStats
+from image_search_engine_tpu_torch.config import Config, DnnModel, IndexType, Method
+from image_search_engine_tpu_torch.serving.http import make_handler
+from image_search_engine_tpu_torch.utils.imageio import ThumbnailCache, load_paths_csv, thumbnail_b64
+from image_search_engine_tpu_torch.utils.profiling import ServingStats
 from image_search_engine_tpu_torch.indexer import (
     BACKEND, EMBEDDER_ARCH, _torch_weights_sha, check_supported, warn_if_random_backbone)
 from image_search_engine_tpu_torch.utils.device import resolve_device
@@ -71,7 +71,7 @@ class QueryEngine:
         log.info("prewarm finished in %.1fs", time.time() - t0)
 
     def _build(self, cfg: Config) -> Callable[[np.ndarray, int], Tuple[np.ndarray, np.ndarray]]:
-        from image_search_engine_tpu_torch.index.flat import FlatIndex
+        from image_search_engine_tpu_torch.index.ivf import IVFIndex, IVFPQIndex
         from image_search_engine_tpu_torch.models.embedder import CNNEmbedder
         from image_search_engine_tpu_torch.serving import fused
 
@@ -80,10 +80,28 @@ class QueryEngine:
         embedder = CNNEmbedder(cfg.dnn_model.value, image_size=cfg.resize_size,
                                batch_size=1, device=self.device,
                                torch_weights=cfg.torch_weights)
-        self.index = FlatIndex.load(cfg.dnn_index_path, device=self.device)
+        self.index = self._load_index(cfg.dnn_index_path, cfg, self.device)
         prologue = fused.cnn_prologue(embedder, normalize=self.index.metric == "cosine")
-        batched = fused.make_batched_search(prologue, *fused.flat_family(self.index, stats=self.stats))
+        if type(self.index) is IVFPQIndex:
+            family = fused.ivfpq_family(self.index)
+        elif type(self.index) is IVFIndex:
+            family = fused.ivf_family(self.index)
+        else:
+            family = fused.flat_family(self.index, stats=self.stats)
+        batched = fused.make_batched_search(prologue, *family)
         return fused.wrap_serving(batched, cfg.resize_size, cfg)
+
+    @staticmethod
+    def _load_index(path, cfg: Config, device):
+        """The index the config names, loaded onto ``device``."""
+        from image_search_engine_tpu_torch.index.flat import FlatIndex
+        from image_search_engine_tpu_torch.index.ivf import IVFIndex, IVFPQIndex
+
+        if cfg.index_type == IndexType.IVFPQ:
+            return IVFPQIndex.load(path, device=device)
+        if cfg.index_type == IndexType.CELL_PROBE:
+            return IVFIndex.load(path, device=device)
+        return FlatIndex.load(path, device=device)
 
     @staticmethod
     def _check_embedder_provenance(cfg: Config) -> None:

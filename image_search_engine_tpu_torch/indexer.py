@@ -1,16 +1,16 @@
 """Offline indexer CLI: corpus images -> on-disk index artifacts.
 
 Port of the DNN half of ``image_search_engine_tpu/indexer.py``: decode
-the corpus in a host thread pool (``utils/imageio.load_images_batched``,
-shared with the JAX package), embed it in batches on the device, write a
-flat index ``.npz`` in the JAX package's format, the ``images.csv`` id ->
-path sidecar, the packed thumbnails and the ``embedder.json`` provenance.
-BoVW, dHash, IVF and IVF-PQ builds wait for ROADMAP.md (queue 1 items 4
-and 5).
+the corpus in a host thread pool (``utils/imageio.load_images_batched``),
+embed it in batches on the device, build a flat, cell-probe (IVF) or IVF-PQ
+index and write it as an ``.npz`` in the JAX package's format, with the
+``images.csv`` id -> path sidecar, the packed thumbnails and the
+``embedder.json`` provenance. BoVW and dHash builds wait for ROADMAP.md
+(queue 1 item 5).
 
 Usage:
     python -m image_search_engine_tpu_torch.indexer --data-dir photos/ \\
-        --method dnn --device cuda
+        --method dnn --index-type ivfpq --pq-rerank 64 --device cuda
 """
 
 from __future__ import annotations
@@ -24,8 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
-from image_search_engine_tpu.config import Config, DnnModel, IndexType, Method
-from image_search_engine_tpu.utils.imageio import (
+from image_search_engine_tpu_torch.config import Config, DnnModel, IndexType, Method
+from image_search_engine_tpu_torch.utils.imageio import (
     ThumbnailCache, get_image_paths, load_images_batched, load_paths_csv, save_paths_csv)
 from image_search_engine_tpu_torch.utils.unported import not_ported
 
@@ -66,8 +66,6 @@ def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for what the port does not serve yet."""
     if cfg.method != Method.DNN:
         raise not_ported(f"method {cfg.method.value!r}", "bovw")
-    if cfg.index_type in (IndexType.CELL_PROBE, IndexType.IVFPQ):
-        raise not_ported(f"index type {cfg.index_type.value!r}", "ivf")
     if cfg.index_type == IndexType.CHI2:
         raise not_ported("the chi2 metric", "chi2")
     if cfg.store_dtype == "int8":
@@ -76,8 +74,23 @@ def check_supported(cfg: Config) -> None:
         raise not_ported("--sharded / --dcn-*", "multi-device")
 
 
-def build_dnn_index(cfg: Config, paths, device="cuda", use_native: bool = False) -> None:
+def _build_index(cfg: Config, feats: np.ndarray, device):
+    """The configured index over ``feats`` (flat, cell-probe or IVF-PQ)."""
     from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.index.ivf import IVFIndex, IVFPQIndex
+
+    if cfg.index_type == IndexType.IVFPQ:
+        # the reference's "cell-probe" index: m sub-quantizers x 8 bits
+        # over coarse residuals
+        return IVFPQIndex(metric="l2", nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe,
+                          m=cfg.pq_m, rerank=cfg.pq_rerank, device=device).add(feats)
+    if cfg.index_type == IndexType.CELL_PROBE:
+        return IVFIndex(metric="l2", nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe,
+                        table_dtype=cfg.store_dtype, device=device).add(feats)
+    return FlatIndex(cfg.index_type.value, dtype=cfg.store_dtype, device=device).add(feats)
+
+
+def build_dnn_index(cfg: Config, paths, device="cuda", use_native: bool = False) -> None:
     from image_search_engine_tpu_torch.models.embedder import CNNEmbedder
 
     warn_if_random_backbone(cfg, "building a DNN index")
@@ -93,8 +106,12 @@ def build_dnn_index(cfg: Config, paths, device="cuda", use_native: bool = False)
     if not feats:
         raise SystemExit("no image could be decoded")
     feats = np.concatenate(feats)
-    index = FlatIndex(cfg.index_type.value, dtype=cfg.store_dtype, device=device).add(feats)
-    index.save(cfg.dnn_index_path)
+    index = _build_index(cfg, feats, device)
+    if cfg.index_type == IndexType.IVFPQ:
+        # a rerank-enabled artifact carries the raw vectors the rerank scores
+        index.save(cfg.dnn_index_path, store_raw=cfg.pq_rerank > 0)
+    else:
+        index.save(cfg.dnn_index_path)
     save_paths_csv([paths[i] for i in kept], cfg.paths_file)
     _save_embedder_provenance(cfg)
     log.info("DNN index: %d vectors (%d-D) -> %s", len(kept), feats.shape[1],
@@ -152,7 +169,19 @@ def parse_args(argv=None):
     ap.add_argument("--torch-weights", type=Path, default=None,
                     help="torchvision ResNet .pth checkpoint to load as the backbone")
     ap.add_argument("--store-dtype", choices=["f32", "bf16", "int8"], default="f32",
-                    help="flat-store precision (int8 is not ported yet)")
+                    help="flat-store / cell-probe table precision (int8 is not "
+                         "ported yet)")
+    ap.add_argument("--pq-rerank", type=int, default=0,
+                    help="ivfpq only: exact-rerank shortlist size (0 = ADC "
+                         "ranking; >0 stores raw vectors in the artifact and "
+                         "re-scores the top-C ADC shortlist exactly)")
+    ap.add_argument("--ivf-nlist", type=int, default=8,
+                    help="cell-probe/ivfpq coarse cells (reference "
+                         "ncentroids=8)")
+    ap.add_argument("--ivf-nprobe", type=int, default=5,
+                    help="cells probed per query (reference nprobe=5)")
+    ap.add_argument("--pq-m", type=int, default=16,
+                    help="ivfpq subquantizers (reference m=16)")
     ap.add_argument("--native-loader", action="store_true",
                     help="decode+resize with the C++ loader (native/)")
     ap.add_argument("--no-thumbnails", action="store_true",
@@ -165,7 +194,8 @@ def parse_args(argv=None):
         index_type=IndexType(a.index_type), dnn_model=DnnModel(a.dnn_model),
         embed_batch_size=a.batch_size, resize_size=a.resize_size,
         precompute_thumbnails=not a.no_thumbnails, store_dtype=a.store_dtype,
-        torch_weights=a.torch_weights)
+        torch_weights=a.torch_weights, pq_rerank=a.pq_rerank, ivf_nlist=a.ivf_nlist,
+        ivf_nprobe=a.ivf_nprobe, pq_m=a.pq_m)
     return cfg, a.device, a.native_loader
 
 

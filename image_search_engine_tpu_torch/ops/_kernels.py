@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the sources into a shared library with a plain C
-interface at first use, under ``build/kernels/`` at the root of the
-checkout, named by a hash of the sources and flags (a changed source is a
-new file; an unchanged one is built once per checkout). ``ctypes`` loads it.
+At first use ``nvcc`` compiles every source to an object file, all of them
+at once in parallel, and links them into one shared library with a plain C
+interface, under ``build/kernels/`` at the root of the checkout, named by a
+hash of the sources, headers and flags (a changed source is a new file; an
+unchanged one is built once per checkout). ``ctypes`` loads it.
 Every pointer and the stream cross as ``c_void_p``; each C function returns
 the ``cudaError_t`` of its launch, and :func:`check` raises on anything but
 0. Nothing here runs at import: the CPU tests import every module.
@@ -16,18 +17,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "topk_twophase.cu",)
+_CSRC = _PKG / "csrc"
+SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu")
+HEADERS = (_CSRC / "scoring.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -47,40 +49,48 @@ def find_nvcc() -> str:
         if c.is_file() and os.access(c, os.X_OK):
             return str(c)
     raise RuntimeError(
-        "nvcc not found: the two-phase search kernels are compiled from "
+        "nvcc not found: the search and k-means kernels are compiled from "
         "image_search_engine_tpu_torch/csrc at first use on a CUDA device and "
         "need the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
+        h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"topk_twophase-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"ise_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, float]:
-    """Compile the sources unless this exact build exists. Returns the
-    library path and the seconds spent compiling (0.0 when it existed).
-    The compiler's output (registers, shared memory, spills per kernel)
-    is kept beside the library as ``.log``."""
+    """Compile the sources unless this exact build exists: one ``nvcc -c``
+    per source, all started together, then one link. Returns the library
+    path and the seconds spent (0.0 when it existed). The compiler's output
+    (registers, shared memory, spills per kernel) is kept beside the
+    library as ``.log``."""
     out = library_path()
     if out.exists():
         return out, 0.0
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-        capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    return out, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [f"== {src.name}\n{proc.communicate()[0]}" for src, proc in zip(SOURCES, procs)]
+        failed = [src.name for src, proc in zip(SOURCES, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(logs))
+        tmp = Path(tmpdir) / out.name
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        out.with_suffix(".log").write_text("\n".join(logs) + link.stdout + link.stderr)
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    return out, time.perf_counter() - t0
 
 
 def library() -> ctypes.CDLL:
@@ -97,6 +107,10 @@ def library() -> ctypes.CDLL:
             lib.ise_select_topt.restype = i
             lib.ise_rescore.argtypes = [i, p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_rescore.restype = i
+            lib.ise_probed_scan.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.ise_probed_scan.restype = i
+            lib.ise_kmeans_assign.argtypes = [p, p, p, p, p, i, ll, i, i, ll, ll, i, p]
+            lib.ise_kmeans_assign.restype = i
             lib.ise_error_string.argtypes = [i]
             lib.ise_error_string.restype = ctypes.c_char_p
             _lib = lib

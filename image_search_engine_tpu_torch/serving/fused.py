@@ -1,14 +1,15 @@
 """Serving programs: feature prologue + search core + host epilogue.
 
-Port of the DNN-flat part of ``image_search_engine_tpu/serving/fused.py``.
-Every request runs one prologue (upload, preprocess, backbone) and one
-search core (the certified two-phase top-k) on the device, then one host
-transfer of (distances, ids, certificate) in the epilogue. PyTorch runs
-eagerly, so there is no program to compile and the store rides in the
-core's closure; the structure is kept so that the certificate retry
-re-runs the whole dispatch at the wide margin, as in the JAX package. The
-IVF, IVF-PQ and BoVW families, micro-batching and the multi-host
-coordinator wait for ROADMAP.md (queue 1 items 4, 5, 3 and 7).
+Port of the single-device part of ``image_search_engine_tpu/serving/
+fused.py``. Every request runs one prologue (upload, preprocess, backbone)
+and one search core on the device, then one host transfer in the epilogue.
+Families: flat (the certified two-phase top-k; the certificate retry
+re-runs the whole dispatch at the wide margin, as in the JAX package), IVF
+and IVF-PQ (the probed-scan kernel; IVF-PQ scans a reconstruction table
+built once at start, with an optional exact rerank in the same dispatch).
+PyTorch runs eagerly, so there is no program to compile and the device
+arrays ride in each core's closure. BoVW, micro-batching and the
+multi-host coordinator wait for ROADMAP.md (queue 1 items 5, 3 and 7).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from image_search_engine_tpu_torch.index.flat import MAX_KERNEL_K, WIDE_MARGIN, faiss_tail
 from image_search_engine_tpu_torch.ops.distances import l2_normalize
+from image_search_engine_tpu_torch.ops.ivf import ivf_probed_topk
 from image_search_engine_tpu_torch.parallel.topk import local_topk_with_norms
 from image_search_engine_tpu_torch.utils.unported import not_ported
 
@@ -107,11 +109,75 @@ def flat_family(index, stats=None, label: str = ""):
     return core, lambda k: min(k, n_valid), epilogue
 
 
+def finish_epilogue(index):
+    """Probed-family epilogue: one host transfer of (d, i, ok), invalid
+    slots to -1, then the index's Faiss-shaped ``_finish`` (k padding,
+    cosine conversion). Probed families carry no certificate, so there is
+    no retry."""
+
+    def epilogue(out, k: int, retry):
+        del retry
+        return index._host_finish([out], k)
+
+    return epilogue
+
+
+def ivf_family(index):
+    """Single-device cell-probe: the probed-scan kernel over the resident
+    list-contiguous table (ops/ivf.ivf_probed_topk). The JAX package's
+    family runs the XLA gather path here; both score the same probes and
+    rows, so results agree modulo ties. Returns (core, statics_fn,
+    epilogue)."""
+    nprobe = index._effective_nprobe()
+    bcents, lists, packed, pnorms = index._device_arrays()
+
+    def core(emb, k, t_margin):
+        del t_margin
+        return ivf_probed_topk(emb, bcents, packed, pnorms, lists, k, nprobe)
+
+    return core, lambda k: index._k_eff(k, nprobe), finish_epilogue(index)
+
+
+def ivfpq_family(index):
+    """Single-device IVF-PQ: the codes are decompressed once, at engine
+    start, into a resident bf16 reconstruction table (scanning it is ADC up
+    to bf16 rounding), then the probed-scan kernel and the optional exact
+    rerank run in the same dispatch. Returns (core, statics_fn, epilogue);
+    the statics are (k_eff, rerank shortlist or 0)."""
+    from image_search_engine_tpu_torch.index.ivf import _exact_rescore
+
+    nprobe = index._effective_nprobe()
+    pool = nprobe * index.lists.shape[1]
+    bcents, lists, _, _, _ = index._device_arrays_pq()
+    recon, rnorms = index.recon_table()
+    rerank = index.rerank
+    if rerank and index.vectors is None:
+        log.warning("IVFPQ index configured with rerank=%d but the artifact holds codes "
+                    "only — serving ADC-ranked results (rebuild with --pq-rerank to keep "
+                    "raw vectors)", rerank)
+        rerank = 0
+    raw = index.vectors if rerank else None
+
+    def core(emb, statics, t_margin):
+        del t_margin
+        k, c = statics
+        out = ivf_probed_topk(emb, bcents, recon, rnorms, lists, c or k, nprobe)
+        if c:
+            out = _exact_rescore(emb, raw, out[1], out[2], k)
+        return out
+
+    def statics_fn(k):
+        k_eff = index._k_eff(k, nprobe)
+        return k_eff, (min(max(rerank, k_eff), pool) if rerank else 0)
+
+    return core, statics_fn, finish_epilogue(index)
+
+
 def wrap_serving(batched_search: BatchedSearch, image_size: int, cfg):
     """The per-request ``search(image, k)``: host resize to the index-build
     resolution on the request's thread, then the dispatch on the device
     thread."""
-    from image_search_engine_tpu.engine import _resize_host
+    from image_search_engine_tpu_torch.serving.http import _resize_host
 
     if cfg.micro_batch_mode() != "off":
         raise not_ported(f"--micro-batch {cfg.micro_batch_mode()}", "serving")

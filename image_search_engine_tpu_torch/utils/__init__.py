@@ -1,3 +1,3 @@
-"""Host utilities of the port. The framework-free ones (image decode,
-thumbnails, path sidecars, serving stats) are imported from
-``image_search_engine_tpu.utils`` instead of copied."""
+"""Host utilities of the port: device selection, image decode and
+thumbnails (copies of the JAX package's), serving stats, and the
+not-ported-yet errors."""

@@ -4,7 +4,6 @@ ROADMAP_ITEMS = {
     "chi2": "queue 1 item 1, flat-index remainder",
     "int8": "queue 2 item 4, int8 kernels",
     "serving": "queue 1 item 3, on-host serving latency",
-    "ivf": "queue 1 item 4, IVF family",
     "bovw": "queue 1 item 5, descriptors, BoVW and dHash",
     "backbone": "queue 1 item 6, other backbones and training",
     "multi-device": "queue 1 item 7, multi-device",

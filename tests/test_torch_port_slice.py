@@ -21,6 +21,7 @@ from image_search_engine_tpu.config import Config, DnnModel, IndexType, Method
 from image_search_engine_tpu.engine import QueryEngine as JaxQueryEngine
 from image_search_engine_tpu.indexer import main as jax_indexer_main
 from image_search_engine_tpu.utils.imageio import decode_image_bytes, load_paths_csv
+from image_search_engine_tpu_torch import config as port_config
 from image_search_engine_tpu_torch import engine as port_engine
 from image_search_engine_tpu_torch import indexer as port_indexer
 from image_search_engine_tpu_torch.models.resnet import ResNet18Thin
@@ -126,9 +127,63 @@ def test_index_and_serve_matches_jax(tmp_path):
 
 
 def test_engine_refuses_unported_modes(tmp_path):
-    cfg = Config(artifacts_dir=tmp_path, method=Method.BOVW)
+    cfg = port_config.Config(artifacts_dir=tmp_path, method=port_config.Method.BOVW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_engine.QueryEngine(cfg, device="cpu")
-    cfg = Config(artifacts_dir=tmp_path, index_type=IndexType.IVFPQ)
+    cfg = port_config.Config(artifacts_dir=tmp_path, index_type=port_config.IndexType.IVFPQ,
+                             store_dtype="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_indexer.main(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("index_type", ["ivfpq", "cell-probe"])
+def test_ivf_index_and_serve(tmp_path, index_type):
+    """The IVF family through the port's entry points on the CPU: the
+    indexer CLI builds the index (CLI defaults: nlist 8, nprobe 5, m 16),
+    the port's HTTP server answers each corpus image with itself first, and
+    the JAX engine serves the port-built artifact with the same top-1."""
+    make_corpus(tmp_path / "images", np.random.default_rng(1))
+    weights = tmp_path / "tiny.pth"
+    make_weights(weights)
+    art = tmp_path / "port"
+    extra = ["--pq-rerank", "8"] if index_type == "ivfpq" else []
+    port_indexer.cli_main([
+        "--data-dir", str(tmp_path / "images"), "--artifacts-dir", str(art),
+        "--method", "dnn", "--dnn-model", "resnet-tiny", "--index-type", index_type,
+        "--resize-size", "32", "--batch-size", "4", "--torch-weights", str(weights),
+        "--device", "cpu", *extra])
+    with np.load(art / f"dnn_resnet-tiny_{index_type}.index.npz") as z:
+        assert str(z["kind"]) == ("ivfpq" if index_type == "ivfpq" else "ivf")
+        assert z["vectors"].shape == (12, 2048) and z["centroids"].shape[0] == 8
+
+    cfg, device = port_engine.parse_args([
+        "--artifacts-dir", str(art), "--index-type", index_type, "--dnn-model", "resnet-tiny",
+        "--resize-size", "32", "--torch-weights", str(weights), "--port", "0", "--device", "cpu"])
+    engine, httpd = port_engine.make_server(cfg, device)
+    assert type(engine.index).__name__ == ("IVFPQIndex" if index_type == "ivfpq" else "IVFIndex")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    jax_engine = JaxQueryEngine(Config(
+        artifacts_dir=art, data_dir=tmp_path / "images", method=Method.DNN,
+        dnn_model=DnnModel.RESNET_TINY, index_type=IndexType(index_type), resize_size=32,
+        torch_weights=weights, num_images_to_return=5), prewarm=False)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        for path in engine.paths:
+            data = open(path, "rb").read()
+            status, js = post_image(base + "/similar_images", data)
+            pred = js["prediction"]
+            # k = 20 over 12 rows, 5 of 8 cells probed: the (-1) tail is dropped
+            assert status == 200 and 1 <= len(pred) <= 12
+            dists = [p[0] for p in pred]
+            assert np.isfinite(dists).all() and dists == sorted(dists)
+            assert pred[0][2] == path and pred[0][1]  # itself first, with a thumbnail
+            assert jax_engine.query(decode_image_bytes(data), k=1)[0][2] == path
+        assert post_image(base + "/similar_images", b"garbage")[0] == 400
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            assert json.loads(r.read()) == {"status": "ok", "corpus": 12}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
