@@ -20,9 +20,15 @@ Phases (each raises on failure; the script then exits non-zero):
      versions, the probed search against ADC and exact search; then the
      IVF-PQ path through the entry points (the same PNGs, indexer CLI with
      ``--index-type ivfpq --pq-rerank 64``, HTTP server) with the launch
-     counts of the build and of serving.
+     counts of the build and of serving;
+  4. the int8 store and chi2: quantization on the card bit-identical to the
+     numpy formula, both int8 kernels equal to their plain versions bit for
+     bit at Q = 1 x 1M x 2048 and three other shapes plus an edge sweep,
+     with timings (and ``torch._int_mm``'s product alone as a yardstick);
+     then the same PNGs through ``--store-dtype int8`` and through
+     ``--index-type chi2``, each served over HTTP with its launch counts.
 
-Before its last two lines it prints a JSON object describing the five
+Before its last two lines it prints a JSON object describing the seven
 kernels (launches, errors, times, bounds) and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
@@ -57,6 +63,8 @@ SOURCES = {
     "rescore": CSRC + "topk_twophase.cu",
     "probed_scan": CSRC + "ivf_probed_scan.cu",
     "kmeans_assign": CSRC + "kmeans_assign.cu",
+    "groupmin_q8": CSRC + "topk_twophase_q8.cu",
+    "rescore_q8": CSRC + "topk_twophase_q8.cu",
 }
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
@@ -64,13 +72,16 @@ REPLACES = {
     "rescore": "image_search_engine_tpu/ops/topk_pallas.py:298",
     "probed_scan": "image_search_engine_tpu/ops/ivf_pallas.py:36",
     "kmeans_assign": "image_search_engine_tpu/ops/kmeans_pallas.py:26",
+    "groupmin_q8": "image_search_engine_tpu/ops/topk_pallas.py:276",
+    "rescore_q8": "image_search_engine_tpu/ops/topk_pallas.py:333",
 }
 EPS32 = float(np.finfo(np.float32).eps)
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
-# the CUDA cores, bf16 on the tensor cores
+# the CUDA cores, bf16 and int8 on the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 # phase 3: the repo's 1M IVF operating point at the ResNet-50 width, over
 # synthetic rows: 4,096 Gaussian centres in a 64-d latent space, projected
 # to 2048-d (the latent width is a choice, not a measured property of image
@@ -380,67 +391,92 @@ def check_embedder() -> None:
         raise AssertionError(f"embedder check failed: shape {got.shape}, rel err {rel}")
 
 
-def phase2(workdir: Path) -> dict:
-    from image_search_engine_tpu_torch import engine as port_engine
+def index_corpus(workdir: Path, name: str, *flags: str) -> Path:
+    """The port's indexer CLI over the corpus PNGs (ResNet-50 on the card)
+    into ``workdir / name``; returns that artifacts directory."""
     from image_search_engine_tpu_torch import indexer as port_indexer
-    from image_search_engine_tpu_torch.ops import topk as T
 
-    log("phase 2: the main path (indexer CLI -> HTTP server)")
-    check_embedder()
-    t0 = time.perf_counter()
-    paths = write_corpus(workdir / "images", 4096)
-    log(f"  wrote {len(paths)} PNGs in {time.perf_counter() - t0:.1f} s")
-    art = workdir / "artifacts"
+    art = workdir / name
     t0 = time.perf_counter()
     port_indexer.cli_main(["--data-dir", str(workdir / "images"), "--artifacts-dir", str(art),
-                           "--method", "dnn", "--dnn-model", "resnet50", "--index-type", "l2",
+                           "--method", "dnn", "--dnn-model", "resnet50", *flags,
                            "--device", "cuda"])
-    log(f"  indexed in {time.perf_counter() - t0:.1f} s")
+    log(f"  indexed ({' '.join(flags)}) in {time.perf_counter() - t0:.1f} s")
+    return art
 
-    cfg, device = port_engine.parse_args(["--artifacts-dir", str(art), "--port", "0",
-                                          "--device", "cuda"])
+
+def serve_and_query(art: Path, index_type: str, paths: list, label: str,
+                    own_first: bool = True) -> dict:
+    """The port's HTTP server on ``art``, 8 corpus images posted one at a
+    time: each answers 200 with K finite ascending distances and the
+    query's own file first (``own_first``) or among the K; a garbage upload
+    answers 400 and /healthz counts the corpus. The kernels' launch counts
+    are set to 0 just before the 8 requests and read just after. Returns
+    {engine, launches, p50_ms, first, escalations}."""
+    from image_search_engine_tpu_torch import engine as port_engine
+    from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    cfg, device = port_engine.parse_args(["--artifacts-dir", str(art), "--index-type", index_type,
+                                          "--port", "0", "--device", "cuda"])
     engine, httpd = port_engine.make_server(cfg, device)  # prewarm builds + runs the kernels
-    if engine.index.store.n != 4096 or engine.index.ntotal // 128 <= K + 4:
-        raise AssertionError("the index must have more groups than t so the select runs")
+    if engine.index.ntotal != len(paths):
+        raise AssertionError(f"{label}: engine loaded {engine.index.ntotal} rows")
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
         T.reset_launch_counts()
-        lat = []
-        for i in np.linspace(0, 4095, 8).astype(int):
+        IV.probed_scan.launches = 0
+        first, lat = 0, []
+        for i in np.linspace(0, len(paths) - 1, 8).astype(int):
             t0 = time.perf_counter()
             status, js = post_image(base + "/similar_images", paths[i].read_bytes())
             lat.append(time.perf_counter() - t0)
             if status != 200:
-                raise AssertionError(f"query {i}: HTTP {status} {js}")
+                raise AssertionError(f"{label} query {i}: HTTP {status} {js}")
             pred = js["prediction"]
-            dists = [p[0] for p in pred]
-            if len(pred) != K or pred[0][2] != str(paths[i]):
-                raise AssertionError(f"query {i}: {len(pred)} results, top-1 {pred[0][2]}")
+            dists, names = [p[0] for p in pred], [p[2] for p in pred]
+            if len(pred) != K or str(paths[i]) not in names[:1 if own_first else K]:
+                raise AssertionError(f"{label} query {i}: {len(pred)} results, top-1 {names[0]}")
             if not (np.all(np.isfinite(dists)) and dists == sorted(dists)):
-                raise AssertionError(f"query {i}: distances not finite ascending: {dists}")
-        counts = T.launch_counts()
-        status, js = post_image(base + "/similar_images", b"not an image")
+                raise AssertionError(f"{label} query {i}: distances not finite ascending: {dists}")
+            first += names[0] == str(paths[i])
+        counts = {**T.launch_counts(), "probed_scan": IV.probed_scan.launches}
+        status, _ = post_image(base + "/similar_images", b"not an image")
         if status != 400:
-            raise AssertionError(f"garbage upload answered {status}, want 400")
+            raise AssertionError(f"{label} garbage upload answered {status}, want 400")
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
-        if health.get("status") != "ok" or health.get("corpus") != 4096:
-            raise AssertionError(f"healthz: {health}")
-        stats = engine.stats.snapshot()
+        if health.get("status") != "ok" or health.get("corpus") != len(paths):
+            raise AssertionError(f"{label} healthz: {health}")
+        escalations = engine.stats.snapshot()["certificate_escalations"]
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=60)
+    return {"engine": engine, "launches": counts, "p50_ms": float(np.median(lat)) * 1e3,
+            "first": first, "escalations": escalations}
+
+
+def phase2(workdir: Path) -> dict:
+    log("phase 2: the main path (indexer CLI -> HTTP server)")
+    check_embedder()
+    t0 = time.perf_counter()
+    paths = write_corpus(workdir / "images", 4096)
+    log(f"  wrote {len(paths)} PNGs in {time.perf_counter() - t0:.1f} s")
+    art = index_corpus(workdir, "artifacts", "--index-type", "l2")
+    out = serve_and_query(art, "l2", paths, "flat")
+    counts = {k: out["launches"][k] for k in ("groupmin", "select_topt", "rescore")}
+    if out["engine"].index.ntotal // 128 <= K + 4:
+        raise AssertionError("the index must have more groups than t so the select runs")
     if not all(v > 0 for v in counts.values()):
         raise AssertionError(f"a kernel did not launch while serving: {counts}")
-    p50 = float(np.median(lat)) * 1e3
     log(f"  8 queries ok (top-1 = the query's own file); launches while serving {counts}; "
-        f"request latency p50 {p50:.2f} ms (client clock, {len(lat)} requests); "
-        f"certificate escalations {stats['certificate_escalations']}")
-    return {"launches": counts, "p50_ms": p50,
-            "escalations": stats["certificate_escalations"], "paths": paths}
+        f"request latency p50 {out['p50_ms']:.2f} ms (client clock, 8 requests); "
+        f"certificate escalations {out['escalations']}")
+    return {"launches": counts, "p50_ms": out["p50_ms"], "escalations": out["escalations"],
+            "paths": paths, "art": art}
 
 
 # ---------------------------------------------------------------------------
@@ -652,67 +688,285 @@ def phase3_entry(workdir: Path, paths: list) -> dict:
     """The IVF-PQ path through the entry points: the indexer CLI over phase
     2's PNGs, then the HTTP server; assign launches counted over the build,
     probed-scan and select launches over the served queries."""
-    from image_search_engine_tpu_torch import engine as port_engine
-    from image_search_engine_tpu_torch import indexer as port_indexer
-    from image_search_engine_tpu_torch.ops import ivf as IV
     from image_search_engine_tpu_torch.ops import kmeans as KM
-    from image_search_engine_tpu_torch.ops import topk as T
 
     log("phase 3: the IVF-PQ path (indexer CLI --index-type ivfpq -> HTTP server)")
-    art = workdir / "artifacts_ivfpq"
     KM.assign.launches = 0
-    t0 = time.perf_counter()
-    port_indexer.cli_main(["--data-dir", str(workdir / "images"), "--artifacts-dir", str(art),
-                           "--method", "dnn", "--dnn-model", "resnet50", "--index-type", "ivfpq",
-                           "--pq-rerank", "64", "--device", "cuda"])
+    art = index_corpus(workdir, "artifacts_ivfpq", "--index-type", "ivfpq", "--pq-rerank", "64")
     assign_launches = KM.assign.launches
-    log(f"  indexed in {time.perf_counter() - t0:.1f} s, {assign_launches} assign launches")
-    cfg, device = port_engine.parse_args(["--artifacts-dir", str(art), "--index-type", "ivfpq",
-                                          "--port", "0", "--device", "cuda"])
-    engine, httpd = port_engine.make_server(cfg, device)
-    if type(engine.index).__name__ != "IVFPQIndex" or engine.index.ntotal != 4096:
-        raise AssertionError(f"engine loaded {type(engine.index).__name__} of "
-                             f"{engine.index.ntotal} rows")
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
-    try:
-        IV.probed_scan.launches = 0
-        T.select_topt.launches = 0
-        first, lat = 0, []
-        for i in np.linspace(0, 4095, 8).astype(int):
-            t0 = time.perf_counter()
-            status, js = post_image(base + "/similar_images", paths[i].read_bytes())
-            lat.append(time.perf_counter() - t0)
-            if status != 200:
-                raise AssertionError(f"ivfpq query {i}: HTTP {status} {js}")
-            pred = js["prediction"]
-            dists, names = [p[0] for p in pred], [p[2] for p in pred]
-            if len(pred) != K or str(paths[i]) not in names:
-                raise AssertionError(f"ivfpq query {i}: {len(pred)} results, own file absent")
-            if not (np.all(np.isfinite(dists)) and dists == sorted(dists)):
-                raise AssertionError(f"ivfpq query {i}: distances not finite ascending: {dists}")
-            first += names[0] == str(paths[i])
-        counts = {"probed_scan": IV.probed_scan.launches, "select_topt": T.select_topt.launches}
-        status, _ = post_image(base + "/similar_images", b"not an image")
-        if status != 400:
-            raise AssertionError(f"ivfpq garbage upload answered {status}, want 400")
-        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
-            health = json.loads(r.read())
-        if health.get("status") != "ok" or health.get("corpus") != 4096:
-            raise AssertionError(f"ivfpq healthz: {health}")
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        thread.join(timeout=60)
+    out = serve_and_query(art, "ivfpq", paths, "ivfpq", own_first=False)
+    if type(out["engine"].index).__name__ != "IVFPQIndex":
+        raise AssertionError(f"engine loaded {type(out['engine'].index).__name__}")
+    counts = {k: out["launches"][k] for k in ("probed_scan", "select_topt")}
     if assign_launches == 0 or not all(v > 0 for v in counts.values()):
         raise AssertionError(f"a kernel did not launch: assign {assign_launches} during the "
                              f"build, {counts} while serving")
-    p50 = float(np.median(lat)) * 1e3
-    log(f"  8 queries ok (own file in the top {K}, ranked first in {first} of 8); launches "
-        f"while serving {counts}; request latency p50 {p50:.2f} ms (client clock)")
-    return {"assign_launches": assign_launches, "launches": counts, "first": first,
-            "p50_ms": p50}
+    log(f"  {assign_launches} assign launches in the build; 8 queries ok (own file in the top "
+        f"{K}, ranked first in {out['first']} of 8); launches while serving {counts}; request "
+        f"latency p50 {out['p50_ms']:.2f} ms (client clock)")
+    return {"assign_launches": assign_launches, "launches": counts, "first": out["first"],
+            "p50_ms": out["p50_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the int8 store and the chi2 metric
+# ---------------------------------------------------------------------------
+
+
+def quantize_rows_np(x: np.ndarray):
+    """The JAX package's ``quantize_rows_int8`` (index/store.py), copied in
+    numpy: (codes int8, scales f32)."""
+    x = np.asarray(x, np.float32)
+    amax = np.abs(x).max(axis=1)
+    scale = (np.maximum(amax, 1e-12) / 127.0).astype(np.float32)
+    codes = np.clip(np.round(x / scale[:, None]), -127, 127).astype(np.int8)
+    return codes, scale
+
+
+def check_quantization(gen) -> None:
+    """100,000 x 2048 rows quantized on the card and by the numpy formula:
+    codes and scales bit-identical. Row 0 is zero; row 1 has amax 127
+    (scale 1) and exact .5 ties, which round half to even."""
+    import torch
+
+    from image_search_engine_tpu_torch.index.store import quantize_rows_int8
+
+    x = torch.randn(100_000, 2048, device="cuda", generator=gen) * 3
+    x[0] = 0.0
+    x[1, :7] = torch.tensor([127.0, 0.5, 1.5, 2.5, 3.5, -2.5, -126.5], device="cuda")
+    codes, scales = quantize_rows_int8(x)
+    want_c, want_s = quantize_rows_np(x.cpu().numpy())
+    got_c, got_s = codes.cpu().numpy(), scales.cpu().numpy()
+    if not (np.array_equal(got_c, want_c) and np.array_equal(got_s.view(np.int32),
+                                                            want_s.view(np.int32))):
+        raise AssertionError(f"int8 quantization differs from the numpy formula: "
+                             f"{int((got_c != want_c).sum())} codes, "
+                             f"{int((got_s != want_s).sum())} scales")
+    if got_c[1, :7].tolist() != [127, 0, 2, 2, 4, -2, -126]:
+        raise AssertionError(f"half-to-even rounding: {got_c[1, :7]}")
+    log("  quantization: 100,000 x 2048 rows on the card, codes and scales bit-identical to "
+        "the numpy formula (zero row, .5 ties to even)")
+
+
+def exact_err(name: str, kernel: str, a, b) -> float:
+    """The kernel's output must equal its plain version's bit for bit
+    (exact int32 sums, one f32 epilogue order); returns the error, 0."""
+    err = max_abs_err(a, b)
+    if err != 0.0:
+        raise AssertionError(f"{name}: {kernel} differs from its plain version by {err} (want 0)")
+    return err
+
+
+def check_search_q8(name, index, q):
+    """FlatIndex.search on an int8 store against the plain full scan that
+    scores the round-tripped query against the dequantized store in f32
+    (the JAX package's XLA path); all certificates True. Returns (query as
+    searched, int8 query, query scales as the kernels take them, kernel
+    norms)."""
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.ops.distances import l2_normalize
+    from image_search_engine_tpu_torch.parallel.topk import ip_penalty, local_topk_with_norms
+
+    st = index.store
+    metric = "l2" if index.metric == "l2" else "ip"
+    qs = l2_normalize(q) if index.metric == "cosine" else q
+    di, ii = index.search(q, K)
+    rd, ri = local_topk_with_norms(qs, st.vectors, st.norms, K, metric, scales=st.scales)
+    assert_same_topk(di, ii, rd.cpu().numpy(), ri.cpu().numpy(), 2 * score_tol(qs, st.norms),
+                     f"{name} search")
+    _, _, cert = T.topk_twophase(qs, st.vectors, K, metric, x_norms=st.norms, x_scale=st.scales,
+                                 with_certificate=True)
+    if not bool(cert.all()):
+        raise AssertionError(f"{name}: certificate failed for {int((~cert).sum())} queries")
+    qi, qscale = T.quantize_int8(qs)
+    if metric == "ip":
+        return qs, qi, qscale * 0.5, ip_penalty(st.norms)
+    return qs, qi, qscale, st.norms
+
+
+def check_kernels_q8(name, qi, qscale, store, scales, knorms):
+    """Both int8 kernels against their plain versions on the same inputs,
+    bit for bit, and a group's phase-1 min equal to the min of its phase-2
+    scores. Returns ({kernel: max_abs_err}, mins, candidate ids, t)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    errs = {}
+    mins = T.groupmin_q8(qi, qscale, store, scales, knorms)
+    errs["groupmin_q8"] = exact_err(name, "groupmin_q8", mins,
+                                    T.groupmin_q8_ref(qi, qscale, store, scales, knorms))
+    t = min(K + 4, mins.shape[1])
+    _, ids = T.select_topt(mins, t)
+    scores = T.rescore_q8(qi, qscale, store, scales, knorms, ids)
+    errs["rescore_q8"] = exact_err(name, "rescore_q8", scores,
+                                   T.rescore_q8_ref(qi, qscale, store, scales, knorms, ids))
+    if not torch.equal(scores.view(qi.shape[0], t, -1).amin(2), torch.gather(mins, 1, ids.long())):
+        raise AssertionError(f"{name}: phase-1 group mins differ from phase-2 scores")
+    return errs, mins, ids, t
+
+
+def check_shape_q8(name, x, nq, metric, gen, flush, *, pad_rows=None, q_scale=1.0,
+                   int_mm_rows=0):
+    """One timed int8 shape: FlatIndex(dtype="int8") over x, the search and
+    both kernels checked, then each kernel and its plain version timed.
+    ``int_mm_rows`` > 0 also times ``torch._int_mm``'s int8 product of the
+    queries with that many store rows (the product alone, a yardstick).
+    Returns {kernel: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by}} and, with ``int_mm_rows``, "int_mm_ms"."""
+    import torch
+
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.parallel.topk import PAD_NORM, local_topk_with_norms
+
+    q = torch.randn(nq, x.shape[1], device="cuda", generator=gen) * q_scale
+    index = FlatIndex(metric, dtype="int8", device="cuda").add(x)
+    del x
+    st = index.store
+    store, norms, scales = st.vectors, st.norms, st.scales
+    if pad_rows is not None:  # poison rows inside the store (zero codes, zero scale)
+        store[pad_rows] = 0
+        scales[pad_rows] = 0.0
+        norms[pad_rows] = PAD_NORM
+    qs, qi, qscale, knorms = check_search_q8(name, index, q)
+    if pad_rows is not None and np.isin(index.search(q, K)[1], pad_rows.cpu().numpy()).any():
+        raise AssertionError(f"{name}: a PAD_NORM row was returned")
+    errs, mins, ids, t = check_kernels_q8(name, qi, qscale, store, scales, knorms)
+
+    nq, d = qi.shape
+    n, ng = store.shape[0], mins.shape[1]
+    rows = torch.unique(ids).numel() * T.GROUP  # distinct candidate rows this run reads
+    bounds = {
+        "groupmin_q8": bound(n * (d + 8) + nq * (d + 4) + nq * ng * 4, 2 * nq * n * d, INT8_OPS),
+        "rescore_q8": bound(rows * (d + 8) + nq * (d + 4) + nq * t * (4 + T.GROUP * 4),
+                            2 * nq * t * T.GROUP * d, INT8_OPS),
+    }
+    res = {}
+    for kname, fn, ref in (
+        ("groupmin_q8", lambda: T.groupmin_q8(qi, qscale, store, scales, knorms),
+         lambda: T.groupmin_q8_ref(qi, qscale, store, scales, knorms)),
+        ("rescore_q8", lambda: T.rescore_q8(qi, qscale, store, scales, knorms, ids),
+         lambda: T.rescore_q8_ref(qi, qscale, store, scales, knorms, ids)),
+    ):
+        res[kname] = {"max_abs_err": errs[kname], "ms": median_ms(fn, flush),
+                      "plain_ms": median_ms(ref, flush, reps=5), "library_ms": None,
+                      "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
+    smetric = "l2" if metric == "l2" else "ip"
+    search_ms = median_ms(lambda: T.topk_twophase(qs, store, K, smetric, x_norms=norms,
+                                                  x_scale=scales), flush)
+    scan_ms = median_ms(lambda: local_topk_with_norms(qs, store, norms, K, smetric,
+                                                      scales=scales), flush, reps=5)
+    extra = ""
+    if int_mm_rows:
+        try:
+            res["int_mm_ms"] = median_ms(lambda: torch._int_mm(qi, store[:int_mm_rows].t()), flush)
+            extra = (f"; torch._int_mm product alone (Q={nq} x {int_mm_rows:,} rows) "
+                     f"{res['int_mm_ms']:.4f} ms")
+        except RuntimeError as e:  # a yardstick only: record why it is missing
+            res["int_mm_ms"] = None
+            extra = f"; torch._int_mm refused: {e}"
+    log(f"  {name}: " + "; ".join(
+        f"{k} err {v['max_abs_err']:.3g} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, bound "
+        f"{v['bound_ms']:.4f} ms by {v['bound_by']})" for k, v in res.items() if k != "int_mm_ms")
+        + f"; two-phase search {search_ms:.4f} ms, plain full scan {scan_ms:.4f} ms" + extra)
+    return res
+
+
+def edge_sweep_q8(gen) -> None:
+    """Phase 1's edge shapes over an int8 store, untimed: 1, 2, 4 and
+    8-query tiles (full and partial), rows that are not 16-byte multiples
+    (d = 130, 2049: the scalar loop), a one-group store, ragged last groups;
+    l2, ip and cosine. Every kernel output equals its plain version."""
+    import torch
+
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+
+    cases = 0
+    for metric in ("l2", "ip", "cosine"):
+        for n, d, nq in ((100, 16, 1), (1000, 130, 3), (3000, 256, 2), (5003, 2049, 9),
+                         (20_000, 64, 17)):
+            name = f"edge N={n} d={d} Q={nq} int8 {metric}"
+            x = torch.randn(n, d, device="cuda", generator=gen)
+            q = torch.randn(nq, d, device="cuda", generator=gen)
+            index = FlatIndex(metric, dtype="int8", device="cuda").add(x)
+            _, qi, qscale, knorms = check_search_q8(name, index, q)
+            check_kernels_q8(name, qi, qscale, index.store.vectors, index.store.scales, knorms)
+            cases += 1
+    log(f"  int8 edge sweep: {cases} shapes ok, every kernel output equal to its plain version")
+
+
+def phase4_kernels() -> dict:
+    import torch
+
+    log("phase 4: the int8 store and its kernels against their plain versions")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
+    check_quantization(gen)
+    shapes = {}
+    x = torch.randn(1_000_000, 2048, device="cuda", generator=gen)
+    shapes["Q1_N1M_d2048_int8_l2"] = check_shape_q8("Q=1 N=1,000,000 d=2048 int8 l2", x, 1,
+                                                    "l2", gen, flush)
+    del x
+    torch.cuda.empty_cache()
+    x = torch.randn(200_003, 2048, device="cuda", generator=gen)
+    shapes["Q64_N200003_d2048_int8_ip"] = check_shape_q8(
+        "Q=64 N=200,003 d=2048 int8 ip", x, 64, "ip", gen, flush, int_mm_rows=200_000)
+    del x
+    base = torch.randn(25_000, 2048, device="cuda", generator=gen)
+    x = base[torch.randint(0, 25_000, (100_000,), device="cuda", generator=gen)]
+    shapes["ties_Q8_N100000_d2048_int8_l2"] = check_shape_q8(
+        "tie-heavy Q=8 N=100,000 d=2048 int8 l2 (rows duplicated ~4x)", x, 8, "l2", gen, flush)
+    del x, base
+    x = torch.randn(100_000, 2048, device="cuda", generator=gen) * 10
+    pads = torch.randperm(100_000, device="cuda", generator=gen)[:10_000]
+    shapes["pad_Q4_N100000_d2048_int8_l2"] = check_shape_q8(
+        "PAD_NORM rows Q=4 N=100,000 d=2048 int8 l2 (10% poisoned, queries at the origin)",
+        x, 4, "l2", gen, flush, pad_rows=pads, q_scale=1e-3)
+    del x
+    torch.cuda.empty_cache()
+    edge_sweep_q8(gen)
+    return shapes
+
+
+def phase4_entry(workdir: Path, paths: list, flat_art: Path) -> dict:
+    """The int8 store and the chi2 metric through the entry points: the
+    indexer CLI over phase 2's PNGs with ``--store-dtype int8 --index-type
+    l2``, then with ``--index-type chi2``, each served over HTTP. The int8
+    path launches groupmin_q8, select_topt and rescore_q8 once per request
+    and nothing else of the flat search; chi2 launches no kernel."""
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+
+    log("phase 4: the int8 and chi2 paths (indexer CLI -> HTTP server)")
+    art = index_corpus(workdir, "artifacts_int8", "--index-type", "l2", "--store-dtype", "int8")
+    q8 = serve_and_query(art, "l2", paths, "int8")
+    idx8 = q8["engine"].index
+    want = {"groupmin": 0, "select_topt": 8, "rescore": 0, "groupmin_q8": 8, "rescore_q8": 8,
+            "probed_scan": 0}
+    if idx8.dtype != "int8" or q8["launches"] != want or q8["escalations"] != 0:
+        raise AssertionError(f"int8 serving: store {idx8.dtype}, launches {q8['launches']} (want "
+                             f"{want}), escalations {q8['escalations']}")
+    # the int8 store's top-10 against the f32 index's over the same embeddings
+    f32 = FlatIndex.load(flat_art / "dnn_resnet50_l2.index.npz", device="cuda")
+    queries = f32.store.values()[::64]
+    _, i32 = f32.search(queries, 10)
+    _, i8 = idx8.search(queries, 10)
+    overlap = float(np.mean([len(set(a) & set(b)) / 10
+                             for a, b in zip(i32.tolist(), i8.tolist())]))
+    log(f"  int8: 8 queries ok (top-1 = the query's own file); launches while serving "
+        f"{q8['launches']}; request latency p50 {q8['p50_ms']:.2f} ms (client clock); "
+        f"certificate escalations {q8['escalations']}; top-10 overlap with the f32 index "
+        f"{overlap:.4f} ({queries.shape[0]} stored embeddings as queries)")
+
+    art = index_corpus(workdir, "artifacts_chi2", "--index-type", "chi2")
+    c2 = serve_and_query(art, "chi2", paths, "chi2")
+    if c2["engine"].index.metric != "chi2" or any(c2["launches"].values()):
+        raise AssertionError(f"chi2 serving: metric {c2['engine'].index.metric}, launches "
+                             f"{c2['launches']} (want none)")
+    log(f"  chi2: 8 queries ok (top-1 = the query's own file); no kernel launched; request "
+        f"latency p50 {c2['p50_ms']:.2f} ms (client clock)")
+    return {"launches": q8["launches"], "p50_ms": q8["p50_ms"], "overlap": overlap,
+            "escalations": q8["escalations"], "chi2_p50_ms": c2["p50_ms"]}
 
 
 def main() -> int:
@@ -745,6 +999,8 @@ def main() -> int:
         served = phase2(workdir)
         scale = phase3_scale()
         pq_served = phase3_entry(workdir, served["paths"])
+        shapes_q8 = phase4_kernels()
+        q8_served = phase4_entry(workdir, served["paths"], served["art"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -774,9 +1030,26 @@ def main() -> int:
         "bound_ms": asg["bound"][0], "bound_by": asg["bound"][1], "library_ms": None,
         "shape": f"N={SCALE_N:,} K={NLIST} d={SCALE_D} f32 (coarse quantizer)",
     })
+    head, q64 = shapes_q8["Q1_N1M_d2048_int8_l2"], shapes_q8["Q64_N200003_d2048_int8_ip"]
+    for name in ("groupmin_q8", "rescore_q8"):
+        at_q64 = {k: q64[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        if name == "groupmin_q8":  # a tensor-core phase 1's yardstick: the int8 product alone
+            at_q64["int_mm_product_ms"] = q64["int_mm_ms"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": q8_served["launches"][name],
+            "max_abs_err": max(s[name]["max_abs_err"] for s in shapes_q8.values()),
+            "ms": head[name]["ms"], "plain_ms": head[name]["plain_ms"],
+            "bound_ms": head[name]["bound_ms"], "bound_by": head[name]["bound_by"],
+            "library_ms": None, "shape": "Q=1 N=1,000,000 d=2048 int8 l2 k=20",
+            "q64": at_q64,
+        })
     log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "
         f"{served['p50_ms']:.2f} ms, escalations {served['escalations']}; IVF-PQ build "
-        f"{scale['build_s']:.1f} s, IVF-PQ serving p50 {pq_served['p50_ms']:.2f} ms")
+        f"{scale['build_s']:.1f} s, IVF-PQ serving p50 {pq_served['p50_ms']:.2f} ms; int8 "
+        f"serving p50 {q8_served['p50_ms']:.2f} ms, escalations {q8_served['escalations']}, "
+        f"top-10 overlap with f32 {q8_served['overlap']:.4f}; chi2 serving p50 "
+        f"{q8_served['chi2_p50_ms']:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,12 @@
-// Per-row scoring shared by the flat search's kernels (topk_twophase.cu) and
-// the IVF probed scan (ivf_probed_scan.cu): one warp computes a row's dot
-// product with the staged query (the same lane striding, the same explicit
-// fmaf chain, the same butterfly reduction everywhere), and the score to
-// minimize is norm - 2 * dot, rounded once.
+// Per-row scoring shared by the flat search's kernels (topk_twophase.cu,
+// topk_twophase_q8.cu) and the IVF probed scan (ivf_probed_scan.cu): one warp
+// computes a row's dot product with the staged query (the same lane striding,
+// the same explicit fmaf chain, the same butterfly reduction everywhere), and
+// the score to minimize is norm - 2 * dot, rounded once.
 //
 // f32 rows are scored in IEEE f32 (fmaf, no TF32). bf16 rows are read as bf16,
-// widened to f32 (exact) and accumulated in f32.
+// widened to f32 (exact) and accumulated in f32. int8 rows are multiplied with
+// int8 queries into exact int32 sums, then scaled in an f32 epilogue.
 
 #pragma once
 
@@ -98,6 +99,75 @@ __device__ __forceinline__ void stage_queries(const T* __restrict__ q, float* qs
     const int qi = i / d;
     const int j = i - qi * d;
     qs[i] = (q0 + qi < nq) ? to_f32(q[(size_t)(q0 + qi) * d + j]) : 0.f;
+  }
+}
+
+// ---- int8 rows (topk_twophase_q8.cu) ----
+//
+// acc[qi] = q_qi . row for QT int8 queries staged in shared memory
+// (qs[qi * d + j]), summed in int32: exact in any order, so every lane ends
+// with the same exact sums and a row scores the same in every kernel. VEC =
+// 16 reads 16 codes per 16-byte load (rows and query rows 16-byte aligned)
+// and multiplies them four at a time with __dp4a; VEC = 1 reads one code at
+// a time.
+template <int VEC, int QT>
+__device__ __forceinline__ void row_dot_q8(const int8_t* __restrict__ row, const int8_t* qs, int d,
+                                           int lane, int (&acc)[QT]) {
+#pragma unroll
+  for (int qi = 0; qi < QT; ++qi) acc[qi] = 0;
+  if constexpr (VEC == 16) {
+    const int nvec = d / 16;
+#pragma unroll 4
+    for (int c = lane; c < nvec; c += 32) {
+      const int4 xv = __ldg(reinterpret_cast<const int4*>(row) + c);
+#pragma unroll
+      for (int qi = 0; qi < QT; ++qi) {
+        const int4 qv = reinterpret_cast<const int4*>(qs + (size_t)qi * d)[c];
+        acc[qi] = __dp4a(xv.x, qv.x, acc[qi]);
+        acc[qi] = __dp4a(xv.y, qv.y, acc[qi]);
+        acc[qi] = __dp4a(xv.z, qv.z, acc[qi]);
+        acc[qi] = __dp4a(xv.w, qv.w, acc[qi]);
+      }
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) {
+      const int xv = __ldg(row + c);
+#pragma unroll
+      for (int qi = 0; qi < QT; ++qi) acc[qi] += xv * (int)qs[(size_t)qi * d + c];
+    }
+  }
+#pragma unroll
+  for (int qi = 0; qi < QT; ++qi) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc[qi] += __shfl_xor_sync(0xffffffffu, acc[qi], off);
+  }
+}
+
+// The int8 score to minimize, norm - f32(dot) * (qs2 * scale) with qs2 = 2 *
+// the query's scale: every step rounded once, in the plain version's order
+// (the _rn intrinsics keep nvcc from contracting them into an FMA).
+__device__ __forceinline__ float score_q8(float norm, int dot, float qs2, float scale) {
+  return __fsub_rn(norm, __fmul_rn(__int2float_rn(dot), __fmul_rn(qs2, scale)));
+}
+
+// rows int8 queries from q0 on into shared memory, 16 bytes at a time when
+// VEC = 16; rows past nq are zero
+template <int VEC>
+__device__ __forceinline__ void stage_queries_q8(const int8_t* __restrict__ q, int8_t* qs, int q0,
+                                                 int rows, int nq, int d) {
+  if constexpr (VEC == 16) {
+    const int per_row = d / 16;
+    const int4* src = reinterpret_cast<const int4*>(q);
+    int4* dst = reinterpret_cast<int4*>(qs);
+    for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+      const int qi = i / per_row;
+      dst[i] = (q0 + qi < nq) ? src[(size_t)q0 * per_row + i] : make_int4(0, 0, 0, 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * d; i += blockDim.x) {
+      const int qi = i / d;
+      qs[i] = (q0 + qi < nq) ? q[(size_t)q0 * d + i] : (int8_t)0;
+    }
   }
 }
 

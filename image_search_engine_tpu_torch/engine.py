@@ -1,7 +1,8 @@
 """Query engine: HTTP serving of a DNN index on a torch device.
 
 Port of the single-device DNN part of ``image_search_engine_tpu/engine.py``
-for flat, cell-probe (IVF) and IVF-PQ indexes. The HTTP contract is the JAX
+for flat (l2, cosine or chi2; f32, bf16 or int8 store, as the index file
+says), cell-probe (IVF) and IVF-PQ indexes. The HTTP contract is the JAX
 package's (serving/http.py): ``POST /similar_images`` takes a multipart
 image upload and answers ``{"prediction": [[distance, base64_thumbnail,
 path], ...]}``; ``GET /healthz``, ``GET /stats`` and the upload UI at ``GET

@@ -1,20 +1,22 @@
-"""Flat exact-search index: the IndexFlatL2 / IndexFlatIP / "cosine"
+"""Flat exact-search index: the IndexFlatL2 / IndexFlatIP / "cosine" / chi2
 replacement.
 
-Port of ``image_search_engine_tpu/index/flat.py`` for l2, ip and cosine
-over f32 and bf16 stores:
+Port of ``image_search_engine_tpu/index/flat.py`` (single device) over f32,
+bf16 and int8 stores:
 
   * "l2"     -> squared-L2 ascending
   * "ip"     -> inner product descending
   * "cosine" -> rows L2-normalized at add time, queries at search time,
                 then IP
+  * "chi2"   -> chi-square distance ascending (f32 stores only)
 
-Search runs the certified two-phase top-k (ops/topk.py: three CUDA kernels
-on a CUDA store, their plain versions on the CPU) and escalates once to a
-wide candidate margin when a certificate fails; k > 128 takes the plain
-full scan, the JAX package's own rule. Serialization is the JAX package's
-``.npz`` format, so an index saved by either package loads in the other.
-chi2, the int8 store and sharding wait for ROADMAP.md.
+Search runs the certified two-phase top-k (ops/topk.py: CUDA kernels on a
+CUDA store, their plain versions on the CPU; an int8 store takes the int8
+kernels with its per-row scales) and escalates once to a wide candidate
+margin when a certificate fails; k > 128 and chi2 take the plain full scan,
+the JAX package's own rule. Serialization is the JAX package's ``.npz``
+format (int8 adds a ``scales`` key), so an index saved by either package
+loads in the other. Sharding waits for ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from image_search_engine_tpu_torch.ops.distances import l2_normalize
 from image_search_engine_tpu_torch.ops.topk import topk_twophase_safe
 from image_search_engine_tpu_torch.parallel.topk import local_topk_with_norms
 from image_search_engine_tpu_torch.utils.device import resolve_device
-from image_search_engine_tpu_torch.utils.unported import not_ported
 
 WIDE_MARGIN = 32  # escalation margin for certificate violations
 MAX_KERNEL_K = 128  # past this, the exact full scan (index/flat.py:109 rule)
@@ -54,10 +55,10 @@ class FlatIndex:
 
     def __init__(self, metric: str = "l2", dtype: str = "f32",
                  device: str | torch.device = "cuda"):
-        if metric == "chi2":
-            raise not_ported("the chi2 metric", "chi2")
-        if metric not in ("l2", "ip", "cosine"):
+        if metric not in ("l2", "ip", "cosine", "chi2"):
             raise ValueError(f"unsupported metric {metric!r}")
+        if metric == "chi2" and dtype != "f32":
+            raise ValueError("chi2 searches f32 stores only")
         check_store_dtype(dtype)
         self.metric = metric
         self.dtype = dtype
@@ -70,18 +71,19 @@ class FlatIndex:
 
     def add(self, x) -> "FlatIndex":
         """Set the corpus: f32 rows as a numpy array or tensor (a second
-        add rebuilds the store with both)."""
+        add rebuilds the store with both; an int8 store requantizes its
+        dequantized rows, which gives back the same codes)."""
         x = torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
         if self.metric == "cosine":
             x = l2_normalize(x)
         if self.store is not None:
-            x = torch.cat([self.store.vectors[: self.store.n].float(), x])
+            x = torch.cat([self.store.values(), x])
         self.store = VectorStore.build(x, dtype=self.dtype, device=self.device)
         return self
 
     def search(self, q, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """k-NN search: host (distances (Q, k), ids (Q, k)). When k > ntotal
-        the tail is (-1, +inf) for l2 and (-1, -inf) for ip/cosine, as
+        the tail is (-1, +inf) for l2/chi2 and (-1, -inf) for ip/cosine, as
         Faiss pads it."""
         if self.store is None:
             raise ValueError("empty index: add() vectors first")
@@ -92,22 +94,26 @@ class FlatIndex:
         if metric == "cosine":
             q = l2_normalize(q)
             metric = "ip"
-        k_eff = min(k, self.store.n)
-        if k_eff > MAX_KERNEL_K:
-            d, i = local_topk_with_norms(q, self.store.vectors, self.store.norms,
-                                         k_eff, metric)
+        store = self.store
+        k_eff = min(k, store.n)
+        if k_eff > MAX_KERNEL_K or metric == "chi2":
+            d, i = local_topk_with_norms(q, store.vectors, store.norms, k_eff, metric,
+                                         scales=store.scales)
         else:
-            d, i = topk_twophase_safe(q, self.store.vectors, k_eff, metric,
-                                      x_norms=self.store.norms, wide_margin=WIDE_MARGIN)
+            d, i = topk_twophase_safe(q, store.vectors, k_eff, metric, x_norms=store.norms,
+                                      x_scale=store.scales, wide_margin=WIDE_MARGIN)
         return faiss_tail(d.cpu().numpy(), i.cpu().numpy(), k, descending=metric == "ip")
 
     def save(self, path: str | Path) -> None:
-        """The JAX package's ``.npz`` layout (bf16 as uint16 bits)."""
+        """The JAX package's ``.npz`` layout (bf16 as uint16 bits; int8 codes
+        with their f32 ``scales``)."""
         if self.store is None:
             raise ValueError("empty index: add() vectors first")
+        vectors, scales = self.store.to_host_raw()
+        extra = {} if scales is None else {"scales": scales}
         np.savez_compressed(
             path, metric=np.array(self.metric), kind=np.array(self.metric_kind),
-            dtype=np.array(self.dtype), vectors=self.store.to_host_raw())
+            dtype=np.array(self.dtype), vectors=vectors, **extra)
 
     @classmethod
     def load(cls, path: str | Path, device: str | torch.device = "cuda") -> "FlatIndex":
@@ -115,6 +121,10 @@ class FlatIndex:
             dtype = str(z["dtype"]) if "dtype" in z else "f32"
             idx = cls(metric=str(z["metric"]), dtype=dtype, device=device)
             vec = z["vectors"]
+            scales = z["scales"] if dtype == "int8" else None
+        if dtype == "int8":  # the stored codes as they are: no requantization
+            idx.store = VectorStore.from_quantized(vec, scales, device=idx.device)
+            return idx
         if dtype == "bf16":
             vec = torch.from_numpy(vec.view(np.int16)).view(torch.bfloat16).float()
         # rows were normalized at save time for cosine: build, don't re-add

@@ -35,6 +35,7 @@ from image_search_engine_tpu_torch.ops import round_up
 from image_search_engine_tpu_torch.ops.distances import l2_normalize
 from image_search_engine_tpu_torch.ops.ivf import ivf_probed_topk, rank_buckets
 from image_search_engine_tpu_torch.ops.kmeans import KMeans, assign, subspace_kmeans
+from image_search_engine_tpu_torch.parallel.topk import stable_smallest
 from image_search_engine_tpu_torch.utils.device import resolve_device
 
 #: bytes of f32 rows per search / pack / rescore chunk (bounds the transients)
@@ -77,13 +78,6 @@ def _build_buckets(codes: np.ndarray, nlist: int,
     return np.stack(lists_rows), np.asarray(bucket_cell, np.int32)
 
 
-def _stable_smallest(vals: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k smallest of each row in (value, position) order: ties to the
-    lowest position, as ``lax.top_k`` of the negated values."""
-    v, pos = torch.sort(vals, dim=1, stable=True)
-    return v[:, :k], pos[:, :k]
-
-
 def _rows_per_chunk(row_bytes: int) -> int:
     return max(1, _CHUNK_BYTES // max(row_bytes, 1))
 
@@ -97,7 +91,7 @@ class IVFIndex:
                  table_dtype: str = "f32", device: str | torch.device = "cuda"):
         if metric not in ("l2", "cosine"):
             raise ValueError("IVFIndex supports l2/cosine")
-        if table_dtype not in STORE_DTYPES:
+        if table_dtype not in ("f32", "bf16"):
             raise ValueError("IVF table_dtype must be f32 or bf16")
         self.table_dtype = table_dtype
         self.metric = metric
@@ -222,7 +216,7 @@ class IVFIndex:
             qn = (qc * qc).sum(1, keepdim=True)
             dist = torch.where(cand >= 0, qn - 2.0 * cross + vn,
                                torch.full_like(vn, float("inf")))
-            vals, pos = _stable_smallest(dist, k_eff)
+            vals, pos = stable_smallest(dist, k_eff)
             ids = torch.gather(cand, 1, pos)
             outs.append((vals, ids, torch.gather(cand >= 0, 1, pos)))
         return self._host_finish(outs, k)
@@ -331,7 +325,7 @@ def _exact_rescore(q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
     cross = torch.bmm(rows, q[:, :, None])[:, :, 0]
     rn = (rows * rows).sum(-1)
     dist = torch.where(ok, qn - 2.0 * cross + rn, torch.full_like(rn, float("inf")))
-    vals, pos = _stable_smallest(dist, k)
+    vals, pos = stable_smallest(dist, k)
     return vals, torch.gather(ids, 1, pos), torch.gather(ok, 1, pos)
 
 
@@ -475,7 +469,7 @@ class IVFPQIndex(IVFIndex):
         ok = valid[probe].reshape(nq, pool)
         dist = torch.where(ok, dist, torch.full_like(dist, float("inf")))
         if c_eff:
-            _, pos = _stable_smallest(dist, c_eff)
+            _, pos = stable_smallest(dist, c_eff)
             cell = torch.gather(probe, 1, pos // cap)
             slot = pos % cap
             _, _, packed, pnorms = self._device_arrays()
@@ -486,7 +480,7 @@ class IVFPQIndex(IVFIndex):
             ok = torch.gather(ok, 1, pos)
             dist = torch.where(ok, qn - 2.0 * cross + pnorms[cell, slot],
                                torch.full_like(cross, float("inf")))
-        vals, pos = _stable_smallest(dist, k_eff)
+        vals, pos = stable_smallest(dist, k_eff)
         return self._host_finish(
             [(vals, torch.gather(cand, 1, pos), torch.gather(ok, 1, pos))], k)
 

@@ -5,8 +5,9 @@ the corpus in a host thread pool (``utils/imageio.load_images_batched``),
 embed it in batches on the device, build a flat, cell-probe (IVF) or IVF-PQ
 index and write it as an ``.npz`` in the JAX package's format, with the
 ``images.csv`` id -> path sidecar, the packed thumbnails and the
-``embedder.json`` provenance. BoVW and dHash builds wait for ROADMAP.md
-(queue 1 item 5).
+``embedder.json`` provenance. A flat index takes l2, ip, cosine or chi2,
+and (but for chi2, f32 only) an f32, bf16 or int8 store. BoVW and dHash
+builds wait for ROADMAP.md (queue 1 item 5).
 
 Usage:
     python -m image_search_engine_tpu_torch.indexer --data-dir photos/ \\
@@ -66,10 +67,6 @@ def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for what the port does not serve yet."""
     if cfg.method != Method.DNN:
         raise not_ported(f"method {cfg.method.value!r}", "bovw")
-    if cfg.index_type == IndexType.CHI2:
-        raise not_ported("the chi2 metric", "chi2")
-    if cfg.store_dtype == "int8":
-        raise not_ported("the int8 store", "int8")
     if cfg.shard_devices is not None or cfg.dcn_coordinator is not None:
         raise not_ported("--sharded / --dcn-*", "multi-device")
 
@@ -143,6 +140,9 @@ def build_thumbnails(cfg: Config) -> None:
 
 def main(cfg: Config, device="cuda", use_native: bool = False) -> None:
     check_supported(cfg)
+    if cfg.store_dtype == "int8" and cfg.index_type in (IndexType.CELL_PROBE, IndexType.IVFPQ):
+        raise SystemExit("--store-dtype int8 applies to flat indexes only (IVF tables "
+                         "support f32/bf16; IVFPQ is already byte-coded)")
     t0 = time.time()
     cfg.artifacts_dir.mkdir(parents=True, exist_ok=True)
     paths = get_image_paths(cfg.data_dir)
@@ -169,8 +169,9 @@ def parse_args(argv=None):
     ap.add_argument("--torch-weights", type=Path, default=None,
                     help="torchvision ResNet .pth checkpoint to load as the backbone")
     ap.add_argument("--store-dtype", choices=["f32", "bf16", "int8"], default="f32",
-                    help="flat-store / cell-probe table precision (int8 is not "
-                         "ported yet)")
+                    help="flat-store precision (bf16/int8: 2x/4x smaller index, "
+                         "exact search over the rounded/quantized store); "
+                         "cell-probe tables take f32/bf16; chi2 needs f32")
     ap.add_argument("--pq-rerank", type=int, default=0,
                     help="ivfpq only: exact-rerank shortlist size (0 = ADC "
                          "ranking; >0 stores raw vectors in the artifact and "

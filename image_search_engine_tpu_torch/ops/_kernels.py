@@ -24,7 +24,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
-SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu")
+SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
+           _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu")
 HEADERS = (_CSRC / "scoring.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
@@ -107,6 +108,10 @@ def library() -> ctypes.CDLL:
             lib.ise_select_topt.restype = i
             lib.ise_rescore.argtypes = [i, p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_rescore.restype = i
+            lib.ise_groupmin_q8.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, p]
+            lib.ise_groupmin_q8.restype = i
+            lib.ise_rescore_q8.argtypes = [p, p, p, p, p, p, p, i, ll, i, i, i, p]
+            lib.ise_rescore_q8.restype = i
             lib.ise_probed_scan.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.ise_probed_scan.restype = i
             lib.ise_kmeans_assign.argtypes = [p, p, p, p, p, i, ll, i, i, ll, ll, i, p]

@@ -1,7 +1,8 @@
 """Certified two-phase exact top-k — the flat search's hot op.
 
 Port of ``image_search_engine_tpu/ops/topk_pallas.py`` (``topk_twophase``,
-``topk_twophase_safe``) for f32 and bf16 stores:
+``topk_twophase_safe``, ``quantize_store_int8``) for f32, bf16 and int8
+stores:
 
   1. ``groupmin``: scores norms - 2 q.x against every store row and keeps
      the min of each 128-row group, (Q, ngroups);
@@ -12,18 +13,22 @@ Port of ``image_search_engine_tpu/ops/topk_pallas.py`` (``topk_twophase``,
 then a ``torch.topk`` over the candidates, the id rebuild and the
 certificate "k-th final score <= t-th selected group min" (every pruned
 group's min is >= that threshold, so True proves no pruned row could beat
-the k-th result).
+the k-th result). An int8 store runs ``groupmin_q8`` and ``rescore_q8`` in
+steps 1 and 3: the query is quantized per row like the store, the int8 x
+int8 products are exact int32 sums, and the per-row scales fold into an f32
+epilogue.
 
-Each of the three steps is a hand-written CUDA kernel
-(``csrc/topk_twophase.cu``) with a plain PyTorch version beside it. A
+Each step is a hand-written CUDA kernel (``csrc/topk_twophase.cu``,
+``csrc/topk_twophase_q8.cu``) with a plain PyTorch version beside it. A
 wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``.
 
 Scores live in the "minimize" domain: l2 uses the squared store norms; ip
-halves the query and uses zero norms except at rows poisoned with
-``PAD_NORM``, so score = -q.x (or ~PAD_NORM on a pad row). The query is cast
-to the store dtype before scoring, as the JAX package does.
+halves the query (int8: its scale) and uses zero norms except at rows
+poisoned with ``PAD_NORM``, so score = -q.x (or ~PAD_NORM on a pad row). The
+query is cast to the store dtype (int8: quantized) before scoring, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -37,7 +42,6 @@ import torch.nn.functional as F
 from image_search_engine_tpu_torch.ops import _kernels
 from image_search_engine_tpu_torch.ops.distances import l2_normalize
 from image_search_engine_tpu_torch.parallel.topk import ip_penalty
-from image_search_engine_tpu_torch.utils.unported import not_ported
 
 log = logging.getLogger(__name__)
 
@@ -45,6 +49,10 @@ GROUP = 128  # candidate-group width (rows)
 #: dynamic shared memory a kernel block may ask for (H100: 227 KB per block)
 _SMEM_BYTES = 200 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: int8 rows wider than this could overflow the int32 sum (127^2 * d >= 2^31)
+MAX_Q8_DIM = 133_000
+#: store rows per float64 product in the int8 plain versions (bounds the copy)
+_Q8_REF_ROWS = 1 << 14
 
 
 def num_groups(n: int) -> int:
@@ -67,7 +75,8 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 def _check_scoring_args(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> None:
     if x.dtype not in _DTYPE_CODES:
-        raise not_ported(f"store dtype {x.dtype}", "int8")
+        raise ValueError(f"store dtype must be float32 or bfloat16, got {x.dtype} "
+                         "(an int8 store is scored by the _q8 kernels)")
     if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"want q (Q, d) and x (N, d), got {tuple(q.shape)}, {tuple(x.shape)}")
     if q.dtype != x.dtype:
@@ -79,10 +88,44 @@ def _check_scoring_args(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_q8_args(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor,
+                   scales: torch.Tensor, norms: torch.Tensor) -> None:
+    if q.dtype != torch.int8 or x.dtype != torch.int8:
+        raise ValueError(f"want int8 query and store codes, got {q.dtype} and {x.dtype}")
+    if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
+        raise ValueError(f"want q (Q, d) and x (N, d), got {tuple(q.shape)}, {tuple(x.shape)}")
+    if q.shape[1] >= MAX_Q8_DIM:
+        raise ValueError(f"d={q.shape[1]} could overflow the int32 product (d < {MAX_Q8_DIM})")
+    for name, t, n in (("qscale", qscale, q.shape[0]), ("scales", scales, x.shape[0]),
+                       ("norms", norms, x.shape[0])):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must be float32 of shape ({n},)")
+    for name, t in (("q", q), ("qscale", qscale), ("x", x), ("scales", scales),
+                    ("norms", norms)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _vec(x: torch.Tensor) -> int:
     """Store elements per 16-byte load, or 1 when rows are not 16-byte aligned."""
     per = 16 // x.element_size()
     return per if x.shape[1] % per == 0 and x.data_ptr() % 16 == 0 else 1
+
+
+def _vec_q8(q: torch.Tensor, x: torch.Tensor) -> int:
+    """16 when the int8 store and query rows are 16-byte aligned, else 1."""
+    return 16 if _vec(x) == 16 and q.data_ptr() % 16 == 0 else 1
+
+
+def _query_tile(nq: int, row_bytes: int) -> int:
+    """Queries per phase-1 block: 1, 2, 4 or 8, as many as the batch fills,
+    halved until their rows fit the shared-memory budget."""
+    qt = next(t for t in (1, 2, 4, 8) if t >= min(nq, 8))
+    while qt > 1 and qt * row_bytes > _SMEM_BYTES:
+        qt //= 2
+    if row_bytes > _SMEM_BYTES:
+        raise ValueError(f"a {row_bytes}-byte query row exceeds the kernels' shared-memory tile")
+    return qt
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -114,11 +157,7 @@ def groupmin(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> torch.Ten
         return groupmin_ref(q, x, norms)
     nq, d = q.shape
     n = x.shape[0]
-    qt = next((t for t in (1, 2, 4, 8) if t >= min(nq, 8)), 8)
-    while qt > 1 and qt * d * 4 > _SMEM_BYTES:
-        qt //= 2
-    if d * 4 > _SMEM_BYTES:
-        raise ValueError(f"d={d} exceeds the kernel's shared-memory query tile")
+    qt = _query_tile(nq, d * 4)
     out = torch.empty((nq, num_groups(n)), dtype=torch.float32, device=x.device)
     if nq == 0 or n == 0:
         return out
@@ -139,6 +178,96 @@ def groupmin_ref(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> torch
     n = x.shape[0]
     ng = num_groups(n)
     scores = norms[None, :] - 2.0 * (q.float() @ x.float().T)
+    scores = F.pad(scores, (0, ng * GROUP - n), value=float("inf"))
+    return scores.view(q.shape[0], ng, GROUP).amin(dim=2)
+
+
+# ---------------------------------------------------------------------------
+# int8 store: quantization and phase 1
+# ---------------------------------------------------------------------------
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization: (codes (N, d) int8, scales (N,)
+    f32) with x ~= codes * scales[:, None]. The JAX package's formula, bit
+    for bit: scale = max(amax, 1e-12) / 127 in f32, codes = clip(round(x /
+    scale), -127, 127) with a true division and round half to even."""
+    x = x.float()
+    amax = torch.clamp(x.abs().amax(dim=1), min=1e-12)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # product with its reciprocal, which is not the IEEE quotient
+    scale = amax / torch.full_like(amax, 127.0)
+    codes = torch.clamp(torch.round(x / scale[:, None]), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def _epilogue_q8(cross: torch.Tensor, qscale: torch.Tensor, scales: torch.Tensor,
+                 norms: torch.Tensor) -> torch.Tensor:
+    """norms - cross * ((2 qscale) * scales), each step rounded once in f32,
+    in the JAX kernels' order (the CUDA kernels round the same steps)."""
+    return norms - cross * ((2.0 * qscale) * scales)
+
+
+def groupmin_q8(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor,
+                scales: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
+    """Per query, the min over each 128-row group of norms[r] - f32(q.x[r])
+    * ((2 qscale) * scales[r]), where q.x[r] is the exact int32 product of
+    the int8 query and store codes: (Q, ngroups) f32, query-major. Rows of
+    the ragged last group past N count as +inf. ``qscale`` is the query's
+    dequant scale (halved for ip).
+
+    Replaces ``_groupmin_kernel_q8`` (image_search_engine_tpu/ops/
+    topk_pallas.py:276, launched :631). What bounds it on the card: it
+    streams the store once per call, N*d code bytes plus 8 bytes of norm and
+    scale per row, while at serving batch sizes its 2*Q*N*d integer
+    operations are far below the card's rate, so it is a memory-bandwidth
+    kernel, 4x lighter than the f32 sweep. The design is ``groupmin``'s:
+    up to 8 int8 queries in shared memory per block, 16-byte loads of 16
+    codes each multiplied with ``__dp4a`` into int32 (a scalar loop for
+    rows that are not 16-byte multiples), query tiles of one group back to
+    back so they find it in L2. Integer sums are exact in any order, so the
+    f32 epilogue, rounded step by step, is the only rounding: the kernel
+    equals :func:`groupmin_q8_ref` bit for bit.
+    """
+    _check_q8_args(q, qscale, x, scales, norms)
+    if not _on_cuda(q, qscale, x, scales, norms):
+        return groupmin_q8_ref(q, qscale, x, scales, norms)
+    nq, d = q.shape
+    n = x.shape[0]
+    qt = _query_tile(nq, d)
+    out = torch.empty((nq, num_groups(n)), dtype=torch.float32, device=x.device)
+    if nq == 0 or n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _kernels.library().ise_groupmin_q8(
+            q.data_ptr(), qscale.data_ptr(), norms.data_ptr(), scales.data_ptr(), x.data_ptr(),
+            out.data_ptr(), nq, n, d, qt, _vec_q8(q, x), _stream(x))
+    _kernels.check(err, "groupmin_q8")
+    groupmin_q8.launches += 1
+    return out
+
+
+groupmin_q8.launches = 0
+
+
+def _cross_q8(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """f32 of the exact integer products q.x[r], (Q, N): a float64 matmul of
+    the codes (exact below 2^53; an f32 one is not once 127^2 * d > 2^24),
+    chunked over store rows."""
+    qd = q.double()
+    out = torch.empty((q.shape[0], x.shape[0]), dtype=torch.float32, device=x.device)
+    for s in range(0, x.shape[0], _Q8_REF_ROWS):
+        out[:, s:s + _Q8_REF_ROWS] = (qd @ x[s:s + _Q8_REF_ROWS].double().T).float()
+    return out
+
+
+def groupmin_q8_ref(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor,
+                    scales: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`groupmin_q8`: exact product, f32 epilogue,
+    pad, group min."""
+    n = x.shape[0]
+    ng = num_groups(n)
+    scores = _epilogue_q8(_cross_q8(q, x), qscale[:, None], scales[None, :], norms[None, :])
     scores = F.pad(scores, (0, ng * GROUP - n), value=float("inf"))
     return scores.view(q.shape[0], ng, GROUP).amin(dim=2)
 
@@ -212,10 +341,7 @@ def rescore(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
     bit the min of its phase-2 scores.
     """
     _check_scoring_args(q, x, norms)
-    if cand.dtype != torch.int32 or cand.dim() != 2 or cand.shape[0] != q.shape[0]:
-        raise ValueError("cand must be int32 of shape (Q, t)")
-    if not cand.is_contiguous():
-        raise ValueError("cand must be contiguous")
+    _check_cand(cand, q.shape[0])
     if not _on_cuda(q, x, norms, cand):
         return rescore_ref(q, x, norms, cand)
     nq, d = q.shape
@@ -241,19 +367,78 @@ def rescore_ref(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
                 cand: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`rescore`: gather the candidate rows, batched
     f32 matmul."""
-    n = x.shape[0]
     nq, t = cand.shape
-    rows = (cand.long()[:, :, None] * GROUP
-            + torch.arange(GROUP, device=cand.device)).reshape(nq, t * GROUP)
-    valid = (rows >= 0) & (rows < n)
-    safe = rows.clamp(0, max(n - 1, 0))
+    valid, safe = _candidate_rows(cand, x.shape[0])
     xs = x[safe.reshape(-1)].float().view(nq, t * GROUP, -1)
     cross = torch.bmm(xs, q.float()[:, :, None])[:, :, 0]
     scores = norms[safe] - 2.0 * cross
     return torch.where(valid, scores, torch.full_like(scores, float("inf")))
 
 
-KERNELS = (groupmin, select_topt, rescore)
+def _candidate_rows(cand: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(valid, safe) (Q, t*128): which candidate-group rows exist, and
+    their row ids clamped into the store."""
+    nq, t = cand.shape
+    rows = (cand.long()[:, :, None] * GROUP
+            + torch.arange(GROUP, device=cand.device)).reshape(nq, t * GROUP)
+    return (rows >= 0) & (rows < n), rows.clamp(0, max(n - 1, 0))
+
+
+def _check_cand(cand: torch.Tensor, nq: int) -> None:
+    if cand.dtype != torch.int32 or cand.dim() != 2 or cand.shape[0] != nq:
+        raise ValueError("cand must be int32 of shape (Q, t)")
+    if not cand.is_contiguous():
+        raise ValueError("cand must be contiguous")
+
+
+def rescore_q8(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
+               norms: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """:func:`groupmin_q8`'s score for every row r of each query's candidate
+    groups: cand (Q, t) int32 group ids -> (Q, t*128) f32; column j*128 + i
+    is row cand[:, j]*128 + i. Rows past N score +inf.
+
+    Replaces ``_fused_rescore_kernel_q8`` (topk_pallas.py:333, launched at
+    :756). What bounds it on the card: the gathered bytes, Q*t*128*(d + 8),
+    read from scattered 128-row blocks; at Q = 1 that is a few dozen blocks
+    and launch latency dominates. The design is ``rescore``'s (each group
+    split over 4 blocks, blocks read in place, no gather buffer), and it
+    scores a row with the same routine as :func:`groupmin_q8`, so a group's
+    phase-1 min is bit for bit the min of its phase-2 scores.
+    """
+    _check_q8_args(q, qscale, x, scales, norms)
+    _check_cand(cand, q.shape[0])
+    if not _on_cuda(q, qscale, x, scales, norms, cand):
+        return rescore_q8_ref(q, qscale, x, scales, norms, cand)
+    nq, d = q.shape
+    t = cand.shape[1]
+    out = torch.empty((nq, t * GROUP), dtype=torch.float32, device=x.device)
+    if nq == 0 or t == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _kernels.library().ise_rescore_q8(
+            q.data_ptr(), qscale.data_ptr(), norms.data_ptr(), scales.data_ptr(), x.data_ptr(),
+            cand.data_ptr(), out.data_ptr(), nq, x.shape[0], d, t, _vec_q8(q, x), _stream(x))
+    _kernels.check(err, "rescore_q8")
+    rescore_q8.launches += 1
+    return out
+
+
+rescore_q8.launches = 0
+
+
+def rescore_q8_ref(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
+                   norms: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`rescore_q8`: per query, gather the candidate
+    rows, exact float64 product, f32 epilogue."""
+    valid, safe = _candidate_rows(cand, x.shape[0])
+    cross = torch.empty(safe.shape, dtype=torch.float32, device=x.device)
+    for i in range(q.shape[0]):
+        cross[i] = (x[safe[i]].double() @ q[i].double()).float()
+    scores = _epilogue_q8(cross, qscale[:, None], scales[safe], norms[safe])
+    return torch.where(valid, scores, torch.full_like(scores, float("inf")))
+
+
+KERNELS = (groupmin, select_topt, rescore, groupmin_q8, rescore_q8)
 
 
 def reset_launch_counts() -> None:
@@ -277,6 +462,7 @@ def topk_twophase(
     metric: str = "l2",
     *,
     x_norms: torch.Tensor | None = None,
+    x_scale: torch.Tensor | None = None,
     t_margin: int = 4,
     with_certificate: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
@@ -285,14 +471,23 @@ def topk_twophase(
     ascending for l2, descending for ip/cosine; with ``with_certificate``
     a third output, bool (Q,), True where the result is provably exact.
 
-    ``x`` is an f32 or bf16 store (N, d); ``x_norms`` its squared norms,
-    PAD_NORM on padding rows (index/store.py), computed from x when absent
-    (l2) or taken as zeros (ip). t = min(k + t_margin, ngroups); when
-    t == ngroups every group is rescored and the select does not run.
+    ``x`` is an f32, bf16 or int8 store (N, d); an int8 store needs its
+    per-row dequant scales ``x_scale`` (N,), and the query is then quantized
+    per row the same way, so the result is exact over the quantized store
+    and quantized query (l2 adds the unquantized query's squared norm).
+    ``x_norms`` are the store's squared norms, PAD_NORM on padding rows
+    (index/store.py), computed from x when absent (l2) or taken as zeros
+    (ip). t = min(k + t_margin, ngroups); when t == ngroups every group is
+    rescored and the select does not run.
     """
-    if x.dtype not in _DTYPE_CODES:
-        raise not_ported(f"store dtype {x.dtype}", "int8")
+    is_int8 = x.dtype == torch.int8
+    if is_int8 and x_scale is None:
+        raise ValueError("int8 store requires x_scale")
+    if not is_int8 and x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"store dtype must be float32, bfloat16 or int8, got {x.dtype}")
     if metric == "cosine":
+        if is_int8:
+            raise ValueError("pre-normalize rows and use metric='ip' with int8")
         q = l2_normalize(q.float())
         x = l2_normalize(x.float()).to(x.dtype)
         metric = "ip"
@@ -301,16 +496,32 @@ def topk_twophase(
     nq = q.shape[0]
     n = x.shape[0]
     ng = num_groups(n)
-    qf = q.to(x.dtype).contiguous()
+    if is_int8:
+        qf, qscale = quantize_int8(q)
+        x_scale = x_scale.to(torch.float32).contiguous()
+    else:
+        qf = q.to(x.dtype).contiguous()
     if metric == "l2":
-        norms = x_norms if x_norms is not None else (x.float() * x.float()).sum(1)
+        if x_norms is not None:
+            norms = x_norms
+        elif is_int8:  # the dequantized store's norms
+            deq = x.float() * x_scale[:, None]
+            norms = (deq * deq).sum(1)
+        else:
+            norms = (x.float() * x.float()).sum(1)
     else:
         norms = (torch.zeros(n, dtype=torch.float32, device=x.device) if x_norms is None
                  else ip_penalty(x_norms))
-        qf = qf * 0.5
+        if is_int8:
+            qscale = qscale * 0.5  # the epilogue multiplies by 2 * qscale
+        else:
+            qf = qf * 0.5
     norms = norms.to(torch.float32).contiguous()
 
-    mins = groupmin(qf, x, norms)
+    if is_int8:
+        mins = groupmin_q8(qf, qscale, x, x_scale, norms)
+    else:
+        mins = groupmin(qf, x, norms)
     t = min(k + t_margin, ng)
     if t < ng:
         sel_vals, cand = select_topt(mins, t)
@@ -318,7 +529,10 @@ def topk_twophase(
     else:  # every group is a candidate: nothing pruned, certificate trivially True
         cand = torch.arange(ng, dtype=torch.int32, device=x.device).expand(nq, ng).contiguous()
         threshold = torch.full((nq,), float("inf"), device=x.device)
-    scores = rescore(qf, x, norms, cand)
+    if is_int8:
+        scores = rescore_q8(qf, qscale, x, x_scale, norms, cand)
+    else:
+        scores = rescore(qf, x, norms, cand)
 
     kk = min(k, t * GROUP)
     vals, pos = torch.topk(scores, kk, dim=1, largest=False, sorted=True)
@@ -341,13 +555,14 @@ def topk_twophase_safe(
     metric: str = "l2",
     *,
     x_norms: torch.Tensor | None = None,
+    x_scale: torch.Tensor | None = None,
     t_margin: int = 4,
     wide_margin: int = 32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``topk_twophase`` with the certificate enforced: if any query's
     certificate fails, the whole call re-runs once at ``wide_margin`` and
     logs; a failure there too is logged as an error, never looped on."""
-    d, i, cert = topk_twophase(q, x, k, metric, x_norms=x_norms,
+    d, i, cert = topk_twophase(q, x, k, metric, x_norms=x_norms, x_scale=x_scale,
                                t_margin=t_margin, with_certificate=True)
     if bool(cert.all()):
         return d, i
@@ -355,7 +570,7 @@ def topk_twophase_safe(
         "top-k exactness certificate failed for %d/%d queries at margin %d; "
         "re-running at margin %d",
         int((~cert).sum()), cert.shape[0], t_margin, wide_margin)
-    d, i, cert = topk_twophase(q, x, k, metric, x_norms=x_norms,
+    d, i, cert = topk_twophase(q, x, k, metric, x_norms=x_norms, x_scale=x_scale,
                                t_margin=wide_margin, with_certificate=True)
     if not bool(cert.all()):
         log.error("certificate still failing at margin %d (%d queries)",

@@ -3,8 +3,9 @@
 Port of the single-device part of ``image_search_engine_tpu/serving/
 fused.py``. Every request runs one prologue (upload, preprocess, backbone)
 and one search core on the device, then one host transfer in the epilogue.
-Families: flat (the certified two-phase top-k; the certificate retry
-re-runs the whole dispatch at the wide margin, as in the JAX package), IVF
+Families: flat (the certified two-phase top-k over an f32, bf16 or int8
+store, or the chunked chi2 scan; the certificate retry re-runs the whole
+dispatch at the wide margin, as in the JAX package), IVF
 and IVF-PQ (the probed-scan kernel; IVF-PQ scans a reconstruction table
 built once at start, with an optional exact rerank in the same dispatch).
 PyTorch runs eagerly, so there is no program to compile and the device
@@ -93,16 +94,19 @@ def cnn_prologue(embedder, normalize: bool):
 
 
 def flat_family(index, stats=None, label: str = ""):
-    """Exact flat search core: the two-phase kernels for k <= 128, the
-    plain full scan past that (the index/flat.py rule). Emits the
-    certificate either way (the full scan's is True by construction).
-    Returns (core, statics_fn, epilogue)."""
+    """Exact flat search core: the two-phase kernels for k <= 128 (the int8
+    kernels for an int8 store), the plain full scan past that (the
+    index/flat.py rule) and for chi2, which has no kernel (elementwise, the
+    chunked scan). Emits the certificate either way (the full scan's is True
+    by construction). Returns (core, statics_fn, epilogue)."""
     search_metric = "ip" if index.metric in ("ip", "cosine") else index.metric
-    store, norms, n_valid = index.store.vectors, index.store.norms, index.store.n
+    store, norms, scales = index.store.vectors, index.store.norms, index.store.scales
+    n_valid = index.store.n
 
     def core(emb, k, t_margin):
         return local_topk_with_norms(
-            emb, store, norms, k, search_metric, use_kernels=k <= MAX_KERNEL_K,
+            emb, store, norms, k, search_metric,
+            use_kernels=k <= MAX_KERNEL_K and search_metric != "chi2", scales=scales,
             with_certificate=True, t_margin=t_margin)
 
     epilogue = certificate_epilogue(descending=search_metric == "ip", stats=stats, label=label)

@@ -1,8 +1,6 @@
 """What the port does not do yet, and the ROADMAP.md item that brings it."""
 
 ROADMAP_ITEMS = {
-    "chi2": "queue 1 item 1, flat-index remainder",
-    "int8": "queue 2 item 4, int8 kernels",
     "serving": "queue 1 item 3, on-host serving latency",
     "bovw": "queue 1 item 5, descriptors, BoVW and dHash",
     "backbone": "queue 1 item 6, other backbones and training",

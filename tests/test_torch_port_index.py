@@ -83,7 +83,8 @@ def test_store_pads_and_poisons():
     np.testing.assert_allclose(s.norms[:13].numpy(), (x.astype(np.float64) ** 2).sum(1), rtol=1e-6)
     np.testing.assert_array_equal(s.to_host(), x)
     b = VectorStore.build(x, dtype="bf16", device="cpu")
-    assert b.to_host_raw().dtype == np.uint16
+    raw, scales = b.to_host_raw()
+    assert raw.dtype == np.uint16 and scales is None
     np.testing.assert_array_equal(b.to_host(), torch.from_numpy(x).to(torch.bfloat16).float().numpy())
 
 
@@ -115,7 +116,10 @@ def test_npz_loads_in_the_other_package(tmp_path, dtype, metric):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlatIndex("chi2", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlatIndex("l2", dtype="int8", device="cpu")
+    # chi2 and the int8 store are ported; what still raises is what the
+    # JAX package refuses too
+    for dtype in ("bf16", "int8"):
+        with pytest.raises(ValueError, match="chi2 searches f32 stores only"):
+            FlatIndex("chi2", dtype=dtype, device="cpu")
+    with pytest.raises(ValueError, match="store dtype"):
+        FlatIndex("l2", dtype="int4", device="cpu")

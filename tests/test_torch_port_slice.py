@@ -130,10 +130,12 @@ def test_engine_refuses_unported_modes(tmp_path):
     cfg = port_config.Config(artifacts_dir=tmp_path, method=port_config.Method.BOVW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_engine.QueryEngine(cfg, device="cpu")
-    cfg = port_config.Config(artifacts_dir=tmp_path, index_type=port_config.IndexType.IVFPQ,
-                             store_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_indexer.main(cfg, device="cpu")
+    # int8 is a flat-store precision only, in both packages
+    for index_type in (port_config.IndexType.IVFPQ, port_config.IndexType.CELL_PROBE):
+        cfg = port_config.Config(artifacts_dir=tmp_path, data_dir=tmp_path,
+                                 index_type=index_type, store_dtype="int8")
+        with pytest.raises(SystemExit, match="flat indexes only"):
+            port_indexer.main(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("index_type", ["ivfpq", "cell-probe"])
@@ -155,12 +157,19 @@ def test_ivf_index_and_serve(tmp_path, index_type):
     with np.load(art / f"dnn_resnet-tiny_{index_type}.index.npz") as z:
         assert str(z["kind"]) == ("ivfpq" if index_type == "ivfpq" else "ivf")
         assert z["vectors"].shape == (12, 2048) and z["centroids"].shape[0] == 8
+    engine = serve_and_query_each_image(tmp_path, art, index_type, weights)
+    assert type(engine.index).__name__ == ("IVFPQIndex" if index_type == "ivfpq" else "IVFIndex")
 
+
+def serve_and_query_each_image(tmp_path, art, index_type, weights):
+    """The port's HTTP server on ``art``: each corpus image answers 200 with
+    itself first, finite ascending distances and a thumbnail, and the JAX
+    engine serves the same port-built artifact with the same top-1.
+    Returns the port's engine."""
     cfg, device = port_engine.parse_args([
         "--artifacts-dir", str(art), "--index-type", index_type, "--dnn-model", "resnet-tiny",
         "--resize-size", "32", "--torch-weights", str(weights), "--port", "0", "--device", "cpu"])
     engine, httpd = port_engine.make_server(cfg, device)
-    assert type(engine.index).__name__ == ("IVFPQIndex" if index_type == "ivfpq" else "IVFIndex")
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     jax_engine = JaxQueryEngine(Config(
@@ -173,7 +182,7 @@ def test_ivf_index_and_serve(tmp_path, index_type):
             data = open(path, "rb").read()
             status, js = post_image(base + "/similar_images", data)
             pred = js["prediction"]
-            # k = 20 over 12 rows, 5 of 8 cells probed: the (-1) tail is dropped
+            # k = 20 over 12 rows (IVF: 5 of 8 cells probed): the (-1) tail is dropped
             assert status == 200 and 1 <= len(pred) <= 12
             dists = [p[0] for p in pred]
             assert np.isfinite(dists).all() and dists == sorted(dists)
@@ -187,3 +196,27 @@ def test_ivf_index_and_serve(tmp_path, index_type):
         httpd.server_close()
         thread.join(timeout=30)
     assert not thread.is_alive()
+    return engine
+
+
+@pytest.mark.parametrize("index_type,store_dtype", [("l2", "int8"), ("chi2", "f32")])
+def test_int8_and_chi2_index_and_serve(tmp_path, index_type, store_dtype):
+    """The flat int8 store and the chi2 metric through the port's entry
+    points on the CPU: the indexer CLI writes the JAX package's keys (int8
+    codes with their scales), the HTTP server answers each image with
+    itself, and the JAX engine serves the port-built artifact alike."""
+    make_corpus(tmp_path / "images", np.random.default_rng(2))
+    weights = tmp_path / "tiny.pth"
+    make_weights(weights)
+    art = tmp_path / "port"
+    port_indexer.cli_main([
+        "--data-dir", str(tmp_path / "images"), "--artifacts-dir", str(art),
+        "--method", "dnn", "--dnn-model", "resnet-tiny", "--index-type", index_type,
+        "--store-dtype", store_dtype, "--resize-size", "32", "--batch-size", "4",
+        "--torch-weights", str(weights), "--device", "cpu"])
+    with np.load(art / f"dnn_resnet-tiny_{index_type}.index.npz") as z:
+        assert str(z["metric"]) == index_type and str(z["dtype"]) == store_dtype
+        assert z["vectors"].dtype == (np.int8 if store_dtype == "int8" else np.float32)
+        assert ("scales" in z) == (store_dtype == "int8")
+    engine = serve_and_query_each_image(tmp_path, art, index_type, weights)
+    assert engine.index.metric == index_type and engine.index.dtype == store_dtype
