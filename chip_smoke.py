@@ -26,9 +26,16 @@ Phases (each raises on failure; the script then exits non-zero):
      bit at Q = 1 x 1M x 2048 and three other shapes plus an edge sweep,
      with timings (and ``torch._int_mm``'s product alone as a yardstick);
      then the same PNGs through ``--store-dtype int8`` and through
-     ``--index-type chi2``, each served over HTTP with its launch counts.
+     ``--index-type chi2``, each served over HTTP with its launch counts;
+  5. the last two package kernels through their entry points:
+     ``topk_running`` (running top-k accumulators) at Q = 1 and 8 over 1M x
+     2048 f32 and Q = 1 over bf16, ids equal to its plain version's, and
+     ``topk_merged`` (the two-phase search in one cooperative launch) at Q =
+     1 and 64 over 1M x 2048 f32 and bf16 and at Q = 2048 and 4096 over 1M x
+     128 bf16, equal to ``topk_twophase(t_margin=2)`` bit for bit; edge
+     sweeps for both; timings beside the two-phase search.
 
-Before its last two lines it prints a JSON object describing the seven
+Before its last two lines it prints a JSON object describing the nine
 kernels (launches, errors, times, bounds) and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
@@ -65,6 +72,8 @@ SOURCES = {
     "kmeans_assign": CSRC + "kmeans_assign.cu",
     "groupmin_q8": CSRC + "topk_twophase_q8.cu",
     "rescore_q8": CSRC + "topk_twophase_q8.cu",
+    "topk_running": CSRC + "topk_running.cu",
+    "topk_merged": CSRC + "topk_merged.cu",
 }
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
@@ -74,6 +83,8 @@ REPLACES = {
     "kmeans_assign": "image_search_engine_tpu/ops/kmeans_pallas.py:26",
     "groupmin_q8": "image_search_engine_tpu/ops/topk_pallas.py:276",
     "rescore_q8": "image_search_engine_tpu/ops/topk_pallas.py:333",
+    "topk_running": "image_search_engine_tpu/ops/topk_pallas.py:79",
+    "topk_merged": "image_search_engine_tpu/ops/topk_merged.py:66",
 }
 EPS32 = float(np.finfo(np.float32).eps)
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
@@ -942,7 +953,7 @@ def phase4_entry(workdir: Path, paths: list, flat_art: Path) -> dict:
     q8 = serve_and_query(art, "l2", paths, "int8")
     idx8 = q8["engine"].index
     want = {"groupmin": 0, "select_topt": 8, "rescore": 0, "groupmin_q8": 8, "rescore_q8": 8,
-            "probed_scan": 0}
+            "topk_running": 0, "probed_scan": 0}
     if idx8.dtype != "int8" or q8["launches"] != want or q8["escalations"] != 0:
         raise AssertionError(f"int8 serving: store {idx8.dtype}, launches {q8['launches']} (want "
                              f"{want}), escalations {q8['escalations']}")
@@ -967,6 +978,261 @@ def phase4_entry(workdir: Path, paths: list, flat_art: Path) -> dict:
         f"latency p50 {c2['p50_ms']:.2f} ms (client clock)")
     return {"launches": q8["launches"], "p50_ms": q8["p50_ms"], "overlap": overlap,
             "escalations": q8["escalations"], "chi2_p50_ms": c2["p50_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the last two package kernels (running top-k, merged two-phase)
+# ---------------------------------------------------------------------------
+
+MERGED_MARGIN = 2  # topk_merged's default, held against topk_twophase at the same margin
+# bench.py's operating point: 1M x 128 bf16, k = 10, Q = 2048 and 4096
+BENCH_N, BENCH_D, BENCH_K = 1_000_000, 128, 10
+
+
+def search_inputs(q, x, metric):
+    """(query, store, the store's own squared norms) after the entry
+    points' cosine normalization."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    q, x, _ = T._cosine_as_ip(q, x, metric)
+    return q, x, (x.float() * x.float()).sum(1)
+
+
+def running_tol(q, x, metric) -> float:
+    """score_tol for topk_running: its f32 query (halved for ip) against
+    the store's own norms."""
+    q, x, sn = search_inputs(q, x, metric)
+    return score_tol(q.float() * (1.0 if metric == "l2" else 0.5), sn)
+
+
+def assert_ids_equal(name, i, ri, rd, tol) -> int:
+    """The kernel's ids equal the plain version's, except at positions
+    whose plain distance lies within tol of a neighbour's without being
+    equal to it (a near-tie that the summation order may flip). Returns how
+    many positions differ (expected 0)."""
+    bad = (i != ri).cpu().numpy()
+    if not bad.any():
+        return 0
+    rdn = rd.double().cpu().numpy()
+    step = np.abs(np.diff(rdn, axis=1))
+    gap = np.full(rdn.shape, np.inf)
+    gap[:, 1:] = step
+    gap[:, :-1] = np.minimum(gap[:, :-1], step)
+    near = (gap <= tol) & (gap > 0)
+    if (bad & ~near).any():
+        r, c = np.argwhere(bad & ~near)[0]
+        raise AssertionError(f"{name}: ids differ from the plain version's at query {r} rank {c}: "
+                             f"{int(i[r, c])} vs {int(ri[r, c])} (plain distance {rdn[r, c]}, "
+                             f"tolerance {tol})")
+    return int(bad.sum())
+
+
+def check_running(name, q, x, k, metric, *, x_norms=None, got=None):
+    """topk_running (``got``, or run now) against topk_running_ref on the
+    same tensors: ids equal, distances within 2 score_tol. Returns (max abs
+    error, near-tie positions)."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    if got is None:
+        got = T.topk_running(q, x, k, metric, x_norms=x_norms)
+    rd, ri = T.topk_running_ref(q, x, k, metric, x_norms=x_norms)
+    tol = 2 * running_tol(q, x, metric)
+    err = max_abs_err(got[0], rd)
+    if err > tol:
+        raise AssertionError(f"{name}: topk_running distances differ by {err} > {tol}")
+    return err, assert_ids_equal(name, got[1], ri, rd, tol)
+
+
+def check_merged(name, q, x, k, metric, *, x_norms=None, got=None, plain=True):
+    """topk_merged (``got``, or run now) equal to topk_twophase at the same
+    margin bit for bit (distances, ids, certificate), every certificate
+    True; then its kernel wrapper: each candidate group's stage-1 min equal
+    to the min of its stage-3 rows, and (``plain``) mins and scores against
+    the plain version. Returns the largest kernel error (0.0 unchecked)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.ops import topk_merged as TM
+
+    if got is None:
+        got = TM.topk_merged(q, x, k, metric, x_norms=x_norms, with_certificate=True)
+    want = T.topk_twophase(q, x, k, metric, x_norms=x_norms, t_margin=MERGED_MARGIN,
+                           with_certificate=True)
+    for what, a, b in zip(("distances", "ids", "certificates"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: topk_merged {what} differ from topk_twophase's")
+    if not bool(got[2].all()):
+        raise AssertionError(f"{name}: {int((~got[2]).sum())} certificates failed")
+    qs, xs, sn = search_inputs(q, x, metric)
+    smetric = "l2" if metric == "l2" else "ip"
+    qf = qs.to(xs.dtype).contiguous() * (1.0 if smetric == "l2" else 0.5)
+    norms = T._search_norms(xs, smetric, x_norms)
+    t = min(k + MERGED_MARGIN, T.num_groups(xs.shape[0]))
+    scores, cand, _, mins = TM.merged_candidates(qf, xs, norms, t)
+    if not torch.equal(scores.view(qf.shape[0], t, -1).amin(2), mins.gather(1, cand.long())):
+        raise AssertionError(f"{name}: stage-1 group mins differ from the stage-3 rows' mins")
+    if not plain:
+        return 0.0
+    tol = score_tol(qf, sn)
+    err = max(max_abs_err(mins, T.groupmin_ref(qf, xs, norms)),
+              max_abs_err(scores, T.rescore_ref(qf, xs, norms, cand)))
+    if err > tol:
+        raise AssertionError(f"{name}: merged kernel error {err} > tolerance {tol}")
+    return err
+
+
+def edge_sweep_phase5(gen) -> dict:
+    """Small shapes at both kernels' edges, untimed. topk_running: k in {1,
+    20, 128} x N in {1, 127, 128, 129, 5000} (k > N included), metrics,
+    dtypes, query tiles and row widths (d = 130: scalar loads) rotating;
+    ip with PAD_NORM rows; a tie-heavy store. topk_merged: a store of fewer
+    groups than k + margin (every group rescored), ragged groups, Q > 8,
+    d = 130; f32 and bf16, l2 and ip. Returns the largest errors."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.parallel.topk import PAD_NORM
+
+    worst, near, cases = 0.0, 0, 0
+    rot = [("l2", torch.float32, 1, 16), ("ip", torch.bfloat16, 3, 130),
+           ("cosine", torch.float32, 9, 64), ("l2", torch.bfloat16, 8, 2048)]
+    for k in (1, 20, 128):
+        for n in (1, 127, 128, 129, 5000):
+            metric, dtype, nq, d = rot[cases % len(rot)]
+            x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+            q = torch.randn(nq, d, device="cuda", generator=gen)
+            e, c = check_running(f"running edge k={k} N={n} Q={nq} d={d} {dtype} {metric}",
+                                 q, x, k, metric)
+            worst, near, cases = max(worst, e), near + c, cases + 1
+    x = -torch.randn(5000, 64, device="cuda", generator=gen).abs()
+    pads = torch.randperm(5000, device="cuda", generator=gen)[:500]
+    x[pads] = 0.0
+    norms = (x * x).sum(1)
+    norms[pads] = PAD_NORM
+    q = torch.randn(4, 64, device="cuda", generator=gen).abs()
+    got = T.topk_running(q, x, 50, "ip", x_norms=norms)
+    if torch.isin(got[1], pads).any():
+        raise AssertionError("running edge: a PAD_NORM row was returned under ip")
+    e, c = check_running("running edge ip PAD_NORM", q, x, 50, "ip", x_norms=norms, got=got)
+    worst, near = max(worst, e), near + c
+    base = torch.randn(1250, 256, device="cuda", generator=gen)
+    x = base[torch.randint(0, 1250, (5000,), device="cuda", generator=gen)]
+    q = torch.randn(8, 256, device="cuda", generator=gen)
+    e, c = check_running("running edge tie-heavy", q, x, 128, "l2")
+    worst, near, cases = max(worst, e), near + c, cases + 2
+
+    mworst, mcases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for metric in ("l2", "ip"):
+            for n, d, nq, k in ((300, 16, 4, 10), (5003, 130, 9, 20), (20_000, 64, 17, 128)):
+                x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+                q = torch.randn(nq, d, device="cuda", generator=gen)
+                mworst = max(mworst, check_merged(f"merged edge N={n} d={d} Q={nq} k={k} {dtype} "
+                                                  f"{metric}", q, x, k, metric))
+                mcases += 1
+    log(f"  edge sweeps: topk_running {cases} shapes, ids equal to the plain version's "
+        f"({near} near-tie positions), largest error {worst:.3g}; topk_merged {mcases} shapes "
+        f"equal to topk_twophase bit for bit, largest kernel error {mworst:.3g}")
+    return {"topk_running": worst, "topk_merged": mworst}
+
+
+def phase5() -> dict:
+    """topk_running and topk_merged through their entry points: every call
+    of the main run (launch counts set to 0 just before, read just after),
+    then each checked and timed beside topk_twophase, then the edge
+    sweeps."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.ops import topk_merged as TM
+
+    log("phase 5: the running top-k and the merged two-phase search")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
+    x32 = torch.randn(1_000_000, 2048, device="cuda", generator=gen)
+    xb = x32.to(torch.bfloat16)
+    bench = torch.randn(BENCH_N, BENCH_D, device="cuda", generator=gen).to(torch.bfloat16)
+    stores = {name: (x, (x.float() * x.float()).sum(1))
+              for name, x in (("f32", x32), ("bf16", xb), ("bench", bench))}
+    q64 = torch.randn(64, 2048, device="cuda", generator=gen)
+    q4096 = torch.randn(4096, BENCH_D, device="cuda", generator=gen)
+    running_cases = {"Q1_f32": ("f32", q64[:1]), "Q8_f32": ("f32", q64[:8]),
+                     "Q1_bf16": ("bf16", q64[:1])}
+    merged_cases = {"Q1_f32": ("f32", q64[:1], K), "Q64_f32": ("f32", q64, K),
+                    "Q1_bf16": ("bf16", q64[:1], K), "Q64_bf16": ("bf16", q64, K),
+                    "Q2048_bench": ("bench", q4096[:2048], BENCH_K),
+                    "Q4096_bench": ("bench", q4096, BENCH_K)}
+    torch.cuda.synchronize()
+
+    T.reset_launch_counts()
+    TM.merged_candidates.launches = 0
+    running_out = {c: T.topk_running(q, stores[s][0], K, "l2", x_norms=stores[s][1])
+                   for c, (s, q) in running_cases.items()}
+    merged_out = {c: TM.topk_merged(q, stores[s][0], k, "l2", x_norms=stores[s][1],
+                                    with_certificate=True)
+                  for c, (s, q, k) in merged_cases.items()}
+    torch.cuda.synchronize()
+    launches = {"topk_running": T.topk_running.launches,
+                "topk_merged": TM.merged_candidates.launches}
+    if launches != {"topk_running": len(running_cases), "topk_merged": len(merged_cases)}:
+        raise AssertionError(f"phase 5 entry-point calls launched {launches}")
+    log(f"  entry-point calls: launches {launches} (one per call)")
+
+    res = {"launches": launches, "running": {}, "merged": {}}
+    for c, (s, q) in running_cases.items():
+        x, norms = stores[s]
+        err, near = check_running(f"running {c}", q, x, K, "l2", x_norms=norms,
+                                  got=running_out[c])
+        nq, isz = q.shape[0], x.element_size()
+        b = bound(x.numel() * isz + x.shape[0] * 4 + q.numel() * 4 + nq * K * 8,
+                  2 * nq * x.numel(), F32_FLOPS)
+        r = {"max_abs_err": err, "near_ties": near, "bound_ms": b[0], "bound_by": b[1],
+             "ms": median_ms(lambda: T.topk_running(q, x, K, "l2", x_norms=norms), flush),
+             "plain_ms": median_ms(lambda: T.topk_running_ref(q, x, K, "l2", x_norms=norms),
+                                   flush, reps=5),
+             "twophase_ms": median_ms(lambda: T.topk_twophase(q, x, K, "l2", x_norms=norms),
+                                      flush)}
+        res["running"][c] = r
+        log(f"  topk_running {c} (N={x.shape[0]:,} d={x.shape[1]} {str(x.dtype)[6:]} k={K}): "
+            f"ids = plain ({near} near-ties), "
+            f"err {err:.3g}; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+            f"{b[0]:.4f} ms by {b[1]}); topk_twophase {r['twophase_ms']:.4f} ms")
+    del running_out
+
+    for c, (s, q, k) in merged_cases.items():
+        x, norms = stores[s]
+        nq, n, d = q.shape[0], x.shape[0], x.shape[1]
+        fits = nq * n <= 2 ** 31  # the plain version's (Q, N) f32 scores
+        err = check_merged(f"merged {c}", q, x, k, "l2", x_norms=norms, got=merged_out[c],
+                           plain=fits)
+        qf = q.to(x.dtype).contiguous()
+        t = min(k + MERGED_MARGIN, T.num_groups(n))
+        isz = x.element_size()
+        b = bound(n * d * isz + n * 4 + nq * d * isz
+                  + nq * (t * T.GROUP * 4 + t * 4 + 4 + T.num_groups(n) * 4),
+                  2 * nq * n * d + 2 * nq * t * T.GROUP * d, F32_FLOPS if isz == 4 else BF16_FLOPS)
+        reps = TIMING_REPS if nq <= 8 else 5
+        r = {"max_abs_err": err, "bound_ms": b[0], "bound_by": b[1], "t": t,
+             "ms": median_ms(lambda: TM.merged_candidates(qf, x, norms, t), flush, reps=reps),
+             "search_ms": median_ms(lambda: TM.topk_merged(q, x, k, "l2", x_norms=norms), flush,
+                                    reps=reps),
+             "twophase_ms": median_ms(lambda: T.topk_twophase(q, x, k, "l2", x_norms=norms,
+                                                              t_margin=MERGED_MARGIN), flush,
+                                      reps=reps),
+             "plain_ms": (median_ms(lambda: TM.merged_candidates_ref(qf, x, norms, t), flush,
+                                    reps=3) if fits else None)}
+        res["merged"][c] = r
+        plain = "not timed: (Q, N) f32 too large" if r["plain_ms"] is None else \
+            f"{r['plain_ms']:.4f} ms"
+        log(f"  topk_merged {c} (N={n:,} d={d} {str(x.dtype)[6:]} k={k}, t={t}): = "
+            f"topk_twophase bit for bit, certificates all True, kernel err {err:.3g}; kernel "
+            f"{r['ms']:.4f} ms (plain "
+            f"{plain}, bound {b[0]:.4f} ms by {b[1]}); search {r['search_ms']:.4f} ms vs "
+            f"topk_twophase(t_margin={MERGED_MARGIN}) {r['twophase_ms']:.4f} ms")
+    del merged_out, stores, x32, xb, bench
+    torch.cuda.empty_cache()
+    res["edge"] = edge_sweep_phase5(gen)
+    return res
 
 
 def main() -> int:
@@ -1003,6 +1269,7 @@ def main() -> int:
         q8_served = phase4_entry(workdir, served["paths"], served["art"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    last = phase5()
 
     head = shapes["Q1_N1M_d2048_f32_l2"]
     kernels = [{
@@ -1043,6 +1310,19 @@ def main() -> int:
             "bound_ms": head[name]["bound_ms"], "bound_by": head[name]["bound_by"],
             "library_ms": None, "shape": "Q=1 N=1,000,000 d=2048 int8 l2 k=20",
             "q64": at_q64,
+        })
+    for name, cases, shape in (
+            ("topk_running", last["running"], "Q=1 N=1,000,000 d=2048 f32 l2 k=20"),
+            ("topk_merged", last["merged"], "Q=1 N=1,000,000 d=2048 f32 l2 k=20 t=22")):
+        head = cases["Q1_f32"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": last["launches"][name],
+            "max_abs_err": max(last["edge"][name], *(c["max_abs_err"] for c in cases.values())),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None, "shape": shape,
+            "shapes": {c: {k: v for k, v in r.items() if k != "max_abs_err"}
+                       for c, r in cases.items()},
         })
     log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "
         f"{served['p50_ms']:.2f} ms, escalations {served['escalations']}; IVF-PQ build "

@@ -31,6 +31,7 @@
 #include <cstdint>
 
 #include "scoring.cuh"
+#include "select.cuh"
 
 namespace {
 
@@ -81,74 +82,14 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-__device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
-  return av < bv || (av == bv && ai < bi);
-}
-
-// Select. One block per query: t passes, each a block-wide argmin over the
-// entries that come after the previous pass's winner in (value, id) order.
-// That is the extract-min sequence of the TPU kernel (ties to the lowest
-// group id) without a scratch copy of the row.
+// Select. One block per query (block_select_topt, select.cuh): t passes, each
+// a block-wide argmin over the entries after the previous winner in (value,
+// id) order, so ties go to the lowest group id.
 __global__ void __launch_bounds__(SELECT_MAX_THREADS)
     select_kernel(const float* __restrict__ mins, float* __restrict__ vals, int* __restrict__ ids,
                   int ngroups, int t) {
-  __shared__ float wv[SELECT_MAX_THREADS / 32];
-  __shared__ int wi[SELECT_MAX_THREADS / 32];
-  __shared__ float win_v;
-  __shared__ int win_i;
-  const float* row = mins + (size_t)blockIdx.x * ngroups;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  float prev_v = -INFINITY;
-  int prev_i = -1;
-  for (int p = 0; p < t; ++p) {
-    float bv = INFINITY;
-    int bi = INT_MAX;
-    for (int i = threadIdx.x; i < ngroups; i += blockDim.x) {
-      const float v = __ldg(row + i);
-      if (lex_less(prev_v, prev_i, v, i) && lex_less(v, i, bv, bi)) {
-        bv = v;
-        bi = i;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (lex_less(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      wv[warp] = bv;
-      wi[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? wv[lane] : INFINITY;
-      bi = lane < nwarps ? wi[lane] : INT_MAX;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (lex_less(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (lane == 0) {
-        win_v = bv;
-        win_i = bi;
-        vals[(size_t)blockIdx.x * t + p] = bv;
-        ids[(size_t)blockIdx.x * t + p] = bi;
-      }
-    }
-    __syncthreads();
-    prev_v = win_v;
-    prev_i = win_i;
-  }
+  block_select_topt<false>(mins + (size_t)blockIdx.x * ngroups, ngroups, t,
+                           vals + (size_t)blockIdx.x * t, ids + (size_t)blockIdx.x * t);
 }
 
 // Phase 2. Block b scores rows [s*32, s*32+32) of candidate slot b / SPLIT

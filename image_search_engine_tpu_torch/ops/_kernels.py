@@ -25,8 +25,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
-           _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu")
-HEADERS = (_CSRC / "scoring.cuh",)
+           _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu",
+           _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu")
+HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -116,6 +117,10 @@ def library() -> ctypes.CDLL:
             lib.ise_probed_scan.restype = i
             lib.ise_kmeans_assign.argtypes = [p, p, p, p, p, i, ll, i, i, ll, ll, i, p]
             lib.ise_kmeans_assign.restype = i
+            lib.ise_topk_running.argtypes = [i, p, p, p, p, p, p, p, i, ll, i, i, i, i, i, p]
+            lib.ise_topk_running.restype = i
+            lib.ise_topk_merged.argtypes = [i, p, p, p, p, p, p, p, i, ll, i, i, i, i, p]
+            lib.ise_topk_merged.restype = i
             lib.ise_error_string.argtypes = [i]
             lib.ise_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,8 +1,9 @@
 """Certified two-phase exact top-k — the flat search's hot op.
 
 Port of ``image_search_engine_tpu/ops/topk_pallas.py`` (``topk_twophase``,
-``topk_twophase_safe``, ``quantize_store_int8``) for f32, bf16 and int8
-stores:
+``topk_twophase_safe``, ``quantize_store_int8``, and ``topk_pallas`` as
+:func:`topk_running`: one pass with running top-k accumulators,
+``csrc/topk_running.cu``) for f32, bf16 and int8 stores:
 
   1. ``groupmin``: scores norms - 2 q.x against every store row and keeps
      the min of each 128-row group, (Q, ngroups);
@@ -438,7 +439,135 @@ def rescore_q8_ref(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor, scale
     return torch.where(valid, scores, torch.full_like(scores, float("inf")))
 
 
-KERNELS = (groupmin, select_topt, rescore, groupmin_q8, rescore_q8)
+# ---------------------------------------------------------------------------
+# Running-accumulator exact top-k
+# ---------------------------------------------------------------------------
+
+#: neighbours the running and merged top-k kernels return at most (as the
+#: TPU kernels)
+KERNEL_MAX_K = 128
+#: scan blocks the running top-k aims for per SM (a few waves, long slices)
+_RUNNING_BLOCKS_PER_SM = 8
+#: warps per scan block (``WARPS`` in csrc/scoring.cuh)
+_RUNNING_WARPS = 8
+
+
+def _running_slices(n: int, k: int, nqt: int, sms: int) -> int:
+    """Store slices per query tile: enough blocks for a few waves over the
+    SMs, but at least k rows for each warp of a slice, so the slices' lists
+    stay small next to the store."""
+    want = -(-_RUNNING_BLOCKS_PER_SM * sms // nqt)
+    return max(1, min(want, n // (_RUNNING_WARPS * k)))
+
+
+def topk_running(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    k: int,
+    metric: str = "l2",
+    *,
+    x_norms: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN by one pass over the store with running top-k
+    accumulators: (distances (Q, k) f32, ids (Q, k) int64), ascending for
+    l2, descending for ip and cosine; ties go to the lowest id. When k > N
+    the tail is (+inf, -1) for l2 and (-inf, -1) for ip and cosine.
+
+    Counterpart of the JAX package's ``topk_pallas``. ``x`` is an f32 or
+    bf16 store; the query stays f32 over either (the products are f32,
+    bf16 rows widened exactly), unlike :func:`topk_twophase`, which casts it
+    to the store dtype. ``x_norms`` as in :func:`topk_twophase` (ip keeps
+    only their PAD_NORM poisoning). k <= 128.
+
+    Replaces ``_topk_kernel`` (image_search_engine_tpu/ops/topk_pallas.py:
+    79, launched :211). What bounds it on the card: one read of the store
+    per query tile of up to 8 queries, N*d*itemsize + 4N bytes, so at
+    serving batch sizes a memory-bandwidth kernel like :func:`groupmin`.
+    The design (``csrc/topk_running.cu``) splits the store into slices, one
+    block per (slice, query tile); each warp keeps its own sorted top-k per
+    query in registers and inserts a row only when it beats the warp's k-th
+    (the TPU kernel's reject-fast test, per row); the block merges its
+    warps' lists, and a second kernel merges the slices' lists per query.
+    """
+    qf, x, norms, metric, q = _running_inputs(q, x, k, metric, x_norms)
+    if not _on_cuda(qf, x, norms):
+        vals, ids = _running_ref_core(qf, x, norms, k)
+        return _finish_scores(vals, ids, q, metric)
+    nq, d = qf.shape
+    n = x.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"N={n} rows: the running top-k kernel takes N < 2^31")
+    qt = _query_tile(nq, d * 4)
+    nqt = -(-nq // qt)
+    if nqt > 65535:
+        raise ValueError(f"{nq} queries exceed the kernel's grid ({65535 * qt} at most)")
+    vals = torch.empty((nq, k), dtype=torch.float32, device=x.device)
+    ids = torch.empty((nq, k), dtype=torch.int32, device=x.device)
+    if nq == 0:
+        return _finish_scores(vals, ids.long(), q, metric)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nslices = _running_slices(n, k, nqt, sms)
+    part_v = torch.empty((nq, nslices, k), dtype=torch.float32, device=x.device)
+    part_i = torch.empty((nq, nslices, k), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels.library().ise_topk_running(
+            _DTYPE_CODES[x.dtype], qf.data_ptr(), norms.data_ptr(), x.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+            nq, n, d, k, qt, nslices, _vec(x), _stream(x))
+    _kernels.check(err, "topk_running")
+    topk_running.launches += 1
+    return _finish_scores(vals, ids.long(), q, metric)
+
+
+topk_running.launches = 0
+
+
+def topk_running_ref(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    k: int,
+    metric: str = "l2",
+    *,
+    x_norms: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`topk_running`, on any device: an f32 matmul
+    and a stable sort on (score, id)."""
+    qf, x, norms, metric, q = _running_inputs(q, x, k, metric, x_norms)
+    vals, ids = _running_ref_core(qf, x, norms, k)
+    return _finish_scores(vals, ids, q, metric)
+
+
+def _running_inputs(q, x, k, metric, x_norms):
+    """(f32 query as scored, store, norms, metric, query for the l2 norm):
+    the TPU wrapper's preparation (cosine normalizes both sides, ip halves
+    the query and keeps only the PAD_NORM poisoning of the norms)."""
+    if not 1 <= k <= KERNEL_MAX_K:
+        raise ValueError(f"k={k} outside [1, {KERNEL_MAX_K}] for the running top-k kernel")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"store dtype must be float32 or bfloat16, got {x.dtype}")
+    if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
+        raise ValueError(f"want q (Q, d) and x (N, d), got {tuple(q.shape)}, {tuple(x.shape)}")
+    q, x, metric = _cosine_as_ip(q, x, metric)
+    qf = q.float()
+    if metric == "ip":
+        qf = qf * 0.5
+    return qf.contiguous(), x.contiguous(), _search_norms(x, metric, x_norms), metric, q
+
+
+def _running_ref_core(qf, x, norms, k):
+    """The k smallest of norms - 2 q.x per query in (score, id) order, padded
+    with (+inf, -1) past N: (vals f32, ids int64)."""
+    n = x.shape[0]
+    scores = norms[None, :] - 2.0 * (qf @ x.float().T)
+    vals, ids = torch.sort(scores, dim=1, stable=True)
+    vals, ids = vals[:, :k], ids[:, :k]
+    if k > n:
+        vals = F.pad(vals, (0, k - n), value=float("inf"))
+        ids = F.pad(ids, (0, k - n), value=-1)
+    return vals.contiguous(), ids.contiguous()
+
+
+KERNELS = (groupmin, select_topt, rescore, groupmin_q8, rescore_q8, topk_running)
 
 
 def reset_launch_counts() -> None:
@@ -453,6 +582,64 @@ def launch_counts() -> dict:
 # ---------------------------------------------------------------------------
 # The search
 # ---------------------------------------------------------------------------
+
+
+def _cosine_as_ip(q: torch.Tensor, x: torch.Tensor, metric: str):
+    """(q, x, metric) with cosine turned into ip over rows normalized in f32
+    (the store rounded back to its dtype); raises on other metrics."""
+    if metric == "cosine":
+        q = l2_normalize(q.float())
+        x = l2_normalize(x.float()).to(x.dtype)
+        metric = "ip"
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"unsupported metric {metric!r}")
+    return q, x, metric
+
+
+def _search_norms(x: torch.Tensor, metric: str, x_norms: torch.Tensor | None,
+                  x_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The per-row norms the kernels score with, f32 (N,): l2 the squared
+    store norms (``x_norms``, or computed; an int8 store's dequantized
+    ones), ip zeros except PAD_NORM on the rows ``x_norms`` poisons."""
+    if metric == "l2":
+        if x_norms is not None:
+            norms = x_norms
+        elif x_scale is not None:  # the dequantized store's norms
+            deq = x.float() * x_scale[:, None]
+            norms = (deq * deq).sum(1)
+        else:
+            norms = (x.float() * x.float()).sum(1)
+    else:
+        norms = (torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+                 if x_norms is None else ip_penalty(x_norms))
+    return norms.to(torch.float32).contiguous()
+
+
+def _finish_scores(vals: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,
+                   metric: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scores in the minimize domain -> distances in the metric's sign: l2
+    adds the f32 query's squared norm (clamped at 0), ip negates."""
+    if metric == "l2":
+        qnorm = (q.float() * q.float()).sum(1, keepdim=True)
+        return torch.clamp(vals + qnorm, min=0.0), ids
+    return -vals, ids  # ip: scores are penalty - q.x
+
+
+def finish_candidates(q: torch.Tensor, scores: torch.Tensor, cand: torch.Tensor,
+                      threshold: torch.Tensor, k: int, metric: str,
+                      with_certificate: bool) -> Tuple[torch.Tensor, ...]:
+    """The two-phase searches' last step: the k best of the (Q, t*128)
+    rescored candidates, their row ids rebuilt from the (Q, t) group ids,
+    the distances in the metric's sign, and with ``with_certificate`` the
+    certificate "k-th score <= threshold" (the t-th selected group min)."""
+    nq, t = cand.shape
+    kk = min(k, t * GROUP)
+    vals, pos = torch.topk(scores, kk, dim=1, largest=False, sorted=True)
+    flat_ids = (cand.long()[:, :, None] * GROUP
+                + torch.arange(GROUP, device=scores.device)).reshape(nq, t * GROUP)
+    ids = torch.gather(flat_ids, 1, pos)
+    extra = (vals.amax(dim=1) <= threshold,) if with_certificate else ()
+    return _finish_scores(vals, ids, q, metric) + extra
 
 
 def topk_twophase(
@@ -485,38 +672,22 @@ def topk_twophase(
         raise ValueError("int8 store requires x_scale")
     if not is_int8 and x.dtype not in _DTYPE_CODES:
         raise ValueError(f"store dtype must be float32, bfloat16 or int8, got {x.dtype}")
-    if metric == "cosine":
-        if is_int8:
-            raise ValueError("pre-normalize rows and use metric='ip' with int8")
-        q = l2_normalize(q.float())
-        x = l2_normalize(x.float()).to(x.dtype)
-        metric = "ip"
-    if metric not in ("l2", "ip"):
-        raise ValueError(f"unsupported metric {metric!r}")
+    if metric == "cosine" and is_int8:
+        raise ValueError("pre-normalize rows and use metric='ip' with int8")
+    q, x, metric = _cosine_as_ip(q, x, metric)
     nq = q.shape[0]
-    n = x.shape[0]
-    ng = num_groups(n)
+    ng = num_groups(x.shape[0])
     if is_int8:
         qf, qscale = quantize_int8(q)
         x_scale = x_scale.to(torch.float32).contiguous()
     else:
         qf = q.to(x.dtype).contiguous()
-    if metric == "l2":
-        if x_norms is not None:
-            norms = x_norms
-        elif is_int8:  # the dequantized store's norms
-            deq = x.float() * x_scale[:, None]
-            norms = (deq * deq).sum(1)
-        else:
-            norms = (x.float() * x.float()).sum(1)
-    else:
-        norms = (torch.zeros(n, dtype=torch.float32, device=x.device) if x_norms is None
-                 else ip_penalty(x_norms))
+    norms = _search_norms(x, metric, x_norms, x_scale if is_int8 else None)
+    if metric == "ip":
         if is_int8:
             qscale = qscale * 0.5  # the epilogue multiplies by 2 * qscale
         else:
             qf = qf * 0.5
-    norms = norms.to(torch.float32).contiguous()
 
     if is_int8:
         mins = groupmin_q8(qf, qscale, x, x_scale, norms)
@@ -534,18 +705,7 @@ def topk_twophase(
     else:
         scores = rescore(qf, x, norms, cand)
 
-    kk = min(k, t * GROUP)
-    vals, pos = torch.topk(scores, kk, dim=1, largest=False, sorted=True)
-    flat_ids = (cand.long()[:, :, None] * GROUP
-                + torch.arange(GROUP, device=x.device)).reshape(nq, t * GROUP)
-    ids = torch.gather(flat_ids, 1, pos)
-    extra = ()
-    if with_certificate:
-        extra = (vals.amax(dim=1) <= threshold,)
-    if metric == "l2":
-        qnorm = (q.float() * q.float()).sum(1, keepdim=True)
-        return (torch.clamp(vals + qnorm, min=0.0), ids) + extra
-    return (-vals, ids) + extra  # ip: scores are penalty - q.x
+    return finish_candidates(q, scores, cand, threshold, k, metric, with_certificate)
 
 
 def topk_twophase_safe(

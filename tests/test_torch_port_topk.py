@@ -226,7 +226,7 @@ def test_kernel_wrappers_use_plain_versions_on_cpu():
     vals, cand = T.select_topt(mins, 4)
     scores = T.rescore(q, x, norms, cand)
     assert T.launch_counts() == {"groupmin": 0, "select_topt": 0, "rescore": 0,
-                                 "groupmin_q8": 0, "rescore_q8": 0}
+                                 "groupmin_q8": 0, "rescore_q8": 0, "topk_running": 0}
     assert mins.shape == (3, 6) and scores.shape == (3, 4 * 128)
     np.testing.assert_array_equal(mins.numpy(), T.groupmin_ref(q, x, norms).numpy())
     # the ragged last group (700 = 5*128 + 60) scores +inf past row 699
