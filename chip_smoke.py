@@ -33,9 +33,18 @@ Phases (each raises on failure; the script then exits non-zero):
      ``topk_merged`` (the two-phase search in one cooperative launch) at Q =
      1 and 64 over 1M x 2048 f32 and bf16 and at Q = 2048 and 4096 over 1M x
      128 bf16, equal to ``topk_twophase(t_margin=2)`` bit for bit; edge
-     sweeps for both; timings beside the two-phase search.
+     sweeps for both; timings beside the two-phase search;
+  6. bench.py's operating point (1M x 128 bf16, k = 10): the bench twin
+     (``image_search_engine_tpu_torch.bench``) at Q = 4096 with few
+     dispatches, each ported benchmark script's searches once with their
+     recall@10 beside the production search's, the four phase-1 prototype
+     kernels (group width, chunked columns, two-level mins in three
+     layouts) against their plain versions at Q = 2048 (and 4096) plus an
+     edge sweep, with timings beside ``groupmin``; then the tie order of the
+     flat paths over a store whose second half repeats its first, and the
+     cost of the k > 128 full scan's stable sort at 1M rows.
 
-Before its last two lines it prints a JSON object describing the nine
+Before its last two lines it prints a JSON object describing the 13
 kernels (launches, errors, times, bounds) and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
@@ -74,6 +83,10 @@ SOURCES = {
     "rescore_q8": CSRC + "topk_twophase_q8.cu",
     "topk_running": CSRC + "topk_running.cu",
     "topk_merged": CSRC + "topk_merged.cu",
+    "groupmin_width": CSRC + "groupmin_variants.cu",
+    "groupmin_chunked": CSRC + "groupmin_variants.cu",
+    "groupmin_two_level": CSRC + "groupmin_variants.cu",
+    "groupmin_two_level_layouts": CSRC + "groupmin_variants.cu",
 }
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
@@ -85,6 +98,10 @@ REPLACES = {
     "rescore_q8": "image_search_engine_tpu/ops/topk_pallas.py:333",
     "topk_running": "image_search_engine_tpu/ops/topk_pallas.py:79",
     "topk_merged": "image_search_engine_tpu/ops/topk_merged.py:66",
+    "groupmin_width": "benchmarks/rescore_variants2.py:61",
+    "groupmin_chunked": "benchmarks/sweep_chunked.py:53",
+    "groupmin_two_level": "benchmarks/subgroup_proto.py:39",
+    "groupmin_two_level_layouts": "benchmarks/subgroup_variants.py:36",
 }
 EPS32 = float(np.finfo(np.float32).eps)
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
@@ -1235,6 +1252,328 @@ def phase5() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: bench.py's operating point (the bench twin, the prototype kernels)
+# ---------------------------------------------------------------------------
+
+BENCH_Q, BENCH_ITERS, PROTO_Q = 4096, 5, 2048
+PROTO_REPS = 3  # the CUDA-core sweeps take ~0.2 s a call at Q = 2048
+# the tie check: a store whose second half repeats its first, from a group
+# boundary, so the two-phase search's tie order is the full scan's
+TIE_HALF, TIE_D, TIE_Q = 65_536, 256, 16
+SORT_N, SORT_D = 1_000_000, 2048  # the k > 128 full scan at the flat corpus scale
+
+
+def bf16_ulps(a, b) -> float:
+    """max |a - b| in units of b's bf16 spacing (2^(e-8) for |b| in [2^(e-1),
+    2^e)); +inf must match +inf exactly."""
+    import torch
+
+    a, b = a.float(), b.float()
+    max_abs_err(a, b)  # raises on +inf or NaN mismatches
+    fin = torch.isfinite(b)
+    if not fin.any():
+        return 0.0
+    _, e = torch.frexp(b[fin])
+    ulp = torch.ldexp(torch.ones_like(b[fin]), e - 8)
+    return float(((a[fin] - b[fin]).abs() / ulp).max().item())
+
+
+def check_variants(name, qf, x, norms, nf32, want, *, layouts=None, width=True, chunked=True):
+    """The four prototype kernels on (qf, x): each f32 output within
+    score_tol of its plain version; width 128 and the two-level group mins
+    equal to ``want`` (production ``groupmin`` transposed) bit for bit; the
+    bf16 subgroup mins within one bf16 ulp of the plain version's, and each
+    group min's bf16 rounding equal to the min of its subgroup mins. ``norms``
+    score the chunked kernel, ``nf32`` the others (the scripts' norms);
+    ``width`` and ``chunked`` include those kernels.
+    Returns {kernel: max_abs_err} (the two-level's in bf16 ulps too)."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_search_engine_tpu_torch.ops import groupmin_variants as GV
+
+    errs = {}
+    tol = score_tol(qf, torch.cat([norms, nf32]))
+    for g in GV.WIDTHS if width else ():
+        got = GV.groupmin_width(qf, x, nf32, g)
+        errs[f"width{g}"] = max_abs_err(got, GV.groupmin_width_ref(qf, x, nf32, g))
+        if g == 128 and not torch.equal(got, want):
+            raise AssertionError(f"{name}: groupmin_width(128) differs from groupmin")
+    for c in GV.CHUNKS if chunked else ():
+        got = GV.groupmin_chunked(qf, x, norms, c)
+        errs[f"chunk{c}"] = max_abs_err(got, GV.groupmin_chunked_ref(qf, x, norms))
+    rg, rs = GV.groupmin_two_level_ref(qf, x, nf32)
+    for lay in layouts or GV.LAYOUTS:
+        gm, sm = GV.groupmin_two_level(qf, x, nf32, lay)
+        if not torch.equal(gm, want):
+            raise AssertionError(f"{name}: two-level {lay} group mins differ from groupmin")
+        errs[f"two_level_{lay}"] = max_abs_err(gm, rg)
+        ulps = bf16_ulps(sm, rs)
+        if ulps > 1.0:
+            raise AssertionError(f"{name}: two-level {lay} subgroup mins {ulps} bf16 ulps off")
+        errs[f"two_level_{lay}_ulps"] = ulps
+        per = 4
+        pad = -sm.shape[1] % per
+        smin4 = F.pad(sm.float(), (0, pad), value=float("inf")).view(sm.shape[0], -1, per).amin(2)
+        if not torch.equal(gm.T.to(torch.bfloat16).float(), smin4):
+            raise AssertionError(f"{name}: two-level {lay} group mins are not their subgroups' min")
+    worst = max(v for k, v in errs.items() if not k.endswith("_ulps"))
+    if worst > tol:
+        raise AssertionError(f"{name}: prototype kernel error {worst} > tolerance {tol}")
+    return errs
+
+
+def edge_sweep_variants(gen) -> float:
+    """Every width, chunk and layout at N in {1, 31, 32, 33, 127, 129, 5000}
+    x Q in {1, 7, 64}, d = 128 (and d = 130, rows of no 16-byte multiple,
+    for the width and two-level kernels: scalar row loads), untimed. Returns the largest
+    error."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    worst, cases = 0.0, 0
+    for n in (1, 31, 32, 33, 127, 129, 5000):
+        for nq in (1, 7, 64):
+            for d in (128, 130):
+                x = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
+                q = torch.randn(nq, d, device="cuda", generator=gen).to(torch.bfloat16)
+                nf32 = (torch.randn(n, d, device="cuda", generator=gen) ** 2).sum(1)
+                norms = (x.float() ** 2).sum(1)
+                want = T.groupmin(q, x, nf32).T
+                errs = check_variants(f"variants edge N={n} Q={nq} d={d}", q, x, norms, nf32, want,
+                                      chunked=d % 8 == 0)
+                worst = max(worst, *(v for k, v in errs.items() if not k.endswith("_ulps")))
+                cases += 1
+    log(f"  prototype edge sweep: {cases} shapes, every width, chunk and layout; largest error "
+        f"{worst:.3g}")
+    return worst
+
+
+def assert_ties_ascending(name, d, i) -> int:
+    """Within each run of equal distances the ids ascend. Returns the
+    number of tied neighbours seen."""
+    d, i = np.asarray(d), np.asarray(i)
+    eq = d[:, 1:] == d[:, :-1]
+    if (eq & (i[:, 1:] <= i[:, :-1])).any():
+        r, c = np.argwhere(eq & (i[:, 1:] <= i[:, :-1]))[0]
+        raise AssertionError(f"{name}: tied ids out of order at query {r}: "
+                             f"{i[r, c]}, {i[r, c + 1]}")
+    return int(eq.sum())
+
+
+def check_ties(gen) -> dict:
+    """The flat paths over a store whose second half repeats its first (a
+    corpus holding each image twice): ids equal to the plain full scan's
+    (which sorts stably) except at near-ties of distinct rows, ties in
+    ascending id order, and topk_merged equal to topk_twophase bit for bit.
+    FlatIndex f32 and int8 (l2, ip), topk_twophase_safe, topk_merged, and
+    k = 200 (the full-scan path)."""
+    import torch
+
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.parallel.topk import local_topk_with_norms
+
+    half = torch.randn(TIE_HALF, TIE_D, device="cuda", generator=gen)
+    x = torch.cat([half, half])
+    q = torch.randn(TIE_Q, TIE_D, device="cuda", generator=gen)
+    ties, checks = 0, 0
+    for dtype in ("f32", "int8"):
+        for metric in ("l2", "ip"):
+            index = FlatIndex(metric, dtype=dtype, device="cuda").add(x)
+            st = index.store
+            tol = 2 * score_tol(q, st.norms)
+            for k in (K, 200):
+                name = f"ties {dtype} {metric} k={k}"
+                d, i = index.search(q, k)
+                rd, ri = local_topk_with_norms(q, st.vectors, st.norms, k, metric, scales=st.scales)
+                assert_ids_equal(name, torch.as_tensor(i), ri.cpu(), rd.cpu(), tol)
+                ties += assert_ties_ascending(name, d, i)
+                checks += 1
+    xs, norms = x, (x * x).sum(1)
+    d, i = T.topk_twophase_safe(q, xs, K, "l2", x_norms=norms)
+    rd, ri = local_topk_with_norms(q, xs, norms, K, "l2")
+    assert_ids_equal("ties topk_twophase_safe", i, ri, rd, 2 * score_tol(q, norms))
+    ties += assert_ties_ascending("ties topk_twophase_safe", d.cpu().numpy(), i.cpu().numpy())
+    check_merged("ties topk_merged", q, xs, K, "l2", x_norms=norms, plain=False)
+    checks += 2
+    log(f"  ties: {checks} searches over {2 * TIE_HALF:,} x {TIE_D} rows (second half = first "
+        f"half), ids equal to the stable plain scan's, {ties} tied neighbours all in ascending "
+        f"id order; topk_merged = topk_twophase bit for bit")
+    return {"checks": checks, "tied_neighbours": ties}
+
+
+def full_scan_sort_cost(gen, flush) -> dict:
+    """The k > 128 path at N = 1M x 2048 f32, Q = 1, k = 200: the whole
+    full scan, its stable sort of the 1M scores alone, and torch.topk's
+    k smallest of the same scores (what the sort replaced); and the same two
+    over the two-phase search's (1, t*128) candidates at k = 20."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops.distances import stable_smallest
+    from image_search_engine_tpu_torch.parallel.topk import local_topk_with_norms
+
+    x = torch.randn(SORT_N, SORT_D, device="cuda", generator=gen)
+    norms = (x * x).sum(1)
+    q = torch.randn(1, SORT_D, device="cuda", generator=gen)
+    s = norms[None, :] - 2.0 * (q @ x.T)
+    cand = s[:, :(K + 4) * 128].contiguous()  # finish_candidates' (Q, t*128) at k = 20
+    res = {"scan_ms": median_ms(lambda: local_topk_with_norms(q, x, norms, 200, "l2"), flush),
+           "stable_sort_ms": median_ms(lambda: torch.sort(s, dim=1, stable=True), flush),
+           "topk_ms": median_ms(lambda: torch.topk(s, 200, dim=1, largest=False), flush),
+           "cand_sort_ms": median_ms(lambda: stable_smallest(cand, K), flush),
+           "cand_topk_ms": median_ms(lambda: torch.topk(cand, K, dim=1, largest=False), flush)}
+    log(f"  k > 128 full scan (N={SORT_N:,} d={SORT_D} f32, Q=1, k=200): {res['scan_ms']:.4f} "
+        f"ms, of which the stable sort of the {SORT_N:,} scores {res['stable_sort_ms']:.4f} ms "
+        f"(torch.topk {res['topk_ms']:.4f} ms); the two-phase search's final stable sort of (1, "
+        f"{cand.shape[1]}) candidates {res['cand_sort_ms']:.4f} ms (torch.topk "
+        f"{res['cand_topk_ms']:.4f} ms)")
+    del x
+    return res
+
+
+def phase6() -> dict:
+    """bench.py's operating point: the main path (bench twin, then each
+    ported script's searches once; launch counts set to 0 just before, read
+    just after), then the four prototype kernels checked and timed, the edge
+    sweep, the tie check and the full scan's sort."""
+    import torch
+
+    from image_search_engine_tpu_torch import bench
+    from image_search_engine_tpu_torch.benchmarks import common
+    from image_search_engine_tpu_torch.benchmarks import rescore_variants2 as RV2
+    from image_search_engine_tpu_torch.benchmarks import subgroup_proto as SP
+    from image_search_engine_tpu_torch.benchmarks import subgroup_variants as SV
+    from image_search_engine_tpu_torch.benchmarks import sweep_chunked as SC
+    from image_search_engine_tpu_torch.ops import groupmin_variants as GV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    log(f"phase 6: bench.py's operating point ({BENCH_N:,} x {BENCH_D} bf16 store, k = {BENCH_K})")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
+    t0 = time.perf_counter()
+    store = common.make_store(BENCH_N, BENCH_D, seed=0, device="cuda")
+    nbf, nf32 = store.norms_bf16_rows(), store.norms_f32_rows()
+    torch.cuda.synchronize()
+    log(f"  store built in {time.perf_counter() - t0:.1f} s (seed 0, bench.py's data)")
+
+    def recall_of(fn, q):
+        return common.recall(fn(q)[1][:8], common.float64_topk_ids(q[:8], store.x32, BENCH_K))
+
+    T.reset_launch_counts()
+    GV.reset_launch_counts()
+    out = bench.run(store, BENCH_Q, BENCH_ITERS)
+    print(json.dumps(out), flush=True)
+    q2048 = common.queries(store, 1, PROTO_Q)[0]
+    recalls = {"rescore_variants2": {name: recall_of(fn, q2048)
+                                     for name, fn in RV2.searches(store.x, nf32)}}
+    sums = {name: float(fn(q2048)) for name, fn in SC.sweeps(store.x, nbf)}
+    torch.cuda.synchronize()
+    two_level_before = GV.groupmin_two_level.launches
+    q4096 = common.queries(store, 1, BENCH_Q)[0]
+    recalls["subgroup_proto"] = {f"{name} Q={q.shape[0]}": recall_of(fn, q)
+                                 for q in (q2048, q4096) for name, fn in SP.searches(store.x, nf32)}
+    proto_launches = GV.groupmin_two_level.launches - two_level_before
+    recalls["subgroup_variants"] = {name: recall_of(fn, q2048)
+                                    for name, fn in SV.searches(store.x, nf32)}
+    torch.cuda.synchronize()
+    launches = {"groupmin_width": GV.groupmin_width.launches,
+                "groupmin_chunked": GV.groupmin_chunked.launches,
+                "groupmin_two_level": proto_launches,
+                "groupmin_two_level_layouts": GV.groupmin_two_level.launches - proto_launches,
+                "groupmin": T.groupmin.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"phase 6 main path: a kernel did not launch: {launches}")
+    ref_sum = sums["current"]
+    for name, v in sums.items():
+        if not abs(v - ref_sum) < abs(ref_sum) * 1e-6 + 1.0:
+            raise AssertionError(f"sweep_chunked {name}: sum of mins {v} vs current {ref_sum}")
+    if out["exactness_certified_frac"] != 1.0 or out["recall_at_10_vs_float64"] < 0.95:
+        raise AssertionError(f"bench twin: {out}")
+    for script, r in recalls.items():
+        if min(r.values()) < 0.9:
+            raise AssertionError(f"{script}: recall@10 {r}")
+        log(f"  {script} recall@10 vs float64 (8 queries): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r.items()))
+    log(f"  main path: bench twin {out['value']} QPS (Q={BENCH_Q}, {BENCH_ITERS} dispatches), "
+        f"recall@10 {out['recall_at_10_vs_float64']:.5f}, certified "
+        f"{out['exactness_certified_frac']}; sweep_chunked sums agree; launches {launches}")
+
+    # the four kernels against their plain versions, then timed
+    qf = q2048.to(torch.bfloat16).contiguous()
+    want = T.groupmin(qf, store.x, nf32).T
+    errs = check_variants("Q=2048", qf, store.x, nbf, nf32, want)
+    qf4 = q4096.to(torch.bfloat16).contiguous()
+    errs4 = check_variants("Q=4096", qf4, store.x, nbf, nf32, T.groupmin(qf4, store.x, nf32).T,
+                           layouts=("v1",), width=False, chunked=False)
+    worst_edge = edge_sweep_variants(gen)
+    n, d = BENCH_N, BENCH_D
+    ng, nsub = T.num_groups(n), -(-n // GV.SUB)
+
+    def bnd(nq, out_bytes):
+        return bound(n * d * 2 + n * 4 + nq * d * 2 + out_bytes, 2 * nq * n * d, BF16_FLOPS)
+
+    x = store.x
+    ms = lambda fn: median_ms(fn, flush, reps=PROTO_REPS)  # noqa: E731
+    times = {"groupmin": ms(lambda: T.groupmin(qf, x, nf32)),
+             "product": ms(lambda: torch.matmul(qf, x.T))}
+    for g in GV.WIDTHS:
+        times[f"width{g}"] = ms(lambda: GV.groupmin_width(qf, x, nf32, g))
+    for c in GV.CHUNKS:
+        times[f"chunk{c}"] = ms(lambda: GV.groupmin_chunked(qf, x, nbf, c))
+    for lay in GV.LAYOUTS:
+        times[f"two_level_{lay}"] = ms(lambda: GV.groupmin_two_level(qf, x, nf32, lay))
+    times["two_level_v1_Q4096"] = ms(lambda: GV.groupmin_two_level(qf4, x, nf32, "v1"))
+    times["groupmin_Q4096"] = ms(lambda: T.groupmin(qf4, x, nf32))
+    plain = {"width": median_ms(lambda: GV.groupmin_width_ref(qf, x, nf32, 128), flush, reps=2),
+             "two_level": median_ms(lambda: GV.groupmin_two_level_ref(qf, x, nf32), flush, reps=2),
+             "chunked": median_ms(lambda: GV.groupmin_chunked_ref(qf, x, nbf), flush, reps=2)}
+    log(f"  prototype kernels at Q={PROTO_Q} (N={n:,} d={d} bf16): " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()) + "; plain " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in plain.items()) + "; errors " + "; ".join(
+        f"{k} {v:.3g}"
+        for k, v in {**errs, **{f"{k} Q=4096": v for k, v in errs4.items()}}.items()))
+    tie = check_ties(gen)
+    del store, nbf, nf32, x, want
+    torch.cuda.empty_cache()
+    sort = full_scan_sort_cost(gen, flush)
+
+    def worst(prefix):
+        return max(worst_edge, *(v for e in (errs, errs4) for k, v in e.items()
+                                 if k.startswith(prefix) and not k.endswith("_ulps")))
+
+    b2048 = {"groupmin_width": bnd(PROTO_Q, -(-n // 32) * PROTO_Q * 4),
+             "groupmin_chunked": bnd(PROTO_Q, ng * PROTO_Q * 4),
+             "groupmin_two_level": bnd(PROTO_Q, ng * PROTO_Q * 4 + nsub * PROTO_Q * 2)}
+    entries = [
+        ("groupmin_width", times["width32"], plain["width"], b2048["groupmin_width"],
+         worst("width"),
+         "Q=2048 N=1,000,000 d=128 bf16 G=32 (f32-row norms)",
+         {f"G={g}_ms": times[f"width{g}"] for g in GV.WIDTHS}),
+        ("groupmin_chunked", times["chunk512"], plain["chunked"], b2048["groupmin_chunked"],
+         worst("chunk"), "Q=2048 N=1,000,000 d=128 bf16 chunk=512 (bf16-row norms)",
+         {f"chunk={c}_ms": times[f"chunk{c}"] for c in GV.CHUNKS}),
+        ("groupmin_two_level", times["two_level_v1"], plain["two_level"],
+         b2048["groupmin_two_level"], worst("two_level_v1"),
+         "Q=2048 N=1,000,000 d=128 bf16 v1 (f32-row norms)",
+         {"Q=4096_ms": times["two_level_v1_Q4096"],
+          "Q=4096_bound_ms": bnd(BENCH_Q, ng * BENCH_Q * 4 + nsub * BENCH_Q * 2)[0]}),
+        ("groupmin_two_level_layouts", times["two_level_v3"], plain["two_level"],
+         b2048["groupmin_two_level"], worst("two_level"),
+         "Q=2048 N=1,000,000 d=128 bf16 v3 (f32-row norms)",
+         {f"{lay}_ms": times[f"two_level_{lay}"] for lay in GV.LAYOUTS}),
+    ]
+    kernels = [{
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": launches[name], "max_abs_err": err, "ms": t, "plain_ms": p, "bound_ms": b[0],
+        "bound_by": b[1], "library_ms": None, "shape": shape,
+        "product_alone_ms": times["product"], "groupmin_ms": times["groupmin"], "variants": extra,
+    } for name, t, p, b, err, shape, extra in entries]
+    return {"bench": out, "kernels": kernels, "times": times, "ties": tie, "sort": sort}
+
+
 def main() -> int:
     import torch
 
@@ -1270,6 +1609,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     last = phase5()
+    sixth = phase6()
 
     head = shapes["Q1_N1M_d2048_f32_l2"]
     kernels = [{
@@ -1324,12 +1664,14 @@ def main() -> int:
             "shapes": {c: {k: v for k, v in r.items() if k != "max_abs_err"}
                        for c, r in cases.items()},
         })
+    kernels.extend(sixth["kernels"])
     log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "
         f"{served['p50_ms']:.2f} ms, escalations {served['escalations']}; IVF-PQ build "
         f"{scale['build_s']:.1f} s, IVF-PQ serving p50 {pq_served['p50_ms']:.2f} ms; int8 "
         f"serving p50 {q8_served['p50_ms']:.2f} ms, escalations {q8_served['escalations']}, "
         f"top-10 overlap with f32 {q8_served['overlap']:.4f}; chi2 serving p50 "
-        f"{q8_served['chi2_p50_ms']:.2f} ms")
+        f"{q8_served['chi2_p50_ms']:.2f} ms; bench twin {sixth['bench']['value']} QPS at Q = "
+        f"{BENCH_Q}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -32,10 +32,9 @@ import torch
 
 from image_search_engine_tpu_torch.index.store import STORE_DTYPES, _sq_norms
 from image_search_engine_tpu_torch.ops import round_up
-from image_search_engine_tpu_torch.ops.distances import l2_normalize
+from image_search_engine_tpu_torch.ops.distances import l2_normalize, stable_smallest
 from image_search_engine_tpu_torch.ops.ivf import ivf_probed_topk, rank_buckets
 from image_search_engine_tpu_torch.ops.kmeans import KMeans, assign, subspace_kmeans
-from image_search_engine_tpu_torch.parallel.topk import stable_smallest
 from image_search_engine_tpu_torch.utils.device import resolve_device
 
 #: bytes of f32 rows per search / pack / rescore chunk (bounds the transients)

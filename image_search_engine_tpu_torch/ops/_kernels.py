@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
            _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu",
-           _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu")
+           _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu", _CSRC / "groupmin_variants.cu")
 HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
@@ -121,6 +121,12 @@ def library() -> ctypes.CDLL:
             lib.ise_topk_running.restype = i
             lib.ise_topk_merged.argtypes = [i, p, p, p, p, p, p, p, i, ll, i, i, i, i, p]
             lib.ise_topk_merged.restype = i
+            lib.ise_groupmin_width.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]
+            lib.ise_groupmin_width.restype = i
+            lib.ise_groupmin_two_level.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, p]
+            lib.ise_groupmin_two_level.restype = i
+            lib.ise_groupmin_chunked.argtypes = [p, p, p, p, i, ll, i, i, p]
+            lib.ise_groupmin_chunked.restype = i
             lib.ise_error_string.argtypes = [i]
             lib.ise_error_string.restype = ctypes.c_char_p
             _lib = lib

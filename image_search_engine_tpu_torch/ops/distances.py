@@ -15,6 +15,25 @@ import torch
 _DESCENDING = frozenset({"ip", "cosine"})
 
 
+def stable_smallest(vals: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of each row in (value, position) order: ties to the
+    lowest position, as ``lax.top_k`` of the negated values."""
+    v, pos = torch.sort(vals, dim=1, stable=True)
+    return v[:, :k], pos[:, :k]
+
+
+def stable_largest(vals: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row, descending, ties to the lowest position,
+    as ``lax.top_k``. The values are gathered, not negated back, so a zero
+    keeps its sign."""
+    _, pos = stable_smallest(-vals, k)
+    return torch.gather(vals, 1, pos), pos
+
+
+def stable_topk(vals: torch.Tensor, k: int, largest: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return stable_largest(vals, k) if largest else stable_smallest(vals, k)
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """Row-wise L2 normalization."""
     norm = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
@@ -61,9 +80,9 @@ def pairwise(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
 def topk_flat(q: torch.Tensor, x: torch.Tensor, k: int,
               metric: str = "l2") -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN over a flat store by full scan: (distances (Q, k),
-    indices (Q, k)), ascending for l2/chi2, descending for ip/cosine."""
-    d = pairwise(q, x, metric)
-    return torch.topk(d, k, dim=1, largest=metric in _DESCENDING, sorted=True)
+    indices (Q, k)), ascending for l2/chi2, descending for ip/cosine; ties
+    go to the lowest row id, as ``lax.top_k``."""
+    return stable_topk(pairwise(q, x, metric), k, metric in _DESCENDING)
 
 
 def topk_flat_chunked(q: torch.Tensor, x: torch.Tensor, k: int, metric: str = "l2",
@@ -79,6 +98,7 @@ def topk_flat_chunked(q: torch.Tensor, x: torch.Tensor, k: int, metric: str = "l
         v, i = topk_flat(q, x[s:s + chunk], min(k, x[s:s + chunk].shape[0]), metric)
         vals.append(v)
         idx.append(i + s)
-    mvals, mpos = torch.topk(torch.cat(vals, 1), k, dim=1, largest=metric in _DESCENDING,
-                             sorted=True)
+    # chunks in row order, each sorted with ties to its lowest row: the
+    # stable merge keeps ties to the lowest row id
+    mvals, mpos = stable_topk(torch.cat(vals, 1), k, metric in _DESCENDING)
     return mvals, torch.gather(torch.cat(idx, 1), 1, mpos)

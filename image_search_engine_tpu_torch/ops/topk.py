@@ -11,13 +11,14 @@ Port of ``image_search_engine_tpu/ops/topk_pallas.py`` (``topk_twophase``,
      smallest mins, ascending, ties to the lowest group id;
   3. ``rescore``: scores every row of those t groups, (Q, t*128);
 
-then a ``torch.topk`` over the candidates, the id rebuild and the
-certificate "k-th final score <= t-th selected group min" (every pruned
-group's min is >= that threshold, so True proves no pruned row could beat
-the k-th result). An int8 store runs ``groupmin_q8`` and ``rescore_q8`` in
-steps 1 and 3: the query is quantized per row like the store, the int8 x
-int8 products are exact int32 sums, and the per-row scales fold into an f32
-epilogue.
+then a stable sort over the candidates (ties to the lowest candidate
+position, i.e. the earlier selected group, as ``lax.top_k``), the id
+rebuild and the certificate "k-th final score <= t-th selected group min"
+(every pruned group's min is >= that threshold, so True proves no pruned
+row could beat the k-th result). An int8 store runs ``groupmin_q8`` and
+``rescore_q8`` in steps 1 and 3: the query is quantized per row like the
+store, the int8 x int8 products are exact int32 sums, and the per-row
+scales fold into an f32 epilogue.
 
 Each step is a hand-written CUDA kernel (``csrc/topk_twophase.cu``,
 ``csrc/topk_twophase_q8.cu``) with a plain PyTorch version beside it. A
@@ -41,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from image_search_engine_tpu_torch.ops import _kernels
-from image_search_engine_tpu_torch.ops.distances import l2_normalize
+from image_search_engine_tpu_torch.ops.distances import l2_normalize, stable_smallest
 from image_search_engine_tpu_torch.parallel.topk import ip_penalty
 
 log = logging.getLogger(__name__)
@@ -622,7 +623,7 @@ def _finish_scores(vals: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,
     if metric == "l2":
         qnorm = (q.float() * q.float()).sum(1, keepdim=True)
         return torch.clamp(vals + qnorm, min=0.0), ids
-    return -vals, ids  # ip: scores are penalty - q.x
+    return 0.0 - vals, ids  # ip: scores are penalty - q.x; a zero score gives +0.0, not -0.0
 
 
 def finish_candidates(q: torch.Tensor, scores: torch.Tensor, cand: torch.Tensor,
@@ -634,7 +635,9 @@ def finish_candidates(q: torch.Tensor, scores: torch.Tensor, cand: torch.Tensor,
     certificate "k-th score <= threshold" (the t-th selected group min)."""
     nq, t = cand.shape
     kk = min(k, t * GROUP)
-    vals, pos = torch.topk(scores, kk, dim=1, largest=False, sorted=True)
+    # positions follow the select's group order, so ties go to the earlier
+    # selected group, then the lower row: the JAX package's lax.top_k ids
+    vals, pos = stable_smallest(scores, kk)
     flat_ids = (cand.long()[:, :, None] * GROUP
                 + torch.arange(GROUP, device=scores.device)).reshape(nq, t * GROUP)
     ids = torch.gather(flat_ids, 1, pos)

@@ -4,8 +4,8 @@ Port of ``image_search_engine_tpu/ops/topk_merged.py``: the group-min
 sweep, the candidate select and the candidate rescore of
 :func:`~image_search_engine_tpu_torch.ops.topk.topk_twophase` in one
 program (``csrc/topk_merged.cu``, one cooperative launch), then the same
-``torch.topk``, id rebuild and certificate as the two-phase search. f32 and
-bf16 stores, l2, ip and cosine, k <= 128, no escalation: with
+stable candidate sort, id rebuild and certificate as the two-phase search.
+f32 and bf16 stores, l2, ip and cosine, k <= 128, no escalation: with
 ``with_certificate`` the caller sees which queries are proved exact.
 
 On the card it equals ``topk_twophase(..., t_margin=t_margin)`` bit for bit

@@ -12,7 +12,11 @@ from typing import Tuple
 
 import torch
 
-from image_search_engine_tpu_torch.ops.distances import pairwise_chi2
+from image_search_engine_tpu_torch.ops.distances import (
+    pairwise_chi2,
+    stable_largest,
+    stable_smallest,
+)
 
 PAD_NORM = 1e30  # poisoned squared norm marking padded store rows
 
@@ -26,13 +30,6 @@ def ip_penalty(norms: torch.Tensor) -> torch.Tensor:
     ones (real norms must not shift inner-product scores)."""
     return torch.where(norms >= PAD_NORM / 2, torch.full_like(norms, PAD_NORM),
                        torch.zeros_like(norms))
-
-
-def stable_smallest(vals: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k smallest of each row in (value, position) order: ties to the
-    lowest position, as ``lax.top_k`` of the negated values."""
-    v, pos = torch.sort(vals, dim=1, stable=True)
-    return v[:, :k], pos[:, :k]
 
 
 def _chi2_topk_chunked(q: torch.Tensor, x: torch.Tensor, penalty: torch.Tensor, k: int,
@@ -68,7 +65,8 @@ def local_topk_with_norms(
     ``use_kernels`` runs the certified two-phase search (ops/topk.py: CUDA
     kernels on a CUDA store, their plain versions on the CPU); otherwise a
     plain full scan (one matmul, or the chunked chi2 scan, + a top-k), exact
-    for any k, whose certificate is True by construction. For an int8 store
+    for any k, whose certificate is True by construction; its ties go to the
+    lowest row id, as ``lax.top_k`` in the JAX package. For an int8 store
     the full scan mirrors the kernels as the JAX package's XLA path does: the
     query round-tripped through the per-row int8 quantization times the
     dequantized store, in f32, with the true query norm for l2. Returns
@@ -102,11 +100,10 @@ def local_topk_with_norms(
     cross = q_score @ x.T
     if metric == "l2":
         s = norms[None, :] - 2.0 * cross  # pad rows -> ~PAD_NORM
-        vals, idx = torch.topk(s, k, dim=1, largest=False, sorted=True)
+        vals, idx = stable_smallest(s, k)
         qn = (q * q).sum(1, keepdim=True)
         return (torch.clamp(vals + qn, min=0.0), idx) + exact
     if metric == "ip":
-        vals, idx = torch.topk(cross - ip_penalty(norms)[None, :], k, dim=1, largest=True,
-                               sorted=True)
+        vals, idx = stable_largest(cross - ip_penalty(norms)[None, :], k)
         return (vals, idx) + exact
     raise ValueError(f"unsupported metric {metric!r} (cosine: normalize first)")
