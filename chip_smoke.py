@@ -42,9 +42,16 @@ Phases (each raises on failure; the script then exits non-zero):
      layouts) against their plain versions at Q = 2048 (and 4096) plus an
      edge sweep, with timings beside ``groupmin``; then the tie order of the
      flat paths over a store whose second half repeats its first, and the
-     cost of the k > 128 full scan's stable sort at 1M rows.
+     cost of the k > 128 full scan's stable sort at 1M rows;
+  7. the same store: each ported phase-2 prototype script's searches once
+     (fused gather and rescore, its QB sweep, the approximate select and Q
+     = 4096, cross products only, the hierarchical select) with their
+     recall@10 beside the production search's, the three rescore variant
+     kernels against their plain versions at Q = 2048 and 4096 on a real
+     phase 1's candidates plus an edge sweep, with timings beside the
+     production ``rescore``.
 
-Before its last two lines it prints a JSON object describing the 13
+Before its last two lines it prints a JSON object describing the 16
 kernels (launches, errors, times, bounds) and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
@@ -87,6 +94,9 @@ SOURCES = {
     "groupmin_chunked": CSRC + "groupmin_variants.cu",
     "groupmin_two_level": CSRC + "groupmin_variants.cu",
     "groupmin_two_level_layouts": CSRC + "groupmin_variants.cu",
+    "rescore_gather": CSRC + "rescore_variants.cu",
+    "rescore_gather_sweep2": CSRC + "rescore_variants.cu",
+    "rescore_cross": CSRC + "rescore_variants.cu",
 }
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
@@ -102,6 +112,9 @@ REPLACES = {
     "groupmin_chunked": "benchmarks/sweep_chunked.py:53",
     "groupmin_two_level": "benchmarks/subgroup_proto.py:39",
     "groupmin_two_level_layouts": "benchmarks/subgroup_variants.py:36",
+    "rescore_gather": "benchmarks/gather_kernel_proto.py:49",
+    "rescore_gather_sweep2": "benchmarks/gather_kernel_sweep2.py:40",
+    "rescore_cross": "benchmarks/rescore_dma_variants.py:33",
 }
 EPS32 = float(np.finfo(np.float32).eps)
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
@@ -1434,7 +1447,21 @@ def full_scan_sort_cost(gen, flush) -> dict:
     return res
 
 
-def phase6() -> dict:
+def bench_store():
+    """bench.py's data on the card (seed 0, 1M x 128, f32 rows and their
+    bf16 store), built once for phases 6 and 7."""
+    import torch
+
+    from image_search_engine_tpu_torch.benchmarks import common
+
+    t0 = time.perf_counter()
+    store = common.make_store(BENCH_N, BENCH_D, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  store built in {time.perf_counter() - t0:.1f} s (seed 0, bench.py's data)")
+    return store
+
+
+def phase6(store) -> dict:
     """bench.py's operating point: the main path (bench twin, then each
     ported script's searches once; launch counts set to 0 just before, read
     just after), then the four prototype kernels checked and timed, the edge
@@ -1450,14 +1477,9 @@ def phase6() -> dict:
     from image_search_engine_tpu_torch.ops import groupmin_variants as GV
     from image_search_engine_tpu_torch.ops import topk as T
 
-    log(f"phase 6: bench.py's operating point ({BENCH_N:,} x {BENCH_D} bf16 store, k = {BENCH_K})")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
-    t0 = time.perf_counter()
-    store = common.make_store(BENCH_N, BENCH_D, seed=0, device="cuda")
     nbf, nf32 = store.norms_bf16_rows(), store.norms_f32_rows()
-    torch.cuda.synchronize()
-    log(f"  store built in {time.perf_counter() - t0:.1f} s (seed 0, bench.py's data)")
 
     def recall_of(fn, q):
         return common.recall(fn(q)[1][:8], common.float64_topk_ids(q[:8], store.x32, BENCH_K))
@@ -1574,6 +1596,228 @@ def phase6() -> dict:
     return {"bench": out, "kernels": kernels, "times": times, "ties": tie, "sort": sort}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: bench.py's operating point, phase 2's prototypes (rescore variants)
+# ---------------------------------------------------------------------------
+
+RESCORE_MARGIN = 2  # the phase-2 prototypes' margin: t = k + 2 = 12 candidate groups
+
+
+def check_rescore_variants(name, qf, x, norms, cand, tol, *, qbs=None, cross=True) -> dict:
+    """rescore_gather at each QB (and rescore_cross) against their plain
+    versions on (qf, x, cand): scores within tol, +inf (cross: 0) exactly at
+    the rows past N, and the final top-10 of the kernel's scores the plain
+    scores' (near-ties apart; the cross products scored as the script's
+    epilogue does, ``norms`` with PAD_NORM past N). Returns {kernel_qb:
+    max_abs_err}."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import rescore_variants as RV
+    from image_search_engine_tpu_torch.ops.distances import stable_smallest
+    from image_search_engine_tpu_torch.ops.topk import _candidate_rows
+    from image_search_engine_tpu_torch.parallel.topk import PAD_NORM
+
+    valid, safe = _candidate_rows(cand, x.shape[0])
+    cn = torch.where(valid, norms[safe], torch.full_like(valid, PAD_NORM, dtype=torch.float32))
+    kk = min(BENCH_K, valid.shape[1])
+    errs = {}
+    kinds = [("gather", RV.rescore_gather, RV.rescore_gather_ref, float("inf"))]
+    if cross:
+        kinds.append(("cross", RV.rescore_cross, RV.rescore_cross_ref, 0.0))
+    for kind, fn, ref, past in kinds:
+        want = ref(qf, x, cand)
+        final = (lambda s: s) if kind == "gather" else (lambda s: cn - 2.0 * s)
+        rd, rpos = stable_smallest(final(want), kk)
+        for qb in qbs or RV.QBS:
+            got = fn(qf, x, cand, qb=qb)
+            if not bool((got[~valid] == past).all()):
+                raise AssertionError(f"{name}: rescore_{kind} qb={qb} rows past N are not {past}")
+            errs[f"{kind}_qb{qb}"] = max_abs_err(got, want)
+            _, pos = stable_smallest(final(got), kk)
+            assert_ids_equal(f"{name} rescore_{kind} qb={qb}", pos, rpos, rd, tol)
+    worst = max(errs.values())
+    if worst > tol:
+        raise AssertionError(f"{name}: rescore variant error {worst} > tolerance {tol}")
+    return errs
+
+
+def edge_sweep_rescore(gen) -> float:
+    """Both kernels at every QB over N in {1, 127, 128, 129, 5000}, Q in {1,
+    7, 33}, d in {128, 130} (rows of no 16-byte multiple: scalar loads) and
+    t in {1, 12} (at most ngroups), random candidate groups with the ragged
+    last group among them, untimed. Returns the largest error."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    worst, cases = 0.0, 0
+    for n in (1, 127, 128, 129, 5000):
+        ng = T.num_groups(n)
+        for nq in (1, 7, 33):
+            for d in (128, 130):
+                x = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
+                q = torch.randn(nq, d, device="cuda", generator=gen).to(torch.bfloat16)
+                norms = (x.float() ** 2).sum(1)
+                for t in sorted({min(t, ng) for t in (1, 12)}):
+                    cand = torch.randint(0, ng, (nq, t), device="cuda", generator=gen,
+                                         dtype=torch.int32)
+                    cand[:, 0] = ng - 1
+                    errs = check_rescore_variants(f"rescore edge N={n} Q={nq} d={d} t={t}", q, x,
+                                                  norms, cand, score_tol(q, norms))
+                    worst = max(worst, *errs.values())
+                    cases += 1
+    log(f"  rescore variants edge sweep: {cases} shapes, both kernels at every QB; largest error "
+        f"{worst:.3g}")
+    return worst
+
+
+def rescore_bound(nq, x, cand, ops_per_element, norms_bytes=0):
+    """bound() of a phase-2 rescore: the distinct candidate groups' rows
+    inside the store (each read once), their norms where the kernel reads
+    them, the bf16 query, the candidate ids and the (Q, t*128) f32 output;
+    ``ops_per_element`` products per gathered element, at the bf16 peak."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops.topk import GROUP
+
+    n, d = x.shape
+    groups = torch.unique(cand).long()
+    rows = int(torch.clamp(n - groups * GROUP, 0, GROUP).sum().item())
+    t = cand.shape[1]
+    moved = rows * (d * 2 + norms_bytes) + nq * d * 2 + nq * t * 4 + nq * t * GROUP * 4
+    return bound(moved, ops_per_element * nq * t * GROUP * d, BF16_FLOPS), len(groups)
+
+
+def phase7(store) -> dict:
+    """bench.py's operating point, phase 2's prototypes: the main path (each
+    ported script's searches once, launch counts set to 0 just before, read
+    just after; rescore_gather's launches inside gather_kernel_sweep2 count
+    for its row), then the kernels against their plain versions at Q = 2048
+    and 4096 on a real phase 1's candidates, the edge sweep, and the
+    timings beside the production rescore."""
+    import torch
+
+    from image_search_engine_tpu_torch.benchmarks import common
+    from image_search_engine_tpu_torch.benchmarks import gather_kernel_proto as GP
+    from image_search_engine_tpu_torch.benchmarks import gather_kernel_sweep as GS
+    from image_search_engine_tpu_torch.benchmarks import gather_kernel_sweep2 as GS2
+    from image_search_engine_tpu_torch.benchmarks import hier_select as HS
+    from image_search_engine_tpu_torch.benchmarks import rescore_dma_variants as RD
+    from image_search_engine_tpu_torch.ops import rescore_variants as RV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    log("phase 7: bench.py's operating point, the phase-2 prototypes (fused gather and rescore, "
+        "cross products only, hierarchical select)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
+    x, nbf = store.x, store.norms_bf16_rows()
+    queries = {nq: common.queries(store, 1, nq)[0] for nq in (PROTO_Q, BENCH_Q)}
+    ref = {nq: common.float64_topk_ids(q[:8], store.x32, BENCH_K) for nq, q in queries.items()}
+
+    recalls, covers = {}, {}
+
+    def run(script, runs, nq):
+        for name, fn in runs:
+            ids = fn(queries[nq])[1]
+            recalls.setdefault(script, {})[f"{name} Q={nq}"] = common.recall(ids[:8], ref[nq])
+
+    T.reset_launch_counts()
+    RV.reset_launch_counts()
+    run("gather_kernel_proto", GP.searches(x, nbf), PROTO_Q)
+    run("gather_kernel_sweep", GS.searches(x, nbf), PROTO_Q)
+    run("rescore_dma_variants", RD.searches(x, nbf), PROTO_Q)
+    run("hier_select", HS.searches(x, nbf), PROTO_Q)
+    name, fn = GS.phase1(x, nbf)
+    covers[name] = common.group_recall(fn(queries[PROTO_Q])[1][:8], ref[PROTO_Q], T.GROUP)
+    torch.cuda.synchronize()
+    before = RV.rescore_gather.launches
+    sweep2 = GS2.searches(x, nbf)
+    run("gather_kernel_sweep2", sweep2, PROTO_Q)
+    run("gather_kernel_sweep2", sweep2[-1:], BENCH_Q)  # the exact search at Q = 4096
+    parts = dict(GS2.partials(x, nbf))
+    for name in ("sweep+select(exact)", "sweep+select(approx .95)"):
+        covers[name] = common.group_recall(parts[name](queries[PROTO_Q])[1][:8], ref[PROTO_Q],
+                                           T.GROUP)
+    sweep_sum = parts["sweep-only"](queries[PROTO_Q])[0]
+    torch.cuda.synchronize()
+    launches = {"rescore_gather": before,
+                "rescore_gather_sweep2": RV.rescore_gather.launches - before,
+                "rescore_cross": RV.rescore_cross.launches, "groupmin": T.groupmin.launches,
+                "rescore": T.rescore.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"phase 7 main path: a kernel did not launch: {launches}")
+    qf = queries[PROTO_Q].to(torch.bfloat16).contiguous()
+    if not torch.equal(sweep_sum, T.groupmin(qf, x, nbf).sum()[None, None]):
+        raise AssertionError("gather_kernel_sweep2 sweep-only: sum differs from groupmin's")
+    for script, r in recalls.items():
+        low = {k: v for k, v in r.items() if v < (0.9 if "approx" in k else 0.95)}
+        if low:
+            raise AssertionError(f"{script}: recall@10 {low}")
+        log(f"  {script} recall@10 vs float64 (8 queries): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r.items()))
+    log("  true top-10 inside the candidate groups (8 queries): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in covers.items()) + f"; launches {launches}")
+
+    # the kernels against their plain versions on a real phase 1's candidates, then timed
+    cand = GP.candidates(qf, x, nbf, RESCORE_MARGIN)
+    qf4 = queries[BENCH_Q].to(torch.bfloat16).contiguous()
+    cand4 = GP.candidates(qf4, x, nbf, RESCORE_MARGIN)
+    errs = check_rescore_variants(f"Q={PROTO_Q}", qf, x, nbf, cand, score_tol(qf, nbf))
+    errs4 = check_rescore_variants(f"Q={BENCH_Q}", qf4, x, nbf, cand4, score_tol(qf4, nbf),
+                                   qbs=(8,), cross=False)
+    worst_edge = edge_sweep_rescore(gen)
+    ms = lambda fn: median_ms(fn, flush)  # noqa: E731
+    times, plain = {}, {}
+    for qb in RV.QBS:
+        times[f"gather_qb{qb}"] = ms(lambda: RV.rescore_gather(qf, x, cand, qb=qb))
+        times[f"cross_qb{qb}"] = ms(lambda: RV.rescore_cross(qf, x, cand, qb=qb))
+    times["gather_qb8_Q4096"] = ms(lambda: RV.rescore_gather(qf4, x, cand4))
+    times["rescore"] = ms(lambda: T.rescore(qf, x, nbf, cand))
+    plain["gather"] = ms(lambda: RV.rescore_gather_ref(qf, x, cand))
+    plain["gather_Q4096"] = ms(lambda: RV.rescore_gather_ref(qf4, x, cand4))
+    plain["cross"] = ms(lambda: RV.rescore_cross_ref(qf, x, cand))
+    plain["rescore"] = ms(lambda: T.rescore_ref(qf, x, nbf, cand))
+    b_gather, ngroups = rescore_bound(PROTO_Q, x, cand, 4)
+    b_gather4, ngroups4 = rescore_bound(BENCH_Q, x, cand4, 4)
+    b_cross, _ = rescore_bound(PROTO_Q, x, cand, 2)
+    b_rescore, _ = rescore_bound(PROTO_Q, x, cand, 2, norms_bytes=4)
+    t = cand.shape[1]
+    log(f"  rescore variants at Q={PROTO_Q} t={t} ({ngroups:,} distinct groups of "
+        f"{PROTO_Q * t:,} picks; Q={BENCH_Q}: {ngroups4:,} of {BENCH_Q * t:,}): " + "; ".join(
+            f"{k} {v:.4f} ms" for k, v in times.items()) + "; plain " + "; ".join(
+            f"{k} {v:.4f} ms" for k, v in plain.items()) + f"; bounds gather {b_gather[0]:.4f}, "
+        f"cross {b_cross[0]:.4f}, rescore {b_rescore[0]:.4f}, gather Q={BENCH_Q} "
+        f"{b_gather4[0]:.4f} ms; errors " + "; ".join(
+            f"{k} {v:.3g}" for k, v in {**errs, **{f"{k} Q={BENCH_Q}": v
+                                                   for k, v in errs4.items()}}.items())
+        + f"; phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    def worst(kind):
+        return max(worst_edge, *(v for e in (errs, errs4) for k, v in e.items()
+                                 if k.startswith(kind)))
+
+    shape = f"Q={PROTO_Q} t={t} N={BENCH_N:,} d={BENCH_D} bf16 QB=8 (a real phase 1's candidates)"
+    production = {"production_rescore_ms": times["rescore"],
+                  "production_rescore_plain_ms": plain["rescore"],
+                  "production_rescore_bound_ms": b_rescore[0], "distinct_groups": ngroups}
+    entries = [
+        ("rescore_gather", times["gather_qb8"], plain["gather"], b_gather, worst("gather"),
+         {f"QB={qb}_ms": times[f"gather_qb{qb}"] for qb in RV.QBS}),
+        ("rescore_gather_sweep2", times["gather_qb8"], plain["gather"], b_gather, worst("gather"),
+         {"Q=4096_ms": times["gather_qb8_Q4096"], "Q=4096_plain_ms": plain["gather_Q4096"],
+          "Q=4096_bound_ms": b_gather4[0], "Q=4096_distinct_groups": ngroups4}),
+        ("rescore_cross", times["cross_qb8"], plain["cross"], b_cross, worst("cross"),
+         {f"QB={qb}_ms": times[f"cross_qb{qb}"] for qb in RV.QBS}),
+    ]
+    kernels = [{
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": launches[name], "max_abs_err": err, "ms": tk, "plain_ms": p, "bound_ms": b[0],
+        "bound_by": b[1], "library_ms": None, "shape": shape, **production, "variants": extra,
+    } for name, tk, p, b, err, extra in entries]
+    return {"kernels": kernels, "times": times, "recalls": recalls}
+
+
 def main() -> int:
     import torch
 
@@ -1609,7 +1853,11 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     last = phase5()
-    sixth = phase6()
+    log(f"phase 6: bench.py's operating point ({BENCH_N:,} x {BENCH_D} bf16 store, k = {BENCH_K})")
+    store = bench_store()
+    sixth = phase6(store)
+    seventh = phase7(store)
+    del store
 
     head = shapes["Q1_N1M_d2048_f32_l2"]
     kernels = [{
@@ -1665,6 +1913,7 @@ def main() -> int:
                        for c, r in cases.items()},
         })
     kernels.extend(sixth["kernels"])
+    kernels.extend(seventh["kernels"])
     log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "
         f"{served['p50_ms']:.2f} ms, escalations {served['escalations']}; IVF-PQ build "
         f"{scale['build_s']:.1f} s, IVF-PQ serving p50 {pq_served['p50_ms']:.2f} ms; int8 "

@@ -97,15 +97,29 @@ def rescore_blocks(qf: torch.Tensor, x: torch.Tensor, norms: torch.Tensor, block
     (Q, t)), scored norms - 2 q.x in f32 over the store values, rows past N
     +inf; then the k smallest, ties to the lowest candidate position.
     Returns (scores (Q, k), row ids (Q, k) int64)."""
-    nq, t = blocks.shape
-    rows = (blocks.long()[:, :, None] * width
-            + torch.arange(width, device=blocks.device)).reshape(nq, t * width)
+    rows = block_rows(blocks, width)
     n = x.shape[0]
     safe = rows.clamp(0, n - 1)
     cross = torch.bmm(x[safe].float(), qf.float()[:, :, None])[:, :, 0]
     dist = torch.where(rows < n, norms[safe] - 2.0 * cross, torch.full_like(cross, float("inf")))
-    vals, pos = stable_smallest(dist, k)
-    return vals, torch.gather(rows, 1, pos)
+    return best_rows(dist, blocks, width, k)
+
+
+def block_rows(blocks: torch.Tensor, width: int) -> torch.Tensor:
+    """(Q, t*width) int64 row ids of each query's candidate blocks of
+    ``width`` rows (blocks (Q, t)), in the scores' column order."""
+    nq, t = blocks.shape
+    return (blocks.long()[:, :, None] * width
+            + torch.arange(width, device=blocks.device)).reshape(nq, t * width)
+
+
+def best_rows(scores: torch.Tensor, blocks: torch.Tensor, width: int,
+              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of (Q, t*width) candidate scores, ties to the lowest
+    position (the earlier selected block, then the lower row), as
+    ``lax.top_k`` of the negated scores: (scores (Q, k), row ids (Q, k) int64)."""
+    vals, pos = stable_smallest(scores, k)
+    return vals, torch.gather(block_rows(blocks, width), 1, pos)
 
 
 def finish_l2(q: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -144,6 +158,29 @@ def first_call(fn: Callable, x: torch.Tensor) -> Tuple[object, float]:
     out = fn(x)
     sync(x.device)
     return out, time.perf_counter() - t0
+
+
+def same_id_sets(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(Q,) bool: each query's ids in ``a`` and ``b`` are the same set."""
+    return (torch.sort(a, 1).values == torch.sort(b, 1).values).all(1)
+
+
+def group_recall(blocks: torch.Tensor, ref: torch.Tensor, width: int) -> float:
+    """Mean over queries of the share of ``ref``'s ids (Q, k) that lie in
+    the query's candidate blocks of ``width`` rows (blocks (Q, t))."""
+    hit = ((ref // width).to(blocks.device)[:, :, None] == blocks.long()[:, None, :]).any(2)
+    return float(hit.double().mean().item())
+
+
+def timed(name: str, fn: Callable, qs: torch.Tensor, ref: torch.Tensor | None = None) -> str:
+    """``fn`` warmed on the first dispatch, then timed over every dispatch
+    of ``qs`` (iters, Q, d): the TPU scripts' line "name: ms/dispatch, k
+    QPS", with the recall@10 of the first dispatch's ids against ``ref``."""
+    out, _ = first_call(fn, qs[0])
+    el = max(time_dispatches(fn, qs), 1e-9)
+    line = (f"{name}: {el / len(qs) * 1e3:.2f} ms/dispatch, "
+            f"{len(qs) * qs.shape[1] / el / 1e3:.1f}k QPS")
+    return line if ref is None else f"{line}, recall@10={recall(out[1], ref):.5f}"
 
 
 def parse_args(doc: str, argv, *, n: int, q: int, iters: int) -> argparse.Namespace:

@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
            _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu",
-           _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu", _CSRC / "groupmin_variants.cu")
+           _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu", _CSRC / "groupmin_variants.cu",
+           _CSRC / "rescore_variants.cu")
 HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
@@ -127,6 +128,10 @@ def library() -> ctypes.CDLL:
             lib.ise_groupmin_two_level.restype = i
             lib.ise_groupmin_chunked.argtypes = [p, p, p, p, i, ll, i, i, p]
             lib.ise_groupmin_chunked.restype = i
+            lib.ise_rescore_gather.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]
+            lib.ise_rescore_gather.restype = i
+            lib.ise_rescore_cross.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]
+            lib.ise_rescore_cross.restype = i
             lib.ise_error_string.argtypes = [i]
             lib.ise_error_string.restype = ctypes.c_char_p
             _lib = lib
