@@ -9,7 +9,11 @@ Phases (each raises on failure; the script then exits non-zero):
      CUDA kernels built from image_search_engine_tpu_torch/csrc;
   1. each kernel of the two-phase search against its plain PyTorch
      version on the same tensors on the card, through FlatIndex.search
-     and the three kernel wrappers directly, with CUDA-event timings;
+     and the three kernel wrappers directly, with CUDA-event timings: f32
+     stores on CUDA cores, bf16 stores on tensor cores (also at 1M x 2048,
+     Q = 1 and 64, beside the bf16 product alone and the row_dot sweep),
+     and an edge sweep of the bf16 kernels' tiles; every group min equal
+     to the min of its rescored rows bit for bit;
   2. the flat main path through the user's entry points: 4,096 PNGs
      indexed by the port's indexer CLI (ResNet-50, flat l2, f32 store), the
      port's HTTP server queried with corpus images, and the kernel launch
@@ -32,15 +36,22 @@ Phases (each raises on failure; the script then exits non-zero):
      2048 f32 and Q = 1 over bf16, ids equal to its plain version's, and
      ``topk_merged`` (the two-phase search in one cooperative launch) at Q =
      1 and 64 over 1M x 2048 f32 and bf16 and at Q = 2048 and 4096 over 1M x
-     128 bf16, equal to ``topk_twophase(t_margin=2)`` bit for bit; edge
-     sweeps for both; timings beside the two-phase search;
+     128 bf16, equal to ``topk_twophase(t_margin=2)`` (bit for bit over
+     f32; over bf16, whose two-phase search runs on tensor cores, within
+     tolerance, ids equal but at near-ties); edge sweeps for both; timings
+     beside the two-phase search;
   6. bench.py's operating point (1M x 128 bf16, k = 10): the bench twin
-     (``image_search_engine_tpu_torch.bench``) at Q = 4096 with few
+     (``image_search_engine_tpu_torch.bench``) at Q = 4096 over 100
      dispatches, each ported benchmark script's searches once with their
-     recall@10 beside the production search's, the four phase-1 prototype
-     kernels (group width, chunked columns, two-level mins in three
-     layouts) against their plain versions at Q = 2048 (and 4096) plus an
-     edge sweep, with timings beside ``groupmin``; then the tie order of the
+     recall@10 beside the production search's, the bf16 tensor-core
+     kernels against their plain versions at Q = 2048 and 4096, the twin's
+     dispatch split into groupmin, select_topt, rescore and the finish,
+     the four phase-1 prototype kernels (group width, chunked columns,
+     two-level mins in three layouts) against their plain versions at Q =
+     2048 (and 4096) plus an edge sweep, with timings beside ``groupmin``
+     (their 128-row mins equal to the row_dot sweep's, ``groupmin_width(...,
+     128)``, bit for bit, production's within tolerance of them); then the
+     tie order of the
      flat paths over a store whose second half repeats its first, and the
      cost of the k > 128 full scan's stable sort at 1M rows;
   7. the same store: each ported phase-2 prototype script's searches once
@@ -52,7 +63,8 @@ Phases (each raises on failure; the script then exits non-zero):
      production ``rescore``.
 
 Before its last two lines it prints a JSON object describing the 16
-kernels (launches, errors, times, bounds) and the card's name and power
+kernels (launches, errors, times, bounds; ``groupmin`` and ``rescore``
+per store dtype) and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
 """
@@ -273,6 +285,7 @@ def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scal
     import torch
 
     from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.ops import groupmin_variants as GV
     from image_search_engine_tpu_torch.ops import topk as T
     from image_search_engine_tpu_torch.parallel.topk import PAD_NORM, local_topk_with_norms
 
@@ -311,13 +324,20 @@ def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scal
                       "plain_ms": median_ms(ref, flush),
                       "library_ms": None if lib is None else median_ms(lib, flush),
                       "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
+    extra = ""
+    if isz == 2:  # the tensor-core sweep's yardsticks: the product alone, the row_dot sweep
+        res["groupmin"]["product_alone_ms"] = median_ms(lambda: torch.matmul(qf, store.T), flush)
+        res["groupmin"]["row_dot_sweep_ms"] = median_ms(
+            lambda: GV.groupmin_width(qf, store, knorms, T.GROUP), flush, reps=3)
+        extra = (f"; bf16 product alone {res['groupmin']['product_alone_ms']:.4f} ms, row_dot "
+                 f"sweep {res['groupmin']['row_dot_sweep_ms']:.4f} ms")
     smetric = "l2" if metric == "l2" else "ip"
     search_ms = median_ms(lambda: T.topk_twophase(qs, store, K, smetric, x_norms=norms), flush)
     scan_ms = median_ms(lambda: local_topk_with_norms(qs, store, norms, K, smetric), flush)
     log(f"  {name}: tol {tol:.3g}; " + "; ".join(
-        f"{k} err {v['max_abs_err']:.3g} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms)"
-        for k, v in res.items())
-        + f"; two-phase search {search_ms:.4f} ms, plain full scan {scan_ms:.4f} ms")
+        f"{k} err {v['max_abs_err']:.3g} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, bound "
+        f"{v['bound_ms']:.4f} ms)" for k, v in res.items())
+        + f"; two-phase search {search_ms:.4f} ms, plain full scan {scan_ms:.4f} ms" + extra)
     return res
 
 
@@ -347,6 +367,39 @@ def edge_sweep(gen) -> float:
     return worst
 
 
+def edge_sweep_mma(gen) -> float:
+    """The bf16 tensor-core kernels at their tile edges, untimed: N in {1,
+    127, 128, 129, 5000} x Q in {1, 7, 15, 16, 17, 33, 129} x d in {16, 128,
+    130, 2048} (d = 130: 4-byte copies; Q = 17, 33, 129: partial query
+    tiles), l2 and ip in turn (ip: the query halved, zero norms, 10% of the
+    rows poisoned with PAD_NORM). check_kernels: each within score_tol of its
+    plain version, the group mins the rescored rows' mins bit for bit.
+    Returns the largest kernel error."""
+    import torch
+
+    from image_search_engine_tpu_torch.parallel.topk import PAD_NORM, ip_penalty
+
+    worst, cases = 0.0, 0
+    for n in (1, 127, 128, 129, 5000):
+        for nq in (1, 7, 15, 16, 17, 33, 129):
+            for d in (16, 128, 130, 2048):
+                x = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
+                q = torch.randn(nq, d, device="cuda", generator=gen).to(torch.bfloat16)
+                norms = (x.float() ** 2).sum(1)
+                if cases % 2:
+                    norms[torch.rand(n, device="cuda", generator=gen) < 0.1] = PAD_NORM
+                    qf, knorms = (q * 0.5).contiguous(), ip_penalty(norms)
+                else:
+                    qf, knorms = q, norms
+                tol = score_tol(qf, norms) if bool((norms < 1e29).any()) else 0.0
+                errs, *_ = check_kernels(f"bf16 edge N={n} Q={nq} d={d}", qf, x, knorms, tol)
+                worst = max(worst, errs["groupmin"], errs["rescore"])
+                cases += 1
+    log(f"  bf16 tensor-core edge sweep: {cases} shapes (l2, ip with PAD_NORM rows), largest "
+        f"error {worst:.3g}, group mins = rescored rows' mins bit for bit")
+    return worst
+
+
 def phase1() -> dict:
     import torch
 
@@ -357,6 +410,9 @@ def phase1() -> dict:
     x = torch.randn(1_000_000, 2048, device="cuda", generator=gen)
     shapes["Q1_N1M_d2048_f32_l2"] = check_shape("Q=1 N=1,000,000 d=2048 f32 l2", x, 1,
                                                 "l2", "f32", gen, flush)
+    for nq in (1, 64):  # the bf16 tensor-core kernels at the corpus scale
+        shapes[f"Q{nq}_N1M_d2048_bf16_l2"] = check_shape(
+            f"Q={nq} N=1,000,000 d=2048 bf16 l2", x, nq, "l2", "bf16", gen, flush)
     del x
     torch.cuda.empty_cache()
     x = torch.randn(200_003, 2048, device="cuda", generator=gen)
@@ -377,7 +433,7 @@ def phase1() -> dict:
     del x
     torch.cuda.empty_cache()
     edge_sweep(gen)
-    return shapes
+    return shapes, edge_sweep_mma(gen)
 
 
 # ---------------------------------------------------------------------------
@@ -858,6 +914,7 @@ def check_shape_q8(name, x, nq, metric, gen, flush, *, pad_rows=None, q_scale=1.
     import torch
 
     from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.ops import groupmin_variants as GV
     from image_search_engine_tpu_torch.ops import topk as T
     from image_search_engine_tpu_torch.parallel.topk import PAD_NORM, local_topk_with_norms
 
@@ -1074,11 +1131,15 @@ def check_running(name, q, x, k, metric, *, x_norms=None, got=None):
 
 
 def check_merged(name, q, x, k, metric, *, x_norms=None, got=None, plain=True):
-    """topk_merged (``got``, or run now) equal to topk_twophase at the same
-    margin bit for bit (distances, ids, certificate), every certificate
-    True; then its kernel wrapper: each candidate group's stage-1 min equal
-    to the min of its stage-3 rows, and (``plain``) mins and scores against
-    the plain version. Returns the largest kernel error (0.0 unchecked)."""
+    """topk_merged (``got``, or run now) against topk_twophase at the same
+    margin: over an f32 store equal bit for bit (distances, ids,
+    certificate); over a bf16 store, whose two-phase search scores on
+    tensor cores while topk_merged keeps row_dot, distances within 2
+    score_tol, ids equal but at near-ties, and both certificates all True.
+    Every certificate True; then its kernel wrapper: each candidate group's
+    stage-1 min equal to the min of its stage-3 rows, and (``plain``) mins
+    and scores against the plain version. Returns the largest kernel error
+    (0.0 unchecked)."""
     import torch
 
     from image_search_engine_tpu_torch.ops import topk as T
@@ -1088,14 +1149,25 @@ def check_merged(name, q, x, k, metric, *, x_norms=None, got=None, plain=True):
         got = TM.topk_merged(q, x, k, metric, x_norms=x_norms, with_certificate=True)
     want = T.topk_twophase(q, x, k, metric, x_norms=x_norms, t_margin=MERGED_MARGIN,
                            with_certificate=True)
-    for what, a, b in zip(("distances", "ids", "certificates"), got, want):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{name}: topk_merged {what} differ from topk_twophase's")
-    if not bool(got[2].all()):
-        raise AssertionError(f"{name}: {int((~got[2]).sum())} certificates failed")
     qs, xs, sn = search_inputs(q, x, metric)
     smetric = "l2" if metric == "l2" else "ip"
     qf = qs.to(xs.dtype).contiguous() * (1.0 if smetric == "l2" else 0.5)
+    if x.dtype == torch.bfloat16:
+        tol = 2 * score_tol(qf, sn)
+        derr = max_abs_err(got[0], want[0])
+        if derr > tol:
+            raise AssertionError(f"{name}: topk_merged distances differ from topk_twophase's by "
+                                 f"{derr} > {tol}")
+        assert_ids_equal(f"{name} topk_merged vs topk_twophase", got[1], want[1], want[0], tol)
+        if not bool(want[2].all()):
+            raise AssertionError(f"{name}: {int((~want[2]).sum())} topk_twophase certificates "
+                                 "failed")
+    else:
+        for what, a, b in zip(("distances", "ids", "certificates"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: topk_merged {what} differ from topk_twophase's")
+    if not bool(got[2].all()):
+        raise AssertionError(f"{name}: {int((~got[2]).sum())} certificates failed")
     norms = T._search_norms(xs, smetric, x_norms)
     t = min(k + MERGED_MARGIN, T.num_groups(xs.shape[0]))
     scores, cand, _, mins = TM.merged_candidates(qf, xs, norms, t)
@@ -1162,7 +1234,8 @@ def edge_sweep_phase5(gen) -> dict:
                 mcases += 1
     log(f"  edge sweeps: topk_running {cases} shapes, ids equal to the plain version's "
         f"({near} near-tie positions), largest error {worst:.3g}; topk_merged {mcases} shapes "
-        f"equal to topk_twophase bit for bit, largest kernel error {mworst:.3g}")
+        f"equal to topk_twophase (f32 bit for bit, bf16 within tolerance), largest kernel error "
+        f"{mworst:.3g}")
     return {"topk_running": worst, "topk_merged": mworst}
 
 
@@ -1254,8 +1327,9 @@ def phase5() -> dict:
         res["merged"][c] = r
         plain = "not timed: (Q, N) f32 too large" if r["plain_ms"] is None else \
             f"{r['plain_ms']:.4f} ms"
+        same = "bit for bit" if x.dtype == torch.float32 else "within 2 score_tol, ids at near-ties"
         log(f"  topk_merged {c} (N={n:,} d={d} {str(x.dtype)[6:]} k={k}, t={t}): = "
-            f"topk_twophase bit for bit, certificates all True, kernel err {err:.3g}; kernel "
+            f"topk_twophase {same}, certificates all True, kernel err {err:.3g}; kernel "
             f"{r['ms']:.4f} ms (plain "
             f"{plain}, bound {b[0]:.4f} ms by {b[1]}); search {r['search_ms']:.4f} ms vs "
             f"topk_twophase(t_margin={MERGED_MARGIN}) {r['twophase_ms']:.4f} ms")
@@ -1269,7 +1343,7 @@ def phase5() -> dict:
 # Phase 6: bench.py's operating point (the bench twin, the prototype kernels)
 # ---------------------------------------------------------------------------
 
-BENCH_Q, BENCH_ITERS, PROTO_Q = 4096, 5, 2048
+BENCH_Q, BENCH_ITERS, PROTO_Q = 4096, 100, 2048
 PROTO_REPS = 3  # the CUDA-core sweeps take ~0.2 s a call at Q = 2048
 # the tie check: a store whose second half repeats its first, from a group
 # boundary, so the two-phase search's tie order is the full scan's
@@ -1295,24 +1369,29 @@ def bf16_ulps(a, b) -> float:
 def check_variants(name, qf, x, norms, nf32, want, *, layouts=None, width=True, chunked=True):
     """The four prototype kernels on (qf, x): each f32 output within
     score_tol of its plain version; width 128 and the two-level group mins
-    equal to ``want`` (production ``groupmin`` transposed) bit for bit; the
-    bf16 subgroup mins within one bf16 ulp of the plain version's, and each
-    group min's bf16 rounding equal to the min of its subgroup mins. ``norms``
-    score the chunked kernel, ``nf32`` the others (the scripts' norms);
-    ``width`` and ``chunked`` include those kernels.
-    Returns {kernel: max_abs_err} (the two-level's in bf16 ulps too)."""
+    equal to ``want`` bit for bit: ``groupmin_width(..., 128)``, the row_dot
+    sweep the prototypes share (production ``groupmin`` ran it before its
+    bf16 kernel moved to tensor cores, and is held within score_tol of it
+    here); the bf16 subgroup mins within one bf16 ulp of the plain
+    version's, and each group min's bf16 rounding equal to the min of its
+    subgroup mins. ``norms`` score the chunked kernel, ``nf32`` the others
+    (the scripts' norms); ``width`` and ``chunked`` include those kernels.
+    Returns {kernel: max_abs_err} (the two-level's in bf16 ulps too;
+    ``groupmin_vs_row_dot`` the production sweep's distance from ``want``)."""
     import torch
     import torch.nn.functional as F
 
     from image_search_engine_tpu_torch.ops import groupmin_variants as GV
+    from image_search_engine_tpu_torch.ops import topk as T
 
     errs = {}
     tol = score_tol(qf, torch.cat([norms, nf32]))
+    errs["groupmin_vs_row_dot"] = max_abs_err(T.groupmin(qf, x, nf32).T, want)
     for g in GV.WIDTHS if width else ():
         got = GV.groupmin_width(qf, x, nf32, g)
         errs[f"width{g}"] = max_abs_err(got, GV.groupmin_width_ref(qf, x, nf32, g))
         if g == 128 and not torch.equal(got, want):
-            raise AssertionError(f"{name}: groupmin_width(128) differs from groupmin")
+            raise AssertionError(f"{name}: groupmin_width(128) differs from its own run")
     for c in GV.CHUNKS if chunked else ():
         got = GV.groupmin_chunked(qf, x, norms, c)
         errs[f"chunk{c}"] = max_abs_err(got, GV.groupmin_chunked_ref(qf, x, norms))
@@ -1320,7 +1399,8 @@ def check_variants(name, qf, x, norms, nf32, want, *, layouts=None, width=True, 
     for lay in layouts or GV.LAYOUTS:
         gm, sm = GV.groupmin_two_level(qf, x, nf32, lay)
         if not torch.equal(gm, want):
-            raise AssertionError(f"{name}: two-level {lay} group mins differ from groupmin")
+            raise AssertionError(f"{name}: two-level {lay} group mins differ from the row_dot "
+                                 "sweep's")
         errs[f"two_level_{lay}"] = max_abs_err(gm, rg)
         ulps = bf16_ulps(sm, rs)
         if ulps > 1.0:
@@ -1344,6 +1424,7 @@ def edge_sweep_variants(gen) -> float:
     error."""
     import torch
 
+    from image_search_engine_tpu_torch.ops import groupmin_variants as GV
     from image_search_engine_tpu_torch.ops import topk as T
 
     worst, cases = 0.0, 0
@@ -1354,7 +1435,7 @@ def edge_sweep_variants(gen) -> float:
                 q = torch.randn(nq, d, device="cuda", generator=gen).to(torch.bfloat16)
                 nf32 = (torch.randn(n, d, device="cuda", generator=gen) ** 2).sum(1)
                 norms = (x.float() ** 2).sum(1)
-                want = T.groupmin(q, x, nf32).T
+                want = GV.groupmin_width(q, x, nf32, T.GROUP)
                 errs = check_variants(f"variants edge N={n} Q={nq} d={d}", q, x, norms, nf32, want,
                                       chunked=d % 8 == 0)
                 worst = max(worst, *(v for k, v in errs.items() if not k.endswith("_ulps")))
@@ -1461,10 +1542,75 @@ def bench_store():
     return store
 
 
+def check_bench_kernels(name, qf, x, norms, t) -> tuple:
+    """The bf16 tensor-core kernels at bench.py's point on the same tensors
+    as their plain versions: groupmin and rescore within score_tol (512
+    queries at a time, the plain version's (Q, N) scores), the select bit
+    for bit, every candidate group's min equal to the min of its rescored
+    rows bit for bit. Returns ({kernel: max_abs_err}, mins, vals, cand)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    mins = T.groupmin(qf, x, norms)
+    vals, cand = T.select_topt(mins, t)
+    scores = T.rescore(qf, x, norms, cand)
+    errs = {"groupmin": 0.0, "rescore": 0.0}
+    for s in range(0, qf.shape[0], 512):
+        sl = slice(s, s + 512)
+        errs["groupmin"] = max(errs["groupmin"],
+                               max_abs_err(mins[sl], T.groupmin_ref(qf[sl], x, norms)))
+        errs["rescore"] = max(errs["rescore"], max_abs_err(
+            scores[sl], T.rescore_ref(qf[sl], x, norms, cand[sl])))
+        rv, rids = T.select_topt_ref(mins[sl], t)
+        if not (torch.equal(vals[sl], rv) and torch.equal(cand[sl], rids)):
+            raise AssertionError(f"{name}: select differs from its plain version")
+    if not torch.equal(scores.view(qf.shape[0], t, -1).amin(2), mins.gather(1, cand.long())):
+        raise AssertionError(f"{name}: phase-1 group mins differ from phase-2 scores")
+    tol = score_tol(qf, norms)
+    for k, v in errs.items():
+        if v > tol:
+            raise AssertionError(f"{name}: {k} error {v} > tolerance {tol}")
+    log(f"  {name}: groupmin err {errs['groupmin']:.3g}, rescore err {errs['rescore']:.3g} "
+        f"(tol {tol:.3g}), select = plain, group mins = rescored rows' mins bit for bit")
+    return errs, mins, vals, cand
+
+
+def twin_breakdown(q, x, norms, flush) -> dict:
+    """The bench twin's dispatch at Q = len(q), CUDA-event medians (L2
+    flushed before each): the whole search (bench.search), then its steps
+    as topk_twophase runs them: groupmin, select_topt, rescore and the
+    finish (stable sort, ids, distances, certificate); the rest is the
+    query's cast and the norms."""
+    import torch
+
+    from image_search_engine_tpu_torch import bench
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    qf = q.to(x.dtype).contiguous()
+    t = min(bench.K + bench.T_MARGIN, T.num_groups(x.shape[0]))
+    mins = T.groupmin(qf, x, norms)
+    vals, cand = T.select_topt(mins, t)
+    scores = T.rescore(qf, x, norms, cand)
+    ms = lambda fn: median_ms(fn, flush, reps=5)  # noqa: E731
+    res = {"dispatch_ms": ms(lambda: bench.search(q, x, norms)),
+           "groupmin_ms": ms(lambda: T.groupmin(qf, x, norms)),
+           "select_topt_ms": ms(lambda: T.select_topt(mins, t)),
+           "rescore_ms": ms(lambda: T.rescore(qf, x, norms, cand)),
+           "finish_ms": ms(lambda: T.finish_candidates(q, scores, cand, vals[:, t - 1], bench.K,
+                                                       "l2", True)),
+           "select_library_ms": ms(lambda: torch.topk(mins, t, dim=1, largest=False))}
+    res["other_ms"] = res["dispatch_ms"] - sum(res[k] for k in (
+        "groupmin_ms", "select_topt_ms", "rescore_ms", "finish_ms"))
+    return res
+
+
 def phase6(store) -> dict:
     """bench.py's operating point: the main path (bench twin, then each
     ported script's searches once; launch counts set to 0 just before, read
-    just after), then the four prototype kernels checked and timed, the edge
+    just after), then the bf16 tensor-core kernels against their plain
+    versions at Q = 2048 and 4096, the twin's dispatch split into its steps,
+    the four prototype kernels checked and timed beside them, the edge
     sweep, the tie check and the full scan's sort."""
     import torch
 
@@ -1505,7 +1651,8 @@ def phase6(store) -> dict:
                 "groupmin_chunked": GV.groupmin_chunked.launches,
                 "groupmin_two_level": proto_launches,
                 "groupmin_two_level_layouts": GV.groupmin_two_level.launches - proto_launches,
-                "groupmin": T.groupmin.launches}
+                "groupmin": T.groupmin.launches, "select_topt": T.select_topt.launches,
+                "rescore": T.rescore.launches}
     if not all(launches.values()):
         raise AssertionError(f"phase 6 main path: a kernel did not launch: {launches}")
     ref_sum = sums["current"]
@@ -1523,12 +1670,28 @@ def phase6(store) -> dict:
         f"recall@10 {out['recall_at_10_vs_float64']:.5f}, certified "
         f"{out['exactness_certified_frac']}; sweep_chunked sums agree; launches {launches}")
 
-    # the four kernels against their plain versions, then timed
+    # the bf16 tensor-core kernels against their plain versions, the twin's dispatch in steps
     qf = q2048.to(torch.bfloat16).contiguous()
-    want = T.groupmin(qf, store.x, nf32).T
-    errs = check_variants("Q=2048", qf, store.x, nbf, nf32, want)
     qf4 = q4096.to(torch.bfloat16).contiguous()
-    errs4 = check_variants("Q=4096", qf4, store.x, nbf, nf32, T.groupmin(qf4, store.x, nf32).T,
+    t = min(BENCH_K + 2, T.num_groups(BENCH_N))
+    mma_errs = {}
+    for nq, qq in ((PROTO_Q, qf), (BENCH_Q, qf4)):
+        errs_q, *_ = check_bench_kernels(f"bf16 kernels Q={nq} t={t} (bf16-row norms)", qq,
+                                         store.x, nbf, t)
+        mma_errs.update({f"{k}_Q{nq}": v for k, v in errs_q.items()})
+    split = twin_breakdown(q4096, store.x, nbf, flush)
+    log(f"  bench twin dispatch at Q={BENCH_Q}: {split['dispatch_ms']:.4f} ms = groupmin "
+        f"{split['groupmin_ms']:.4f} + select_topt {split['select_topt_ms']:.4f} (torch.topk "
+        f"{split['select_library_ms']:.4f}) + rescore {split['rescore_ms']:.4f} + finish "
+        f"{split['finish_ms']:.4f} + other {split['other_ms']:.4f} ms; twin {out['value']} QPS, "
+        f"recall@10 {out['recall_at_10_vs_float64']:.5f}, certified "
+        f"{out['exactness_certified_frac']}")
+
+    # the four prototype kernels against their plain versions, then timed
+    want = GV.groupmin_width(qf, store.x, nf32, T.GROUP)
+    errs = check_variants("Q=2048", qf, store.x, nbf, nf32, want)
+    errs4 = check_variants("Q=4096", qf4, store.x, nbf, nf32,
+                           GV.groupmin_width(qf4, store.x, nf32, T.GROUP),
                            layouts=("v1",), width=False, chunked=False)
     worst_edge = edge_sweep_variants(gen)
     n, d = BENCH_N, BENCH_D
@@ -1549,16 +1712,23 @@ def phase6(store) -> dict:
         times[f"two_level_{lay}"] = ms(lambda: GV.groupmin_two_level(qf, x, nf32, lay))
     times["two_level_v1_Q4096"] = ms(lambda: GV.groupmin_two_level(qf4, x, nf32, "v1"))
     times["groupmin_Q4096"] = ms(lambda: T.groupmin(qf4, x, nf32))
-    plain = {"width": median_ms(lambda: GV.groupmin_width_ref(qf, x, nf32, 128), flush, reps=2),
+    times["product_Q4096"] = ms(lambda: torch.matmul(qf4, x.T))
+    plain = {"groupmin": median_ms(lambda: T.groupmin_ref(qf, x, nf32), flush, reps=2),
+             "width": median_ms(lambda: GV.groupmin_width_ref(qf, x, nf32, 128), flush, reps=2),
              "two_level": median_ms(lambda: GV.groupmin_two_level_ref(qf, x, nf32), flush, reps=2),
              "chunked": median_ms(lambda: GV.groupmin_chunked_ref(qf, x, nbf), flush, reps=2)}
+    log(f"  groupmin (tensor cores) at Q={PROTO_Q}: {times['groupmin']:.4f} ms (Q={BENCH_Q} "
+        f"{times['groupmin_Q4096']:.4f}; plain {plain['groupmin']:.4f}), the bf16 product alone "
+        f"{times['product']:.4f} ms (Q={BENCH_Q} {times['product_Q4096']:.4f}), the row_dot sweep "
+        f"(groupmin_width 128) {times['width128']:.4f} ms; distance from the row_dot sweep's mins "
+        f"{errs['groupmin_vs_row_dot']:.3g}")
     log(f"  prototype kernels at Q={PROTO_Q} (N={n:,} d={d} bf16): " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in times.items()) + "; plain " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in plain.items()) + "; errors " + "; ".join(
         f"{k} {v:.3g}"
         for k, v in {**errs, **{f"{k} Q=4096": v for k, v in errs4.items()}}.items()))
     tie = check_ties(gen)
-    del store, nbf, nf32, x, want
+    del store, nbf, nf32, x, want, qf, qf4
     torch.cuda.empty_cache()
     sort = full_scan_sort_cost(gen, flush)
 
@@ -1589,11 +1759,26 @@ def phase6(store) -> dict:
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-        "launches": launches[name], "max_abs_err": err, "ms": t, "plain_ms": p, "bound_ms": b[0],
+        "launches": launches[name], "max_abs_err": err, "ms": tk, "plain_ms": p, "bound_ms": b[0],
         "bound_by": b[1], "library_ms": None, "shape": shape,
         "product_alone_ms": times["product"], "groupmin_ms": times["groupmin"], "variants": extra,
-    } for name, t, p, b, err, shape, extra in entries]
-    return {"bench": out, "kernels": kernels, "times": times, "ties": tie, "sort": sort}
+    } for name, tk, p, b, err, shape, extra in entries]
+    b2048, b4096 = bnd(PROTO_Q, ng * PROTO_Q * 4), bnd(BENCH_Q, ng * BENCH_Q * 4)
+    worst_groupmin = max(v for k, v in mma_errs.items() if k.startswith("groupmin"))
+    bf16 = {
+        "groupmin": {
+            "launches": launches["groupmin"], "max_abs_err": worst_groupmin,
+            "ms": times["groupmin"], "plain_ms": plain["groupmin"], "bound_ms": b2048[0],
+            "bound_by": b2048[1], "shape": f"Q={PROTO_Q} N={n:,} d={d} bf16 (bench.py's point)",
+            "Q4096_ms": times["groupmin_Q4096"], "Q4096_bound_ms": b4096[0],
+            "product_alone_ms": times["product"], "product_alone_Q4096_ms": times["product_Q4096"],
+            "row_dot_sweep_ms": times["width128"]},
+        "rescore": {"launches": launches["rescore"],
+                    "max_abs_err": max(v for k, v in mma_errs.items() if k.startswith("rescore")),
+                    "Q4096_t12_ms": split["rescore_ms"]},
+    }
+    return {"bench": out, "kernels": kernels, "times": times, "ties": tie, "sort": sort,
+            "bf16": bf16, "twin_split": split}
 
 
 # ---------------------------------------------------------------------------
@@ -1801,6 +1986,10 @@ def phase7(store) -> dict:
     production = {"production_rescore_ms": times["rescore"],
                   "production_rescore_plain_ms": plain["rescore"],
                   "production_rescore_bound_ms": b_rescore[0], "distinct_groups": ngroups}
+    rescore_bf16 = {"ms": times["rescore"], "plain_ms": plain["rescore"], "bound_ms": b_rescore[0],
+                    "bound_by": b_rescore[1],
+                    "shape": f"Q={PROTO_Q} t={t} N={BENCH_N:,} d={BENCH_D} bf16 (a real phase 1's "
+                             "candidates)"}
     entries = [
         ("rescore_gather", times["gather_qb8"], plain["gather"], b_gather, worst("gather"),
          {f"QB={qb}_ms": times[f"gather_qb{qb}"] for qb in RV.QBS}),
@@ -1815,7 +2004,7 @@ def phase7(store) -> dict:
         "launches": launches[name], "max_abs_err": err, "ms": tk, "plain_ms": p, "bound_ms": b[0],
         "bound_by": b[1], "library_ms": None, "shape": shape, **production, "variants": extra,
     } for name, tk, p, b, err, extra in entries]
-    return {"kernels": kernels, "times": times, "recalls": recalls}
+    return {"kernels": kernels, "times": times, "recalls": recalls, "rescore_bf16": rescore_bf16}
 
 
 def main() -> int:
@@ -1842,7 +2031,7 @@ def main() -> int:
         f"registers {min(map(int, regs))}-{max(map(int, regs))}, "
         f"max spill stores {max(map(int, spills))} bytes")
 
-    shapes = phase1()
+    shapes, mma_edge = phase1()
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         served = phase2(workdir)
@@ -1869,6 +2058,20 @@ def main() -> int:
         "library_ms": head[name]["library_ms"],
         "shape": "Q=1 N=1,000,000 d=2048 f32 l2 k=20",
     } for name in ("groupmin", "select_topt", "rescore")]
+    # the bf16 store's kernels (tensor cores): bench.py's point, then 1M x 2048
+    corpus = {f"N1M_d2048_Q{nq}": shapes[f"Q{nq}_N1M_d2048_bf16_l2"] for nq in (1, 64)}
+    for entry in kernels:
+        name = entry["name"]
+        if name not in ("groupmin", "rescore"):
+            continue
+        bf16 = dict(sixth["bf16"][name])
+        if name == "rescore":
+            bf16.update(seventh["rescore_bf16"])
+        bf16["max_abs_err"] = max(bf16["max_abs_err"], mma_edge,
+                                  *(c[name]["max_abs_err"] for c in corpus.values()))
+        for c, r in corpus.items():
+            bf16[c] = {k: v for k, v in r[name].items() if k != "max_abs_err"}
+        entry["bf16"] = bf16
     scan, asg = scale["scan"], scale["assign"]
     kernels.append({
         "name": "probed_scan", "route": "cuda", "source": SOURCES["probed_scan"],

@@ -23,10 +23,13 @@
 //      order (each group split over 4 work items of 32 rows).
 //
 // Each stage is a grid-stride loop over the same work items as the
-// three-kernel search (topk_twophase.cu) and scores rows with the same
-// routine (scoring.cuh's row_dot and score_of, the same VEC), so on the card
-// this search equals topk_twophase at the same margin bit for bit: the same
-// mins, the same candidate groups in the same order, the same scores.
+// three-kernel search's f32 kernels (topk_twophase.cu) and scores rows with
+// the same routine (scoring.cuh's row_dot and score_of, the same VEC), so
+// over an f32 store this search equals topk_twophase at the same margin bit
+// for bit: the same mins, the same candidate groups in the same order, the
+// same scores. Over a bf16 store topk_twophase scores on tensor cores
+// (mma_bf16.cuh) while this search keeps row_dot: the two agree within the
+// f32 summation-order tolerance.
 //
 // What bounds it: as the two-phase search, one read of the store per query
 // tile (bytes at small Q; the 2*Q*N*d operations at large Q), then the

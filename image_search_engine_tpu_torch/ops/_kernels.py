@@ -28,7 +28,7 @@ SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
            _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu",
            _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu", _CSRC / "groupmin_variants.cu",
            _CSRC / "rescore_variants.cu")
-HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh")
+HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh", _CSRC / "mma_bf16.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -104,12 +104,16 @@ def library() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.ise_groupmin.argtypes = [i, p, p, p, p, i, ll, i, i, i, p]
+            lib.ise_groupmin.argtypes = [p, p, p, p, i, ll, i, i, i, p]
             lib.ise_groupmin.restype = i
+            lib.ise_groupmin_mma.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, p]
+            lib.ise_groupmin_mma.restype = i
             lib.ise_select_topt.argtypes = [p, p, p, i, i, i, p]
             lib.ise_select_topt.restype = i
-            lib.ise_rescore.argtypes = [i, p, p, p, p, p, i, ll, i, i, i, p]
+            lib.ise_rescore.argtypes = [p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_rescore.restype = i
+            lib.ise_rescore_mma.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, i, i, p]
+            lib.ise_rescore_mma.restype = i
             lib.ise_groupmin_q8.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_groupmin_q8.restype = i
             lib.ise_rescore_q8.argtypes = [p, p, p, p, p, p, p, i, ll, i, i, i, p]

@@ -2,7 +2,10 @@
 
 Ports of the TPU prototypes under the JAX repo's ``benchmarks/``, each the
 production sweep (:func:`~image_search_engine_tpu_torch.ops.topk.groupmin`:
-the min of norms - 2 q.x over groups of store rows) with one thing changed:
+the min of norms - 2 q.x over groups of store rows) with one thing changed.
+They keep the sweep's CUDA-core design, a warp per row scored by
+``row_dot``, which production ``groupmin`` ran for bf16 stores before that
+moved to tensor cores; ``groupmin_width(..., 128)`` is that sweep:
 
   * :func:`groupmin_width`: the group width G in {128, 64, 32}
     (``rescore_variants2.py``);
@@ -54,8 +57,8 @@ def _check(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> None:
 def _aligned(*ts: torch.Tensor) -> bool:
     """Rows of 16-byte multiples at 16-byte aligned addresses (8 bf16 a
     load). The width and two-level kernels load only store rows this way
-    (queries are staged one element at a time), as ``groupmin`` does, so
-    they pick the same row routine as it for the same store."""
+    (queries are staged one element at a time), so they pick the same row
+    routine as each other for the same store."""
     return all(t.shape[1] % 8 == 0 and t.data_ptr() % 16 == 0 for t in ts)
 
 
@@ -89,10 +92,12 @@ def groupmin_width(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
 
     Replaces ``groupmin_kernel`` (benchmarks/rescore_variants2.py:61,
     launched :86). What bounds it on the card: at large Q the 2*Q*N*d
-    products; its design is the production kernel's (a warp per row, up to
-    8 queries staged per block, blocks of one group back to back), with
-    ``group`` rows per block, so at 128 it equals ``groupmin(...).T`` bit
-    for bit.
+    products; its design is the f32 production kernel's (a warp per row, up
+    to 8 queries staged per block, blocks of one group back to back), with
+    ``group`` rows per block. At 128 it is the row_dot sweep that the
+    two-level kernels equal bit for bit, and the yardstick of the bf16
+    tensor-core ``groupmin``, which agrees with it within the f32
+    summation-order tolerance.
     """
     _check(q, x, norms)
     if group not in WIDTHS:
@@ -143,9 +148,9 @@ def groupmin_two_level(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
     Replaces ``_kernel_two_level`` (benchmarks/subgroup_proto.py:39,
     launched :77; "v1") and ``_kernel`` (benchmarks/subgroup_variants.py:36,
     launched :85; all three). What bounds it on the card: the 2*Q*N*d
-    products at large Q. The design is the production kernel's, with each
-    warp keeping four subgroup mins per query in registers; the group mins
-    equal ``groupmin(...).T`` bit for bit.
+    products at large Q. The design is the f32 production kernel's, with
+    each warp keeping four subgroup mins per query in registers; the group mins
+    equal ``groupmin_width(..., 128)``'s bit for bit.
     """
     _check(q, x, norms)
     if layout not in LAYOUTS:

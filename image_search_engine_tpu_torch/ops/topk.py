@@ -21,7 +21,9 @@ store, the int8 x int8 products are exact int32 sums, and the per-row
 scales fold into an f32 epilogue.
 
 Each step is a hand-written CUDA kernel (``csrc/topk_twophase.cu``,
-``csrc/topk_twophase_q8.cu``) with a plain PyTorch version beside it. A
+``csrc/topk_twophase_q8.cu``) with a plain PyTorch version beside it; a
+bf16 store's steps 1 and 3 run on tensor cores (``csrc/mma_bf16.cuh``), an
+f32 store's on CUDA cores, each dtype with one scoring routine in both. A
 wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``.
@@ -36,6 +38,7 @@ JAX package does.
 from __future__ import annotations
 
 import logging
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -130,6 +133,132 @@ def _query_tile(nq: int, row_bytes: int) -> int:
     return qt
 
 
+# The bf16 tensor-core sweep and rescore (csrc/topk_twophase.cu
+# groupmin_mma_kernel, rescore_mma_kernel; csrc/mma_bf16.cuh)
+#: queries per phase-1 block
+MMA_BQ = (16, 32, 64, 128)
+#: store columns per shared-memory stage the sweep tries, widest first
+_MMA_KC = (128, 64, 32, 16)
+_MMA_K = 16  # bf16 elements per mma k-step
+_MMA_PAD = 8  # bf16 elements appended to every shared-memory row (SMEM_PAD)
+_MMA_WARPS = 8  # warps per phase-1 block (WARPS in csrc/scoring.cuh)
+#: shared memory under which two sweep blocks fit one SM (228 KB, 1 KB each reserved)
+_MMA_SMEM_TWO_BLOCKS = 113 * 1024
+#: blocks the sweep aims for (~15 waves of two blocks on each of 132 SMs)
+_MMA_TARGET_BLOCKS = 4096
+_MMA_MIN_SLICE = 4  # groups per block at least, so a block's start-up is amortized
+_MMA_MAX_SLICE = 16  # groups per block at most, so concurrent slices stay in L2
+_RESCORE_MMA_WARPS = 4  # warps per phase-2 block, one (query, group) pair, 32 rows a warp
+_RESCORE_MMA_KC = 128  # store columns per phase-2 stage (two stages per warp)
+_GRID_MAX = 2 ** 31 - 1  # CUDA's gridDim.x limit
+
+
+def _groupmin_mma_smem(bq: int, nq: int, dp: int, kc: int, resident: bool) -> int:
+    """Shared-memory bytes of a sweep block (groupmin_mma_smem in the .cu):
+    a resident query tile (min(bq, nq + 1) rows: a batch of fewer than bq
+    queries stages its own and one zero row), two stages of 128 store rows
+    (and, streamed, bq query rows), the cross-warp mins."""
+    wn = _MMA_WARPS // (2 if bq >= 32 else 1)
+    qrows, srows = (min(bq, nq + 1), GROUP) if resident else (0, GROUP + bq)
+    return qrows * (dp + _MMA_PAD) * 2 + 2 * srows * (kc + _MMA_PAD) * 2 + wn * bq * 4
+
+
+@dataclass(frozen=True)
+class MmaPlan:
+    """The tile arithmetic of the bf16 tensor-core kernels for Q queries over
+    N rows of d: phase 1 runs ``grid`` blocks of ``bq`` queries and a slice
+    of ``gps`` groups each, block b on query tile b % nqt and slice b // nqt,
+    streaming each group's padded row in k-chunks of ``kc`` columns past a
+    query tile kept in shared memory (``resident``) or streamed with them;
+    phase 2 runs a block per (query, group) pair, whose warps stream
+    ``rescore_kc`` columns of their 32 rows at a time. Both double-buffer
+    their copies. ``dp`` is d zero-padded to a multiple of 16."""
+
+    nq: int
+    n: int
+    d: int
+    bq: int
+    dp: int
+    kc: int
+    resident: bool
+    gps: int
+    rescore_kc: int
+
+    @property
+    def ngroups(self) -> int:
+        return num_groups(self.n)
+
+    @property
+    def nqt(self) -> int:
+        return -(-self.nq // self.bq)
+
+    @property
+    def grid(self) -> int:
+        return -(-self.ngroups // self.gps) * self.nqt
+
+    @property
+    def smem(self) -> int:
+        return _groupmin_mma_smem(self.bq, self.nq, self.dp, self.kc, self.resident)
+
+    @property
+    def rescore_smem(self) -> int:
+        rows = GROUP // _RESCORE_MMA_WARPS
+        return 2 * (self.dp + _MMA_PAD) * 2 + _RESCORE_MMA_WARPS * 2 * rows * (
+            self.rescore_kc + _MMA_PAD) * 2
+
+    def rescore_grid(self, t: int) -> int:
+        """Phase-2 blocks for t candidate groups per query."""
+        return self.nq * t
+
+    def block_tiles(self, b: torch.Tensor):
+        """(q0, q1, g0, g1) of phase-1 blocks ``b``: the queries [q0, q1) and
+        groups [g0, g1) each one writes, as the kernel maps its blockIdx."""
+        qt, sl = b % self.nqt, b // self.nqt
+        return (qt * self.bq, torch.clamp((qt + 1) * self.bq, max=self.nq),
+                sl * self.gps, torch.clamp((sl + 1) * self.gps, max=self.ngroups))
+
+
+def mma_plan(nq: int, n: int, d: int) -> MmaPlan:
+    """The tile plan of the bf16 sweep and rescore for Q = nq queries over an
+    (n, d) store, the one both wrappers launch with. bq is the smallest
+    query tile that holds min(Q, 128) queries. Two blocks should share an
+    SM: the tile stays resident in shared memory if they still do, else it
+    streams with the store if they then do (one block an SM only when
+    neither does), with the widest k-chunk that allows it. The slice has as
+    many groups as keep the grid near ``_MMA_TARGET_BLOCKS`` blocks, between
+    4 (and bq / 32) and 16. Raises on shapes the kernels cannot take."""
+    if nq < 1 or n < 1 or d < 1:
+        raise ValueError(f"no tile plan for Q={nq}, N={n}, d={d}")
+    dp = -(-d // _MMA_K) * _MMA_K
+    kcs = sorted({min(dp, kc) for kc in _MMA_KC}, reverse=True)
+    bq = next(b for b in MMA_BQ if b >= min(nq, MMA_BQ[-1]))
+    nqt, ng = -(-nq // bq), num_groups(n)
+    gps = min(ng, max(_MMA_MIN_SLICE, bq // 32,
+                      min(_MMA_MAX_SLICE, ng * nqt // _MMA_TARGET_BLOCKS)))
+    # a streamed tile's narrowest chunk fits at any d, so there is always one
+    resident, kc = next((r, k) for limit in (_MMA_SMEM_TWO_BLOCKS, _SMEM_BYTES)
+                        for r in (True, False)
+                        for k in kcs if _groupmin_mma_smem(bq, nq, dp, k, r) <= limit)
+    plan = MmaPlan(nq, n, d, bq, dp, kc, resident, gps, min(dp, _RESCORE_MMA_KC))
+    if plan.rescore_smem > _SMEM_BYTES:
+        raise ValueError(f"d={d} exceeds the bf16 rescore's shared-memory query row")
+    if plan.grid > _GRID_MAX:
+        raise ValueError(f"Q={nq} over N={n} rows exceeds the sweep's grid")
+    return plan
+
+
+def _vec_mma(q: torch.Tensor, x: torch.Tensor) -> int:
+    """bf16 elements per copy into shared memory: 8 (16-byte copies) when the
+    rows of both are 16-byte multiples at 16-byte aligned addresses, 2
+    (4-byte copies) when they are 4-byte ones, else 1."""
+    d = x.shape[1]
+    ptrs = (q.data_ptr(), x.data_ptr())
+    for vec in (8, 2):
+        if d % vec == 0 and all(p % (2 * vec) == 0 for p in ptrs):
+            return vec
+    return 1
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -145,28 +274,47 @@ def groupmin(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> torch.Ten
     count as +inf. ``q`` is already in the store dtype (and halved for ip).
 
     Replaces ``_groupmin_kernel`` (image_search_engine_tpu/ops/
-    topk_pallas.py:252). What bounds it on the card: it streams the whole
-    store once per call, N*d*itemsize bytes, while at serving batch sizes
-    (Q <= 8) its 2*Q*N*d flops are far below the card's f32 rate, so it is
-    a memory-bandwidth kernel. The design streams each row with 16-byte
-    loads, keeps up to 8 queries in shared memory per block so one read of
-    a row serves all of them, and orders blocks so the query tiles of one
-    group run back to back and find the group in L2. No store padding or
-    copy: the kernel masks the ragged edge itself.
+    topk_pallas.py:252), a product on the TPU's matrix unit followed by
+    128-column mins. Two kernels, by store dtype:
+
+    * bf16, on tensor cores (``groupmin_mma_kernel``): bounded by the
+      2*Q*N*d operations at large Q (the bench point) and by the store's
+      N*d*2 bytes at small Q. A block keeps a tile of up to 128 queries in
+      shared memory and streams a slice of groups past it (``cp.async``,
+      double-buffered, k-chunked for wide rows; where a resident tile of
+      wide rows would leave an SM room for one block only, the tile streams
+      with the store instead); warps multiply with
+      ``mma.sync`` m16n8k16 and take each group's min in the epilogue, so
+      no score leaves the chip. Q = 1 takes the same route: its 16x unused
+      products cost little next to reading the store. The tiles come from
+      :func:`mma_plan`.
+    * f32, on CUDA cores (``groupmin_kernel``): at serving batch sizes (Q
+      <= 8) its 2*Q*N*d flops are far below the f32 rate, so it is a
+      memory-bandwidth kernel. It streams each row with 16-byte loads,
+      keeps up to 8 queries in shared memory per block so one read of a
+      row serves all of them, and orders blocks so the query tiles of one
+      group run back to back and find the group in L2.
+
+    Neither pads or copies the store: the kernels mask the ragged edge.
     """
     _check_scoring_args(q, x, norms)
     if not _on_cuda(q, x, norms):
         return groupmin_ref(q, x, norms)
     nq, d = q.shape
     n = x.shape[0]
-    qt = _query_tile(nq, d * 4)
     out = torch.empty((nq, num_groups(n)), dtype=torch.float32, device=x.device)
     if nq == 0 or n == 0:
         return out
     with torch.cuda.device(x.device):
-        err = _kernels.library().ise_groupmin(
-            _DTYPE_CODES[x.dtype], q.data_ptr(), norms.data_ptr(), x.data_ptr(),
-            out.data_ptr(), nq, n, d, qt, _vec(x), _stream(x))
+        lib = _kernels.library()
+        if x.dtype == torch.bfloat16:
+            p = mma_plan(nq, n, d)
+            err = lib.ise_groupmin_mma(
+                q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, d, p.bq,
+                p.dp, p.kc, p.gps, int(p.resident), p.smem, _vec_mma(q, x), _stream(x))
+        else:
+            err = lib.ise_groupmin(q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                   nq, n, d, _query_tile(nq, d * 4), _vec(x), _stream(x))
     _kernels.check(err, "groupmin")
     groupmin.launches += 1
     return out
@@ -335,12 +483,20 @@ def rescore(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
 
     Replaces ``_fused_rescore_kernel`` (topk_pallas.py:298, launched at
     :775). What bounds it on the card: the gathered bytes, Q*t*128*d*
-    itemsize, read from scattered 128-row blocks; at Q = 1 that is a few
-    dozen blocks, so the design splits each group over 4 blocks (32 rows,
-    4 per warp) to put more SMs on the gather, reads each block in place
-    from the store (no (Q, t*128, d) gather buffer), and scores with the
-    same per-row routine as phase 1, so a group's phase-1 min is bit for
-    bit the min of its phase-2 scores.
+    itemsize, read from scattered 128-row blocks in place from the store
+    (no (Q, t*128, d) gather buffer). Each store dtype is scored by the
+    routine of its phase 1, so a group's phase-1 min is bit for bit the min
+    of its phase-2 scores:
+
+    * bf16 (``rescore_mma_kernel``): :func:`groupmin`'s tensor-core
+      routine, a block per (query, group) pair, with the query in A row
+      (query % 16) and each of the group's rows in the lane and register
+      phase 1 gives it; each of the block's four warps streams 32 of the
+      rows in k-chunks (``cp.async``, two stages per warp), so a pair keeps
+      four chunks in flight.
+    * f32 (``rescore_kernel``): each group split over 4 blocks (32 rows, 4
+      per warp) to put more SMs on the gather at Q = 1, each row scored by
+      ``row_dot`` as in phase 1.
     """
     _check_scoring_args(q, x, norms)
     _check_cand(cand, q.shape[0])
@@ -348,15 +504,23 @@ def rescore(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
         return rescore_ref(q, x, norms, cand)
     nq, d = q.shape
     t = cand.shape[1]
-    if d * 4 > _SMEM_BYTES:
+    bf16 = x.dtype == torch.bfloat16
+    if not bf16 and d * 4 > _SMEM_BYTES:
         raise ValueError(f"d={d} exceeds the kernel's shared-memory query row")
     out = torch.empty((nq, t * GROUP), dtype=torch.float32, device=x.device)
     if nq == 0 or t == 0:
         return out
     with torch.cuda.device(x.device):
-        err = _kernels.library().ise_rescore(
-            _DTYPE_CODES[x.dtype], q.data_ptr(), norms.data_ptr(), x.data_ptr(),
-            cand.data_ptr(), out.data_ptr(), nq, x.shape[0], d, t, _vec(x), _stream(x))
+        lib = _kernels.library()
+        if bf16:
+            p = mma_plan(nq, x.shape[0], d)
+            err = lib.ise_rescore_mma(
+                q.data_ptr(), norms.data_ptr(), x.data_ptr(), cand.data_ptr(), out.data_ptr(), nq,
+                x.shape[0], d, t, p.dp, p.rescore_kc, p.rescore_smem, _vec_mma(q, x),
+                _stream(x))
+        else:
+            err = lib.ise_rescore(q.data_ptr(), norms.data_ptr(), x.data_ptr(), cand.data_ptr(),
+                                  out.data_ptr(), nq, x.shape[0], d, t, _vec(x), _stream(x))
     _kernels.check(err, "rescore")
     rescore.launches += 1
     return out

@@ -8,9 +8,12 @@ stable candidate sort, id rebuild and certificate as the two-phase search.
 f32 and bf16 stores, l2, ip and cosine, k <= 128, no escalation: with
 ``with_certificate`` the caller sees which queries are proved exact.
 
-On the card it equals ``topk_twophase(..., t_margin=t_margin)`` bit for bit
-(the same row routine, the same work items, the same select order); on the
-CPU both run the same plain versions. The JAX package counts t = min(k +
+On the card, over an f32 store, it equals ``topk_twophase(..., t_margin=
+t_margin)`` bit for bit (the same row routine, the same work items, the
+same select order). Over a bf16 store it keeps the CUDA-core row routine
+(``row_dot``) while ``topk_twophase`` scores bf16 on tensor cores, so the
+two agree within the f32 summation-order tolerance, with ids equal but at
+near-ties. On the CPU both run the same plain versions. The JAX package counts t = min(k +
 t_margin, ngroups) over a store padded to its tile, so the two packages
 agree whenever k + t_margin <= ceil(N / 128), the real group count the port
 uses; below that the port rescores every real group.
@@ -60,9 +63,11 @@ def merged_candidates(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
     candidate rows. The design is one cooperative launch sized to the card
     (every block resident), three grid-stride stages over the three
     kernels' work items, separated by grid-wide barriers; the stages call
-    the group-min, select and rescore kernels' own routines, so the result
-    is theirs bit for bit. It raises, and never falls back to three
-    launches, if the card refuses the launch.
+    the f32 group-min, select and rescore kernels' own routines, so the
+    result is theirs bit for bit over f32 (over bf16 the two-phase search
+    runs on tensor cores, and the two agree within tolerance). It raises,
+    and never falls back to three launches, if the card refuses the
+    launch.
     """
     _check_scoring_args(q, x, norms)
     nq, d = q.shape
