@@ -10,8 +10,9 @@ Phases (each raises on failure; the script then exits non-zero):
   1. each kernel of the two-phase search against its plain PyTorch
      version on the same tensors on the card, through FlatIndex.search
      and the three kernel wrappers directly, with CUDA-event timings: f32
-     stores on CUDA cores, bf16 stores on tensor cores (also at 1M x 2048,
-     Q = 1 and 64, beside the bf16 product alone and the row_dot sweep),
+     stores on CUDA cores (at 1M x 2048, Q = 1 and 64, beside cuBLAS's f32
+     product alone), bf16 stores on tensor cores (also at 1M x 2048, Q = 1
+     and 64, beside the bf16 product alone and the row_dot sweep),
      and an edge sweep of the bf16 kernels' tiles; every group min equal
      to the min of its rescored rows bit for bit;
   2. the flat main path through the user's entry points: 4,096 PNGs
@@ -24,13 +25,17 @@ Phases (each raises on failure; the script then exits non-zero):
      versions, the probed search against ADC and exact search; then the
      IVF-PQ path through the entry points (the same PNGs, indexer CLI with
      ``--index-type ivfpq --pq-rerank 64``, HTTP server) with the launch
-     counts of the build and of serving;
+     counts of the build and of serving; the assignment (3xTF32 on tensor
+     cores) beside cuBLAS's f32 product alone and both bounds;
   4. the int8 store and chi2: quantization on the card bit-identical to the
-     numpy formula, both int8 kernels equal to their plain versions bit for
-     bit at Q = 1 x 1M x 2048 and three other shapes plus an edge sweep,
-     with timings (and ``torch._int_mm``'s product alone as a yardstick);
-     then the same PNGs through ``--store-dtype int8`` and through
-     ``--index-type chi2``, each served over HTTP with its launch counts;
+     numpy formula, the int8 kernels (phase 1 on CUDA cores up to 4 queries,
+     on tensor cores beyond) equal to their plain versions bit for bit at Q
+     = 1 x 1M x 2048 and three other shapes plus a 118-shape edge sweep,
+     with timings (both phase-1 kernels at Q = 1, 4, 8, 16; ``torch._int_mm``'s
+     product alone as a yardstick); then the same PNGs through
+     ``--store-dtype int8`` and through ``--index-type chi2``, each served
+     over HTTP with its launch counts; after phase 7, phase 1 at bench.py's
+     point quantized to int8 (Q = 2048);
   5. the last two package kernels through their entry points:
      ``topk_running`` (running top-k accumulators) at Q = 1 and 8 over 1M x
      2048 f32 and Q = 1 over bf16, ids equal to its plain version's, and
@@ -72,6 +77,7 @@ exits non-zero before printing any of them.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import json
 import math
 import re
@@ -130,9 +136,10 @@ REPLACES = {
 }
 EPS32 = float(np.finfo(np.float32).eps)
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
-# the CUDA cores, bf16 and int8 on the tensor cores
+# the CUDA cores, tf32, bf16 and int8 on the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 # phase 3: the repo's 1M IVF operating point at the ResNet-50 width, over
@@ -324,13 +331,14 @@ def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scal
                       "plain_ms": median_ms(ref, flush),
                       "library_ms": None if lib is None else median_ms(lib, flush),
                       "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
-    extra = ""
-    if isz == 2:  # the tensor-core sweep's yardsticks: the product alone, the row_dot sweep
-        res["groupmin"]["product_alone_ms"] = median_ms(lambda: torch.matmul(qf, store.T), flush)
+    # the sweep's yardsticks: the product alone (f32: cuBLAS with TF32 off, as
+    # phase 0 set it), and for bf16 the row_dot sweep it replaced
+    res["groupmin"]["product_alone_ms"] = median_ms(lambda: torch.matmul(qf, store.T), flush)
+    extra = f"; {dtype} product alone {res['groupmin']['product_alone_ms']:.4f} ms"
+    if isz == 2:
         res["groupmin"]["row_dot_sweep_ms"] = median_ms(
             lambda: GV.groupmin_width(qf, store, knorms, T.GROUP), flush, reps=3)
-        extra = (f"; bf16 product alone {res['groupmin']['product_alone_ms']:.4f} ms, row_dot "
-                 f"sweep {res['groupmin']['row_dot_sweep_ms']:.4f} ms")
+        extra += f", row_dot sweep {res['groupmin']['row_dot_sweep_ms']:.4f} ms"
     smetric = "l2" if metric == "l2" else "ip"
     search_ms = median_ms(lambda: T.topk_twophase(qs, store, K, smetric, x_norms=norms), flush)
     scan_ms = median_ms(lambda: local_topk_with_norms(qs, store, norms, K, smetric), flush)
@@ -408,8 +416,9 @@ def phase1() -> dict:
     log("phase 1: kernels against their plain versions")
     shapes = {}
     x = torch.randn(1_000_000, 2048, device="cuda", generator=gen)
-    shapes["Q1_N1M_d2048_f32_l2"] = check_shape("Q=1 N=1,000,000 d=2048 f32 l2", x, 1,
-                                                "l2", "f32", gen, flush)
+    for nq in (1, 64):  # the f32 sweep on CUDA cores beside cuBLAS's f32 product alone
+        shapes[f"Q{nq}_N1M_d2048_f32_l2"] = check_shape(f"Q={nq} N=1,000,000 d=2048 f32 l2", x,
+                                                        nq, "l2", "f32", gen, flush)
     for nq in (1, 64):  # the bf16 tensor-core kernels at the corpus scale
         shapes[f"Q{nq}_N1M_d2048_bf16_l2"] = check_shape(
             f"Q={nq} N=1,000,000 d=2048 bf16 l2", x, nq, "l2", "bf16", gen, flush)
@@ -684,15 +693,20 @@ def phase3_scale() -> dict:
     err_b, tol_b, bad_b = check_assign("PQ books", resid, books)
     assign_ms = median_ms(lambda: KM.assign(x, cents), flush, reps=5)
     assign_plain_ms = median_ms(lambda: KM.assign_ref(x, cents), flush, reps=5)
+    product_ms = median_ms(lambda: torch.matmul(x, cents.T), flush, reps=5)  # TF32 off
     books_ms = median_ms(lambda: KM.assign(resid, books), flush)
     books_plain_ms = median_ms(lambda: KM.assign_ref(resid, books), flush)
-    a_bound = bound(SCALE_N * SCALE_D * 4 + NLIST * (SCALE_D * 4 + 4) + SCALE_N * 8,
-                    2 * SCALE_N * NLIST * SCALE_D, F32_FLOPS)
+    # the kernel does its 2 N K d products three times on the tf32 tensor
+    # cores; the f32 CUDA cores would need 2 N K d once
+    a_bytes = SCALE_N * SCALE_D * 4 + NLIST * (SCALE_D * 4 + 4) + SCALE_N * 8
+    a_bound = bound(a_bytes, 3 * 2 * SCALE_N * NLIST * SCALE_D, TF32_FLOPS)
+    a_bound_f32 = bound(a_bytes, 2 * SCALE_N * NLIST * SCALE_D, F32_FLOPS)
     log(f"  assign N={SCALE_N:,} K={NLIST} d={SCALE_D}: err {err_c:.3g} (tol {tol_c:.3g}), "
         f"{bad_c} codes differ at near-ties; {assign_ms:.3f} ms (plain {assign_plain_ms:.3f} "
-        f"ms, bound {a_bound[0]:.3f} ms by {a_bound[1]}); PQ books B={PQ_M} N=65,536 K=256 "
-        f"dsub={SCALE_D // PQ_M}: err {err_b:.3g} (tol {tol_b:.3g}), {bad_b} near-tie codes, "
-        f"{books_ms:.3f} ms (plain {books_plain_ms:.3f} ms)")
+        f"ms, cuBLAS f32 product alone {product_ms:.3f} ms; 3xTF32 bound {a_bound[0]:.3f} ms "
+        f"by {a_bound[1]}, f32 CUDA-core bound {a_bound_f32[0]:.3f} ms); PQ books B={PQ_M} "
+        f"N=65,536 K=256 dsub={SCALE_D // PQ_M}: err {err_b:.3g} (tol {tol_b:.3g}), {bad_b} "
+        f"near-tie codes, {books_ms:.3f} ms (plain {books_plain_ms:.3f} ms)")
     del cells, resid
 
     # the probed scan on the serving table (bf16 reconstruction, kept
@@ -778,7 +792,9 @@ def phase3_scale() -> dict:
     torch.cuda.empty_cache()
     return {"build_s": build_s, "scan": scan, "nprobe": nprobe, "cap": cap,
             "assign": {"max_abs_err": max(err_c, err_b), "ms": assign_ms,
-                       "plain_ms": assign_plain_ms, "bound": a_bound}}
+                       "plain_ms": assign_plain_ms, "bound": a_bound,
+                       "f32_cuda_core_bound_ms": a_bound_f32[0], "product_alone_ms": product_ms,
+                       "books_ms": books_ms, "books_plain_ms": books_plain_ms}}
 
 
 def phase3_entry(workdir: Path, paths: list) -> dict:
@@ -903,14 +919,33 @@ def check_kernels_q8(name, qi, qscale, store, scales, knorms):
     return errs, mins, ids, t
 
 
+@contextlib.contextmanager
+def q8_kernel(route: str):
+    """groupmin_q8 on one of its two kernels whatever the batch size: "dp4a"
+    (the CUDA-core sweep) or "mma" (the tensor-core sweep); the wrapper picks
+    by ``DP4A_MAX_Q``, which this sets for the duration."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    keep = T.DP4A_MAX_Q
+    T.DP4A_MAX_Q = sys.maxsize if route == "dp4a" else 0
+    try:
+        yield
+    finally:
+        T.DP4A_MAX_Q = keep
+
+
 def check_shape_q8(name, x, nq, metric, gen, flush, *, pad_rows=None, q_scale=1.0,
-                   int_mm_rows=0):
+                   int_mm_rows=0, routes=()):
     """One timed int8 shape: FlatIndex(dtype="int8") over x, the search and
     both kernels checked, then each kernel and its plain version timed.
     ``int_mm_rows`` > 0 also times ``torch._int_mm``'s int8 product of the
     queries with that many store rows (the product alone, a yardstick).
+    ``routes``: batch sizes at which both groupmin_q8 kernels (CUDA cores,
+    tensor cores) run on new queries, each bit for bit equal to the plain
+    version, and are timed (where the wrapper's DP4A_MAX_Q should lie).
     Returns {kernel: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
-    bound_by}} and, with ``int_mm_rows``, "int_mm_ms"."""
+    bound_by}} and, with ``int_mm_rows``, "int_mm_ms", with ``routes``,
+    "routes" {Q: {route: ms}}."""
     import torch
 
     from image_search_engine_tpu_torch.index.flat import FlatIndex
@@ -950,48 +985,138 @@ def check_shape_q8(name, x, nq, metric, gen, flush, *, pad_rows=None, q_scale=1.
         res[kname] = {"max_abs_err": errs[kname], "ms": median_ms(fn, flush),
                       "plain_ms": median_ms(ref, flush, reps=5), "library_ms": None,
                       "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
+    extra = ""
+    if routes:
+        res["routes"] = {}
+        for rq in routes:
+            ri, rs = T.quantize_int8(torch.randn(rq, d, device="cuda", generator=gen))
+            want = T.groupmin_q8_ref(ri, rs, store, scales, knorms)
+            res["routes"][rq] = {}
+            for route in ("dp4a", "mma"):
+                with q8_kernel(route):
+                    got = T.groupmin_q8(ri, rs, store, scales, knorms)
+                    exact_err(f"{name} Q={rq}", f"groupmin_q8 ({route})", got, want)
+                    res["routes"][rq][route] = median_ms(
+                        lambda: T.groupmin_q8(ri, rs, store, scales, knorms), flush)
+        extra += "; groupmin_q8 by kernel (CUDA cores / tensor cores): " + ", ".join(
+            f"Q={rq} {v['dp4a']:.4f} / {v['mma']:.4f} ms" for rq, v in res["routes"].items())
     smetric = "l2" if metric == "l2" else "ip"
     search_ms = median_ms(lambda: T.topk_twophase(qs, store, K, smetric, x_norms=norms,
                                                   x_scale=scales), flush)
     scan_ms = median_ms(lambda: local_topk_with_norms(qs, store, norms, K, smetric,
                                                       scales=scales), flush, reps=5)
-    extra = ""
     if int_mm_rows:
         try:
             res["int_mm_ms"] = median_ms(lambda: torch._int_mm(qi, store[:int_mm_rows].t()), flush)
-            extra = (f"; torch._int_mm product alone (Q={nq} x {int_mm_rows:,} rows) "
-                     f"{res['int_mm_ms']:.4f} ms")
+            extra += (f"; torch._int_mm product alone (Q={nq} x {int_mm_rows:,} rows) "
+                      f"{res['int_mm_ms']:.4f} ms")
         except RuntimeError as e:  # a yardstick only: record why it is missing
             res["int_mm_ms"] = None
-            extra = f"; torch._int_mm refused: {e}"
+            extra += f"; torch._int_mm refused: {e}"
     log(f"  {name}: " + "; ".join(
         f"{k} err {v['max_abs_err']:.3g} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, bound "
-        f"{v['bound_ms']:.4f} ms by {v['bound_by']})" for k, v in res.items() if k != "int_mm_ms")
+        f"{v['bound_ms']:.4f} ms by {v['bound_by']})" for k, v in res.items()
+        if k in ("groupmin_q8", "rescore_q8"))
         + f"; two-phase search {search_ms:.4f} ms, plain full scan {scan_ms:.4f} ms" + extra)
     return res
 
 
 def edge_sweep_q8(gen) -> None:
-    """Phase 1's edge shapes over an int8 store, untimed: 1, 2, 4 and
-    8-query tiles (full and partial), rows that are not 16-byte multiples
-    (d = 130, 2049: the scalar loop), a one-group store, ragged last groups;
-    l2, ip and cosine. Every kernel output equals its plain version."""
+    """Phase 1's edge shapes over an int8 store, untimed. Through FlatIndex
+    (the search, its certificate and both kernels): partial query tiles (Q
+    in {1, 2, 3, 9, 15, 16, 17, 33, 129}), rows that are not 16-byte
+    multiples (d = 130, 2049: the narrower copies), a one-group store,
+    ragged last groups; l2, ip and cosine. Then the tensor-core sweep's
+    tile edges on quantized rows directly: N in {1, 127, 128, 129, 5000} x
+    Q in {1, 15, 16, 17, 33, 129} x d in {16, 130, 2049}, l2 and ip in turn
+    (ip: the query scale halved, zero norms, 10% of the rows poisoned with
+    PAD_NORM), and one Q = 4096 batch over 20,000 x 128 (ip; the search's
+    tolerance comparison with the dequantized full scan flags an id whose
+    distance sits within rounding of the k-th distance plus the tolerance
+    once among so many queries, with the two id sets equal, so this batch
+    is held to the kernels' plain versions bit for bit instead). Every
+    kernel output equals its plain version bit for bit, every group min
+    the min of its rescored rows."""
     import torch
 
     from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.parallel.topk import PAD_NORM, ip_penalty
+
+    def through_index(metric, n, d, nq):
+        x = torch.randn(n, d, device="cuda", generator=gen)
+        q = torch.randn(nq, d, device="cuda", generator=gen)
+        index = FlatIndex(metric, dtype="int8", device="cuda").add(x)
+        name = f"edge N={n} d={d} Q={nq} int8 {metric}"
+        _, qi, qscale, knorms = check_search_q8(name, index, q)
+        check_kernels_q8(name, qi, qscale, index.store.vectors, index.store.scales, knorms)
 
     cases = 0
     for metric in ("l2", "ip", "cosine"):
         for n, d, nq in ((100, 16, 1), (1000, 130, 3), (3000, 256, 2), (5003, 2049, 9),
-                         (20_000, 64, 17)):
-            name = f"edge N={n} d={d} Q={nq} int8 {metric}"
-            x = torch.randn(n, d, device="cuda", generator=gen)
-            q = torch.randn(nq, d, device="cuda", generator=gen)
-            index = FlatIndex(metric, dtype="int8", device="cuda").add(x)
-            _, qi, qscale, knorms = check_search_q8(name, index, q)
-            check_kernels_q8(name, qi, qscale, index.store.vectors, index.store.scales, knorms)
+                         (20_000, 64, 17), (5000, 130, 15), (129, 2048, 16), (128, 2049, 33),
+                         (4000, 256, 129)):
+            through_index(metric, n, d, nq)
             cases += 1
-    log(f"  int8 edge sweep: {cases} shapes ok, every kernel output equal to its plain version")
+    tiles = [(n, nq, d) for n in (1, 127, 128, 129, 5000) for nq in (1, 15, 16, 17, 33, 129)
+             for d in (16, 130, 2049)]
+    for n, nq, d in tiles + [(20_000, 4096, 128)]:
+        codes, scales = T.quantize_int8(torch.randn(n, d, device="cuda", generator=gen))
+        qi, qscale = T.quantize_int8(torch.randn(nq, d, device="cuda", generator=gen))
+        deq = codes.float() * scales[:, None]
+        norms = (deq * deq).sum(1)
+        if cases % 2:
+            norms[torch.rand(n, device="cuda", generator=gen) < 0.1] = PAD_NORM
+            qscale, knorms = qscale * 0.5, ip_penalty(norms)
+        else:
+            knorms = norms
+        check_kernels_q8(f"int8 tile edge N={n} Q={nq} d={d}", qi, qscale, codes, scales, knorms)
+        cases += 1
+    log(f"  int8 edge sweep: {cases} shapes ok (l2, ip with PAD_NORM rows, cosine), every "
+        f"kernel output equal to its plain version, group mins = rescored rows' mins bit for bit")
+
+
+def bench_point_q8(store, flush) -> dict:
+    """bench.py's store (seed 0, 1M x 128) quantized by the int8 FlatIndex
+    (quantize_rows_int8) and Q = 2048 of its queries, quantized, l2: a
+    compute-bound point for groupmin_q8 (2 Q N d operations against 128 MB
+    of codes). The kernel against its plain version bit for bit (512
+    queries at a time), then timed beside its plain version, the CUDA-core
+    sweep it replaced at such batches and torch._int_mm's int8 product
+    alone over the same rows (a yardstick)."""
+    import torch
+
+    from image_search_engine_tpu_torch.benchmarks import common
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    st = FlatIndex("l2", dtype="int8", device="cuda").add(store.x32).store
+    codes, scales, norms = st.vectors, st.scales, st.norms
+    qi, qscale = T.quantize_int8(common.queries(store, 1, PROTO_Q)[0])
+    name = f"int8 bench point Q={PROTO_Q} N={BENCH_N:,} d={BENCH_D}"
+    mins = T.groupmin_q8(qi, qscale, codes, scales, norms)
+    for s in range(0, PROTO_Q, 512):
+        sl = slice(s, s + 512)
+        exact_err(name, "groupmin_q8", mins[sl],
+                  T.groupmin_q8_ref(qi[sl], qscale[sl], codes, scales, norms))
+    del mins
+    nq, d = qi.shape
+    n, ng = codes.shape[0], T.num_groups(codes.shape[0])
+    b = bound(n * (d + 8) + nq * (d + 4) + nq * ng * 4, 2 * nq * n * d, INT8_OPS)
+    res = {"max_abs_err": 0.0, "bound_ms": b[0], "bound_by": b[1],
+           "ms": median_ms(lambda: T.groupmin_q8(qi, qscale, codes, scales, norms), flush,
+                           reps=5),
+           "plain_ms": median_ms(lambda: T.groupmin_q8_ref(qi, qscale, codes, scales, norms),
+                                 flush, reps=2),
+           "int_mm_ms": median_ms(lambda: torch._int_mm(qi, codes.t()), flush, reps=5),
+           "shape": f"Q={nq} N={n:,} d={d} int8 l2 (bench.py's store)"}
+    with q8_kernel("dp4a"):
+        res["dp4a_ms"] = median_ms(lambda: T.groupmin_q8(qi, qscale, codes, scales, norms),
+                                   flush, reps=3)
+    log(f"  {name}: groupmin_q8 err 0, {res['ms']:.4f} ms (plain {res['plain_ms']:.4f} ms, "
+        f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}; the CUDA-core sweep "
+        f"{res['dp4a_ms']:.4f} ms); torch._int_mm product alone {res['int_mm_ms']:.4f} ms")
+    return res
 
 
 def phase4_kernels() -> dict:
@@ -1004,7 +1129,7 @@ def phase4_kernels() -> dict:
     shapes = {}
     x = torch.randn(1_000_000, 2048, device="cuda", generator=gen)
     shapes["Q1_N1M_d2048_int8_l2"] = check_shape_q8("Q=1 N=1,000,000 d=2048 int8 l2", x, 1,
-                                                    "l2", gen, flush)
+                                                    "l2", gen, flush, routes=(1, 4, 8, 16))
     del x
     torch.cuda.empty_cache()
     x = torch.randn(200_003, 2048, device="cuda", generator=gen)
@@ -2046,6 +2171,8 @@ def main() -> int:
     store = bench_store()
     sixth = phase6(store)
     seventh = phase7(store)
+    log("phase 4 (continued): groupmin_q8 at bench.py's point")
+    bench_q8 = bench_point_q8(store, torch.empty(32 << 20, dtype=torch.float32, device="cuda"))
     del store
 
     head = shapes["Q1_N1M_d2048_f32_l2"]
@@ -2058,6 +2185,11 @@ def main() -> int:
         "library_ms": head[name]["library_ms"],
         "shape": "Q=1 N=1,000,000 d=2048 f32 l2 k=20",
     } for name in ("groupmin", "select_topt", "rescore")]
+    # the f32 sweep beside cuBLAS's f32 product alone, at Q = 1 and 64
+    q64 = shapes["Q64_N1M_d2048_f32_l2"]["groupmin"]
+    kernels[0]["product_alone_ms"] = head["groupmin"]["product_alone_ms"]
+    kernels[0]["Q64"] = {k: q64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "product_alone_ms")}
     # the bf16 store's kernels (tensor cores): bench.py's point, then 1M x 2048
     corpus = {f"N1M_d2048_Q{nq}": shapes[f"Q{nq}_N1M_d2048_bf16_l2"] for nq in (1, 64)}
     for entry in kernels:
@@ -2086,13 +2218,20 @@ def main() -> int:
         "replaces": REPLACES["kmeans_assign"], "launches": pq_served["assign_launches"],
         "max_abs_err": asg["max_abs_err"], "ms": asg["ms"], "plain_ms": asg["plain_ms"],
         "bound_ms": asg["bound"][0], "bound_by": asg["bound"][1], "library_ms": None,
-        "shape": f"N={SCALE_N:,} K={NLIST} d={SCALE_D} f32 (coarse quantizer)",
+        "shape": f"N={SCALE_N:,} K={NLIST} d={SCALE_D} f32 (coarse quantizer), 3xTF32",
+        "f32_cuda_core_bound_ms": asg["f32_cuda_core_bound_ms"],
+        "product_alone_ms": asg["product_alone_ms"], "ivfpq_build_s": scale["build_s"],
+        "pq_books": {"ms": asg["books_ms"], "plain_ms": asg["books_plain_ms"],
+                     "shape": f"B={PQ_M} N=65,536 K=256 dsub={SCALE_D // PQ_M}"},
     })
     head, q64 = shapes_q8["Q1_N1M_d2048_int8_l2"], shapes_q8["Q64_N200003_d2048_int8_ip"]
     for name in ("groupmin_q8", "rescore_q8"):
         at_q64 = {k: q64[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-        if name == "groupmin_q8":  # a tensor-core phase 1's yardstick: the int8 product alone
+        extra = {}
+        if name == "groupmin_q8":  # the int8 product alone; the compute-bound bench point
             at_q64["int_mm_product_ms"] = q64["int_mm_ms"]
+            extra = {"bench_point": bench_q8,
+                     "kernel_ms_by_batch": {f"Q={q}": r for q, r in head["routes"].items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": q8_served["launches"][name],
@@ -2100,7 +2239,7 @@ def main() -> int:
             "ms": head[name]["ms"], "plain_ms": head[name]["plain_ms"],
             "bound_ms": head[name]["bound_ms"], "bound_by": head[name]["bound_by"],
             "library_ms": None, "shape": "Q=1 N=1,000,000 d=2048 int8 l2 k=20",
-            "q64": at_q64,
+            "q64": at_q64, **extra,
         })
     for name, cases, shape in (
             ("topk_running", last["running"], "Q=1 N=1,000,000 d=2048 f32 l2 k=20"),

@@ -8,155 +8,377 @@
 //                         Replaces image_search_engine_tpu/ops/
 //                         kmeans_pallas.py _assign_kernel.
 //
-// Bound: 2*B*N*K*d flops, accumulated in IEEE f32 fmaf on the CUDA cores (no
-// TF32), against N*d*4 bytes of points: at the coarse quantizer's shape
-// (N = 1M, K = 1024, d = 2048) the flops bound it. A block owns 64 rows of
-// one problem and walks all K centroids in 64-wide tiles; each step stages a
-// 64 x 16 tile of points and one of centroids in shared memory (transposed,
-// so a thread reads 4 rows and 4 centroids with two 16-byte loads) and each
-// of the 256 threads accumulates a 4 x 4 register tile of dot products.
-// After each centroid tile the thread folds its scores into a running
-// (min, argmin) per row in registers; a 16-lane shuffle reduction finishes
-// each row. The (N, K) distances never reach device memory, which is what
-// the TPU kernel keeps out of HBM. The batch dimension (grid y) covers the
-// product quantizer's m codebooks in one launch.
+// Bound: 2*B*N*K*d operations against N*d*4 bytes of points, so at the
+// coarse quantizer's shape (N = 1M, K = 1024, d = 2048) the products bound
+// it: 62.6 ms at the CUDA cores' f32 rate, where cuBLAS's f32 product alone
+// takes ~85 ms. The design moves them onto the tensor cores with a 3xTF32
+// split, which keeps f32 accuracy: each f32 operand a is split as a = hi +
+// lo, hi = tf32(a), lo = tf32(a - hi), and each 8-deep k-step accumulates
+// hi_a.lo_b, then lo_a.hi_b, then hi_a.hi_b into f32. hi + lo is a within
+// 2^-22 |a|, and the dropped lo_a.lo_b term is below 2^-22 |a b|, so each
+// product keeps about f32's precision, while the three passes cost 3x the
+// operations at 7.4x the f32 rate (a 25.4 ms bound at that shape); a single
+// tf32 pass would keep 11 bits. The products are Hopper's warpgroup MMA
+// (wgmma m64n128k8 tf32): the centroids come split by the wrapper (hi and
+// lo, ops/kmeans.tf32_split) and are read from shared memory; the points
+// are split in registers (tf32_split, mma.cuh), each exactly once, since
+// every point row belongs to one warp.
+//
+// A block owns BM = 256 points of one problem and walks all K centroids in
+// BN = 128-wide tiles, BK = 32 columns at a time. The points are re-read
+// for every centroid tile (8 times at K = 1024) and the centroid halves once
+// per block, 129 GB at the coarse shape, so the copies pace the products
+// unless they run apart: one producer warpgroup's thread streams each stage
+// (the points' and both centroid halves' tiles) into a three-stage ring
+// with the Tensor Memory Accelerator, 128-byte swizzled, as the wgmma reads
+// them, zero-filling rows past n or k and columns past d (zeros add exactly
+// 0); mbarriers hand the stages to the two consumer warpgroups and back, so
+// no block-wide barrier holds the tensor cores. A consumer warpgroup owns
+// 128 of the points as two 64-row wgmma tiles: per stage it loads its
+// fragments with ldmatrix, splits them, issues 24 wgmmas as one group and
+// releases the stage when they are done. After a centroid tile's last
+// stage each thread folds its scores, fmaf(-2, dot, |c|^2), into a running
+// (min, argmin) per point in registers, in ascending centroid order with
+// ties to the lowest index; at the end the four lanes of a quad, which hold
+// one point's columns, reduce the pairs the same way. The (N, K) distances
+// never reach device memory, which is what the TPU kernel keeps out of HBM.
+// The batch dimension (grid y) covers the product quantizer's m codebooks in
+// one launch.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int BM = 64;   // rows per block
-constexpr int BN = 64;   // centroids per tile
-constexpr int BK = 16;   // depth per shared-memory step
-constexpr int TM = 4;    // rows per thread
-constexpr int TN = 4;    // centroids per thread
-constexpr int PAD = 4;   // keeps 16-byte alignment, halves store conflicts
-constexpr int ASSIGN_THREADS = (BM / TM) * (BN / TN);  // 256
+constexpr int BM = 256;   // points per block: 128 per consumer warpgroup
+constexpr int BN = 128;   // centroids per tile: the wgmma's N
+constexpr int BK = 32;    // f32 columns per stage: 128 bytes, one swizzle span
+constexpr int KSTEPS = BK / 8;
+constexpr int MT = 2;     // 64-row tiles per consumer warpgroup
+constexpr int STAGES = 3;
+constexpr int CONSUMER_THREADS = 256;  // two warpgroups
+constexpr int ASSIGN_THREADS = CONSUMER_THREADS + 128;  // and the producer warpgroup
+constexpr int A_BYTES = BM * BK * 4;
+constexpr int B_BYTES = BN * BK * 4;  // one centroid half
+constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+// the ring (1024-byte aligned, the swizzle's period), then the stages' full
+// and empty mbarriers
+constexpr size_t ASSIGN_SMEM = 1024 + (size_t)STAGES * STAGE_BYTES + 2 * STAGES * 8;
 
 __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);
 }
 
-// Stage rows [r0, r0 + 64) x columns [k0, k0 + 16) of a row-major matrix
-// (row stride `stride` elements) transposed into tile[16][64 + PAD]; rows at
-// or past `rows` and columns at or past d are zero. Each thread moves 4
-// consecutive columns of one row.
-template <int VEC>
-__device__ __forceinline__ void stage_tile(const float* __restrict__ src, long long stride,
-                                           long long r0, long long rows, int k0, int d,
-                                           float (*tile)[BM + PAD]) {
-  const int r = threadIdx.x / 4;
-  const int kq = (threadIdx.x % 4) * 4;
-  const long long row = r0 + r;
-  float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (row < rows) {
-    const float* p = src + row * stride + k0 + kq;
-    if (VEC == 4) {
-      if (k0 + kq < d) {  // d % 4 == 0: the whole quad is in range
-        const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + kq + e < d) v[e] = __ldg(p + e);
-    }
+// ---- mbarriers and the Tensor Memory Accelerator ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) tile[kq + e][r] = v[e];
+}
+// the box at (c0, c1, c2) of a 3-D tensor map into shared memory at dst,
+// counted on the barrier's transaction bytes
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(ASSIGN_THREADS)
-    kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                         const float* __restrict__ cn, int* __restrict__ codes,
-                         float* __restrict__ mins, long long n, int k, int d, long long sxb,
-                         long long sxn) {
-  __shared__ __align__(16) float xs[BK][BM + PAD];
-  __shared__ __align__(16) float cs[BK][BN + PAD];
+// ---- the warpgroup MMA ----
+
+// A descriptor of a K-major operand tile in the 128-byte swizzle: rows of
+// 128 bytes, 8-row atoms 1024 bytes apart; the k-step's 32 bytes are
+// selected by the start address.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3ffff) >> 4) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d += a . b for a 64 x 128 x 8 tf32 tile: a from registers (each warp its
+// 16 rows in mma.sync m16n8k8's A fragment), b from shared memory (desc_b).
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of r across the async MMA
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__global__ void __launch_bounds__(ASSIGN_THREADS, 1)
+    kmeans_assign_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap himap,
+                         const __grid_constant__ CUtensorMap lomap, const float* __restrict__ cn,
+                         int* __restrict__ codes, float* __restrict__ mins, long long n, int k,
+                         int d, bool rows_first) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t full = ring + STAGES * STAGE_BYTES;  // STAGES barriers of 8 bytes
+  const uint32_t empty = full + STAGES * 8;
   const int bt = blockIdx.y;
   const long long row0 = (long long)blockIdx.x * BM;
-  const float* xb = x + bt * sxb;
-  const float* cb = c + (long long)bt * k * d;
-  const float* cnb = cn + (long long)bt * k;
-  const int tx = threadIdx.x % (BN / TN);  // centroid quad
-  const int ty = threadIdx.x / (BN / TN);  // row quad
-
-  float best[TM];
-  int bidx[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    best[i] = INFINITY;
-    bidx[i] = INT_MAX;
-  }
-
-  for (int c0 = 0; c0 < k; c0 += BN) {
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      stage_tile<VEC>(xb, sxn, row0, n, k0, d, xs);
-      stage_tile<VEC>(cb, d, c0, k, k0, d, cs);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * TM]);
-        const float4 b = *reinterpret_cast<const float4*>(&cs[kk][tx * TN]);
-        const float av[TM] = {a.x, a.y, a.z, a.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+  const int nkc = max(1, (d + BK - 1) / BK);  // d = 0: one zero chunk, scores |c|^2
+  const int ntiles = nkc * ((k + BN - 1) / BN);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);                        // the producer's arrival
+      mbar_init(empty + 8 * s, CONSUMER_THREADS / 32);  // one arrival per consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the last block-wide barrier
 
-    // fold this tile's scores into the running (min, argmin), ascending j
+  if (threadIdx.x >= CONSUMER_THREADS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMER_THREADS) {
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, (i / STAGES - 1) & 1);
+        const uint32_t st = ring + s * STAGE_BYTES;
+        const int c0 = (i / nkc) * BN;
+        const int k0 = (i % nkc) * BK;
+        mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+        if (rows_first)
+          tma_load_3d(st, &xmap, full + 8 * s, k0, (int)row0, bt);
+        else
+          tma_load_3d(st, &xmap, full + 8 * s, k0, bt, (int)row0);
+        tma_load_3d(st + A_BYTES, &himap, full + 8 * s, k0, c0, bt);
+        tma_load_3d(st + A_BYTES + B_BYTES, &lomap, full + 8 * s, k0, c0, bt);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const float* cnb = cn + (long long)bt * k;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rows = (int)min((long long)BM, n - row0);
+  // warpgroup g = w / 4 multiplies point rows 128 g + 64 t .. + 63 (tile t);
+  // warp w holds the accumulators of its 16 rows wrow + 64 t .. + 15. In the
+  // swizzle, 16-byte chunk c of row r sits at r * 128 + ((c ^ (r % 8)) * 16),
+  // and r % 8 = lane % 8 for this lane's ldmatrix row.
+  const int wrow = (warp / 4) * 128 + (warp % 4) * 16;
+  const uint32_t arow = (uint32_t)(wrow + (lane & 15)) * 128;
+  const int achunk = lane >> 4;
+
+  // running (min, argmin) of the points in rows wrow + 64 t + lane / 4 + 8 h
+  // over this thread's columns
+  float best[MT][2];
+  int bidx[MT][2];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = c0 + tx * TN + j;
-      if (col < k) {
-        const float cnv = __ldg(cnb + col);
+  for (int t = 0; t < MT; ++t)
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float s = fmaf(-2.f, acc[i][j], cnv);
-          if (lex_less(s, col, best[i], bidx[i])) {
-            best[i] = s;
-            bidx[i] = col;
+    for (int h = 0; h < 2; ++h) {
+      best[t][h] = INFINITY;
+      bidx[t][h] = INT_MAX;
+    }
+  float acc[MT][64];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[t][e] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    const uint32_t st = ring + s * STAGE_BYTES;
+    // the points' fragments split and the descriptors made before the group,
+    // so nothing but wgmmas runs between its fence and its commit
+    uint32_t ah[MT][KSTEPS][4], al[MT][KSTEPS][4];
+    uint64_t dh[KSTEPS], dl[KSTEPS];
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t chunk = (uint32_t)(((2 * kk + achunk) ^ (lane & 7)) << 4);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        uint32_t r[4];
+        ldmatrix_x4(st + arow + t * 64 * 128 + chunk, r);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32_split(r[e], ah[t][kk][e], al[t][kk][e]);
+      }
+      dh[kk] = wgmma_desc_sw128(st + A_BYTES + kk * MMA_KBYTES);
+      dl[kk] = wgmma_desc_sw128(st + A_BYTES + B_BYTES + kk * MMA_KBYTES);
+    }
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) fence_operand(acc[t][e]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {  // the small terms of each k-step first
+        wgmma_tf32_m64n128k8(acc[t], ah[t][kk], dl[kk]);
+        wgmma_tf32_m64n128k8(acc[t], al[t][kk], dh[kk]);
+        wgmma_tf32_m64n128k8(acc[t], ah[t][kk], dh[kk]);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) fence_operand(acc[t][e]);
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(ah[t][kk][e]);
+          fence_operand(al[t][kk][e]);
+        }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with the stage
+
+    if (i % nkc == nkc - 1) {  // the centroid tile's last chunk: fold its scores
+      const int c0 = (i / nkc) * BN + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * j + e;
+          if (col < k) {
+            const float cnv = __ldg(cnb + col);
+#pragma unroll
+            for (int t = 0; t < MT; ++t)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float sc = fmaf(-2.f, acc[t][4 * j + 2 * h + e], cnv);
+                if (lex_less(sc, col, best[t][h], bidx[t][h])) {
+                  best[t][h] = sc;
+                  bidx[t][h] = col;
+                }
+              }
           }
         }
-      }
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[t][e] = 0.f;
     }
   }
 
-  // the 16 threads of a row quad are one half-warp: reduce across it
+  // the quad's four lanes hold one point's columns
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float v = best[i];
-    int id = bidx[i];
+  for (int t = 0; t < MT; ++t)
 #pragma unroll
-    for (int off = BN / TN / 2; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, id, off);
-      if (lex_less(ov, oi, v, id)) {
-        v = ov;
-        id = oi;
+    for (int h = 0; h < 2; ++h) {
+      float v = best[t][h];
+      int id = bidx[t][h];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, id, off);
+        if (lex_less(ov, oi, v, id)) {
+          v = ov;
+          id = oi;
+        }
+      }
+      const int r = wrow + 64 * t + 8 * h + (lane >> 2);
+      if ((lane & 3) == 0 && r < rows) {
+        codes[(long long)bt * n + row0 + r] = id == INT_MAX ? 0 : id;
+        mins[(long long)bt * n + row0 + r] = v;
       }
     }
-    const long long row = row0 + ty * TM + i;
-    if (tx == 0 && row < n) {
-      codes[(long long)bt * n + row] = id == INT_MAX ? 0 : id;
-      mins[(long long)bt * n + row] = v;
-    }
-  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, looked up through the runtime (the
+// library links no libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 3-D f32 tensor map of `cols` contiguous columns and two more dimensions
+// (extents e1, e2; strides s1, s2 elements) with a box of 32 columns x b1 x
+// b2, 128-byte swizzled, zero-filling out of bounds.
+bool tensor_map(CUtensorMap* map, const void* base, long long cols, long long e1, long long s1,
+                int b1, long long e2, long long s2, int b2) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)e1, (cuuint64_t)e2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1 * 4, (cuuint64_t)s2 * 4};
+  const cuuint32_t box[3] = {BK, (cuuint32_t)b1, (cuuint32_t)b2};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -164,31 +386,39 @@ __global__ void __launch_bounds__(ASSIGN_THREADS)
 extern "C" {
 
 // x: B problems of n rows, element (b, i, j) at x[b * sxb + i * sxn + j];
-// c: (B, k, d) contiguous; cn: (B, k) centroid squared norms; codes (B, n)
-// int32 and mins (B, n) f32 out. vec: 4 when d, both strides and both base
-// pointers are 16-byte multiples, else 1. Returns the cudaError_t of the
-// launch (0 = success).
-int ise_kmeans_assign(const void* x, const void* c, const void* cn, void* codes, void* mins,
-                      int nb, long long n, int k, int d, long long sxb, long long sxn, int vec,
-                      void* stream) {
+// chi, clo: (B, k, d) contiguous, the centroids' tf32 halves (hi = tf32(c),
+// lo = tf32(c - hi)); cn: (B, k) centroid squared norms; codes (B, n) int32
+// and mins (B, n) f32 out. d, sxn and sxb must be multiples of 4 and every
+// pointer 16-byte aligned (the Tensor Memory Accelerator's rule; the wrapper
+// pads d). Returns the cudaError_t of the launch (0 = success).
+int ise_kmeans_assign(const void* x, const void* chi, const void* clo, const void* cn,
+                      void* codes, void* mins, int nb, long long n, int k, int d, long long sxb,
+                      long long sxn, void* stream) {
   const long long tiles = (n + BM - 1) / BM;
-  if (tiles > 0x7fffffffLL || nb > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tiles, (unsigned)nb);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* cf = static_cast<const float*>(c);
-  const float* cnf = static_cast<const float*>(cn);
-  int* co = static_cast<int*>(codes);
-  float* mo = static_cast<float*>(mins);
-  if (vec == 4) {
-    kmeans_assign_kernel<4><<<grid, ASSIGN_THREADS, 0, s>>>(xf, cf, cnf, co, mo, n, k, d, sxb,
-                                                            sxn);
-  } else if (vec == 1) {
-    kmeans_assign_kernel<1><<<grid, ASSIGN_THREADS, 0, s>>>(xf, cf, cnf, co, mo, n, k, d, sxb,
-                                                            sxn);
-  } else {
+  if (tiles > 0x7fffffffLL || nb < 1 || nb > 65535 || n < 1 || k < 1)
+    return cudaErrorInvalidConfiguration;
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(chi) |
+                        reinterpret_cast<uintptr_t>(clo)) % 16 == 0;
+  if (d < 4 || d % 4 || sxn % 4 || sxb % 4 || !aligned || !encoder())
     return cudaErrorInvalidValue;
-  }
+  // the points' map takes its dimensions in ascending stride (the PQ books'
+  // (m, N, dsub) view has the batch innermost): rows then batches, or
+  // batches then rows; either way a box is 256 rows of one problem
+  CUtensorMap xmap, himap, lomap;
+  const bool rows_first = nb == 1 || sxn <= sxb;
+  const long long cstride = (long long)k * d;
+  if (!(rows_first ? tensor_map(&xmap, x, d, n, sxn, BM, nb, nb > 1 ? sxb : n * sxn, 1)
+                   : tensor_map(&xmap, x, d, nb, sxb, 1, n, sxn, BM)) ||
+      !tensor_map(&himap, chi, d, k, d, BN, nb, cstride, 1) ||
+      !tensor_map(&lomap, clo, d, k, d, BN, nb, cstride, 1))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kmeans_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ASSIGN_SMEM);
+  if (err != cudaSuccess) return err;
+  kmeans_assign_kernel<<<dim3((unsigned)tiles, (unsigned)nb), ASSIGN_THREADS, ASSIGN_SMEM,
+                         static_cast<cudaStream_t>(stream)>>>(
+      xmap, himap, lomap, static_cast<const float*>(cn), static_cast<int*>(codes),
+      static_cast<float*>(mins), n, k, d, rows_first);
   return cudaGetLastError();
 }
 

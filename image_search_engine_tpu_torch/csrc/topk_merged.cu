@@ -28,7 +28,7 @@
 // over an f32 store this search equals topk_twophase at the same margin bit
 // for bit: the same mins, the same candidate groups in the same order, the
 // same scores. Over a bf16 store topk_twophase scores on tensor cores
-// (mma_bf16.cuh) while this search keeps row_dot: the two agree within the
+// (mma.cuh) while this search keeps row_dot: the two agree within the
 // f32 summation-order tolerance.
 //
 // What bounds it: as the two-phase search, one read of the store per query

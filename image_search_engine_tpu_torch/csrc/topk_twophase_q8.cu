@@ -3,42 +3,55 @@
 // it; ops/topk.py holds the wrappers and the plain PyTorch version of each
 // kernel). The select between the phases is topk_twophase.cu's.
 //
-//   groupmin_q8_kernel  phase 1: for each 128-row group of the store and each
-//                       query, min over the group of
+//   groupmin_mma_kernel<int8_t>  phase 1 on the tensor cores
+//                       (groupmin_mma.cuh, the bf16 sweep's template), and
+//   groupmin_q8_kernel  phase 1 on the CUDA cores for batches of up to 4
+//                       queries: for each 128-row group of the store and
+//                       each query, min over the group of
 //                       norms[r] - f32(q.x[r]) * ((2 qscale) * scales[r]).
-//                       Replaces image_search_engine_tpu/ops/topk_pallas.py
-//                       _groupmin_kernel_q8.
+//                       Both replace image_search_engine_tpu/ops/
+//                       topk_pallas.py _groupmin_kernel_q8.
 //   rescore_q8_kernel   phase 2: the same score for the 128 rows of each
 //                       (query, candidate group), read in place from the
 //                       store. Replaces _fused_rescore_kernel_q8.
 //
 // Bound: phase 1 streams the store once, N * d code bytes plus 8 bytes of
-// norm and scale per row; at serving batch sizes the 2 * Q * N * d integer
-// operations are far below the card's rate, so it is a bandwidth kernel. Rows
-// are read with 16-byte loads of 16 codes and multiplied with __dp4a on the
-// CUDA cores (a scalar loop takes rows that are not 16-byte multiples). Both
-// kernels score a row with one routine (row_dot_q8 and score_q8, scoring.cuh):
-// the int32 sums are exact in any order and the f32 epilogue is rounded step
-// by step in the plain version's order, so each kernel equals its plain
-// version bit for bit and a phase-1 group min is the min of its phase-2
-// scores, which keeps the certificate valid whenever t >= k. Rows at or past n
-// score +inf, so the store is never padded or copied per call.
+// norm and scale per row, and does 2 * Q * N * d integer operations: bytes
+// bound it at serving batch sizes, operations at large Q (1,979 TOP/s on the
+// int8 tensor cores, far past the CUDA cores' __dp4a rate). So phase 1
+// multiplies with mma.sync m16n8k32 into exact s32 sums on the tensor cores,
+// query tiles of up to 128 against slices of the store streamed through
+// shared memory, d zero-padded to 32 codes. Up to 4 queries, where only the
+// store's bytes count, the CUDA-core sweep streams it closer to the memory
+// rate (its warps read whole rows; the tile sweep reads 256-byte column
+// slices of 128 rows), so the wrapper keeps it there. Phase 2 reads t
+// scattered groups per query, a few dozen at Q = 1, and stays on the CUDA
+// cores. The CUDA-core kernels read 16 codes per 16-byte load and multiply
+// them with __dp4a (row_dot_q8, scoring.cuh; a scalar loop takes rows that
+// are not 16-byte multiples). Integer sums are exact in any order and the
+// padding adds 0, so every kernel gives the same int32 for a row, and all
+// run the same f32 epilogue (score_q8, rounded step by step in the plain
+// version's order): each kernel equals its plain version bit for bit, and a
+// phase-1 group min is the min of its phase-2 scores, which keeps the
+// certificate valid whenever t >= k. Rows at or past n score +inf, so the
+// store is never padded or copied per call.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "groupmin_mma.cuh"
 #include "scoring.cuh"
 
 namespace {
 
-constexpr int GROUP = 128;        // candidate-group width (rows)
 constexpr int RESCORE_SPLIT = 4;  // phase-2 blocks per candidate group
 
-// Phase 1. Block b handles query tile b % nqt (QT queries) of group b / nqt,
-// so the nqt blocks that read one group run back to back and share it in L2.
-// Output is query-major: out[qi * ngroups + g].
+// Phase 1 at small batches, on CUDA cores. Block b handles query tile b %
+// nqt (QT queries) of group b / nqt, so the nqt blocks that read one group
+// run back to back and share it in L2; each warp reads whole rows with
+// 16-byte loads. Output is query-major: out[qi * ngroups + g].
 template <int VEC, int QT>
 __global__ void __launch_bounds__(THREADS)
     groupmin_q8_kernel(const int8_t* __restrict__ q, const float* __restrict__ qscale,
@@ -171,10 +184,11 @@ cudaError_t launch_rescore_q8(const void* q, const void* qscale, const void* nor
 extern "C" {
 
 // q: (nq, d) int8 query codes; qscale: (nq,) f32 query scales (halved for ip);
-// norms, scales: (n,) f32; x: (n, d) int8 store codes. vec: 16 when store and
-// query rows are 16-byte aligned, else 1. qt: queries per phase-1 block (1, 2,
-// 4 or 8). Every function returns the cudaError_t of its launch (0 = success).
+// norms, scales: (n,) f32; x: (n, d) int8 store codes. Every function returns
+// the cudaError_t of its launch (0 = success).
 
+// Phase 1 at small batches. vec: 16 when store and query rows are 16-byte
+// aligned, else 1. qt: queries per block (1, 2, 4 or 8).
 int ise_groupmin_q8(const void* q, const void* qscale, const void* norms, const void* scales,
                     const void* x, void* out, int nq, long long n, int d, int qt, int vec,
                     void* stream) {
@@ -184,6 +198,17 @@ int ise_groupmin_q8(const void* q, const void* qscale, const void* norms, const 
   return cudaErrorInvalidValue;
 }
 
+// Phase 1 on the tile plan of ops/topk.py mma_plan(..., itemsize=1): bq, dp
+// and kc (codes), gps, resident and smem as for ise_groupmin_mma; vec: codes
+// per copy, 16, 4 or 1.
+int ise_groupmin_q8_mma(const void* q, const void* qscale, const void* norms, const void* scales,
+                        const void* x, void* out, int nq, long long n, int d, int bq, int dp,
+                        int kc, int gps, int resident, int smem, int vec, void* stream) {
+  return groupmin_mma<int8_t>(q, qscale, norms, scales, x, out, nq, n, d, bq, dp, kc, gps,
+                              resident, smem, vec, static_cast<cudaStream_t>(stream));
+}
+
+// Phase 2. vec: 16 when store and query rows are 16-byte aligned, else 1.
 int ise_rescore_q8(const void* q, const void* qscale, const void* norms, const void* scales,
                    const void* x, const void* cand, void* out, int nq, long long n, int d, int t,
                    int vec, void* stream) {

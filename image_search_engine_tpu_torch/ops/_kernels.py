@@ -28,7 +28,8 @@ SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
            _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu",
            _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu", _CSRC / "groupmin_variants.cu",
            _CSRC / "rescore_variants.cu")
-HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh", _CSRC / "mma_bf16.cuh")
+HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh", _CSRC / "mma.cuh",
+           _CSRC / "groupmin_mma.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -116,11 +117,13 @@ def library() -> ctypes.CDLL:
             lib.ise_rescore_mma.restype = i
             lib.ise_groupmin_q8.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_groupmin_q8.restype = i
+            lib.ise_groupmin_q8_mma.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, i, i, i, i, i, p]
+            lib.ise_groupmin_q8_mma.restype = i
             lib.ise_rescore_q8.argtypes = [p, p, p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_rescore_q8.restype = i
             lib.ise_probed_scan.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.ise_probed_scan.restype = i
-            lib.ise_kmeans_assign.argtypes = [p, p, p, p, p, i, ll, i, i, ll, ll, i, p]
+            lib.ise_kmeans_assign.argtypes = [p, p, p, p, p, p, i, ll, i, i, ll, ll, p]
             lib.ise_kmeans_assign.restype = i
             lib.ise_topk_running.argtypes = [i, p, p, p, p, p, p, p, i, ll, i, i, i, i, i, p]
             lib.ise_topk_running.restype = i

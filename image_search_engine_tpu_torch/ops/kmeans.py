@@ -6,7 +6,11 @@ kernel of ``ops/kmeans_pallas.py``):
   * assignment = nearest centroid by ``||c||^2 - 2 x.c``, argmin and min,
     then ``+||x||^2`` clamped at 0. On CUDA tensors ``assign`` launches the
     hand-written kernel (``csrc/kmeans_assign.cu``), which keeps the (N, K)
-    distances out of device memory; on CPU tensors it runs ``assign_ref``;
+    distances out of device memory and computes the products on the tensor
+    cores with a 3xTF32 split (:func:`tf32_split`), within a few f32 ulps of
+    the plain f32 product (not bit for bit: codes may differ only where two
+    centroids are that close); on CPU tensors it runs ``assign_ref``, in
+    f32 as the JAX package's ``assign_jax``;
   * update = mean of the assigned points by ``index_add_`` (a segment sum;
     the JAX package's one-hot matmul was a TPU scatter workaround). Empty
     clusters keep their previous centroid. On CUDA the float atomics sum in
@@ -29,6 +33,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from image_search_engine_tpu_torch.ops import _kernels
 from image_search_engine_tpu_torch.ops.distances import l2_normalize
@@ -57,20 +62,29 @@ def assign(x: torch.Tensor, centroids: torch.Tensor) -> Tuple[torch.Tensor, torc
     Ties go to the lowest centroid index, as ``jnp.argmin``.
 
     Replaces ``_assign_kernel`` (image_search_engine_tpu/ops/
-    kmeans_pallas.py:26, via ``assign_pallas`` :48). What bounds it on the
-    card: 2*B*N*K*d flops in IEEE f32 on the CUDA cores (no TF32), against
-    N*d*4 bytes of points; at the coarse quantizer's shape (N = 1M, K =
-    1024, d = 2048) that is ~1 flop per 4 bytes times K/2, far past the
-    memory roofline, so it is compute-bound. The design: a block owns 64
-    rows, stages 64-row x 16-column tiles of points and centroids in shared
-    memory, keeps a 4 x 4 register tile of dot products per thread and a
-    running (min, argmin) per row in registers across all K, so the (N, K)
-    distances never reach device memory (what the TPU kernel keeps out of
-    HBM). The batch dimension covers the PQ books (B = m subspaces).
+    kmeans_pallas.py:26, via ``assign_pallas`` :48), which fuses the product
+    with the argmin so the (N, K) distances never reach HBM. What bounds it
+    on the card: 2*B*N*K*d operations against N*d*4 bytes of points, so at
+    the coarse quantizer's shape (N = 1M, K = 1024, d = 2048) it is
+    compute-bound: 62.6 ms at the CUDA cores' f32 rate. The design moves the
+    products onto the tensor cores with a 3xTF32 split (each f32 operand a
+    = hi + lo in tf32, three products per k-step: hi.lo, lo.hi, hi.hi),
+    which keeps about f32's precision at three times the operations of one
+    TF32 pass (a 25.4 ms bound); a single TF32 or bf16 pass would keep three
+    decimal digits. Hopper's warpgroup MMA does the products: a producer
+    warpgroup streams 256-point x 32-column tiles of the points and
+    128-centroid tiles of the centroids' two halves (split once per call
+    here, by :func:`tf32_split`) into a shared-memory ring with the Tensor
+    Memory Accelerator; two consumer warpgroups split the points in
+    registers, multiply, and keep a running (min, argmin) per point in
+    registers across all K, ties to the lowest index. The batch dimension
+    covers the PQ books (B = m subspaces).
 
     ``x`` may be a strided view whose last dimension is contiguous (the PQ
     residuals' (m, N, dsub) view of an (N, m, dsub) tensor); centroids are
-    made contiguous.
+    made contiguous. The kernel's tensor maps take rows of whole 16-byte
+    units: other widths are copied zero-padded to d % 4 == 0, which adds
+    exactly 0 to every product.
     """
     xb, cb, batched = _batched(x, centroids)
     xb = xb.float()
@@ -92,6 +106,23 @@ def _row_sq_norms(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of f32 values: (hi, lo) f32 with hi = tf32(v) and lo
+    = tf32(v - hi), each rounded to nearest with ties away from zero (as
+    ``cvt.rna.tf32.f32``: half a tf32 ulp added to the magnitude, the 13 low
+    mantissa bits cleared), so each holds 10 explicit mantissa bits. v - hi
+    is exact in f32, so hi + lo is v within 2^-22 |v| (finite v below
+    2^128 - 2^114, where hi rounds to inf). The kernel reads the centroids
+    split by this and splits the points the same way (``tf32_split`` in
+    ``csrc/mma.cuh``)."""
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    v = v.float()
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
 def _assign_kernel(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel: (codes (B, N) int32, partial mins (B, N) f32,
     ``||c||^2 - 2 x.c`` without the ``||x||^2`` term)."""
@@ -106,12 +137,19 @@ def _assign_kernel(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torc
     mins = torch.empty((nb, n), dtype=torch.float32, device=x.device)
     if n == 0 or nb == 0:
         return codes, mins
-    vec = 4 if (d % 4 == 0 and x.stride(0) % 4 == 0 and x.stride(1) % 4 == 0
-                and x.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0) else 1
+    # the kernel's tensor maps need d and both strides in whole 16-byte units
+    # and 16-byte aligned rows: other shapes go zero-padded to d % 4 == 0,
+    # which adds exactly 0 to every product
+    pad = max(4, -(-d // 4) * 4) - d
+    if pad:
+        x, c = F.pad(x, (0, pad)), F.pad(c, (0, pad))
+    elif x.stride(0) % 4 or x.stride(1) % 4 or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    chi, clo = tf32_split(c)
     with torch.cuda.device(x.device):
         err = _kernels.library().ise_kmeans_assign(
-            x.data_ptr(), c.data_ptr(), cn.data_ptr(), codes.data_ptr(), mins.data_ptr(),
-            nb, n, k, d, x.stride(0), x.stride(1), vec, _stream(x))
+            x.data_ptr(), chi.data_ptr(), clo.data_ptr(), cn.data_ptr(), codes.data_ptr(),
+            mins.data_ptr(), nb, n, k, x.shape[2], x.stride(0), x.stride(1), _stream(x))
     _kernels.check(err, "kmeans_assign")
     assign.launches += 1
     return codes, mins

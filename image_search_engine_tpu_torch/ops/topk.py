@@ -22,9 +22,12 @@ scales fold into an f32 epilogue.
 
 Each step is a hand-written CUDA kernel (``csrc/topk_twophase.cu``,
 ``csrc/topk_twophase_q8.cu``) with a plain PyTorch version beside it; a
-bf16 store's steps 1 and 3 run on tensor cores (``csrc/mma_bf16.cuh``), an
-f32 store's on CUDA cores, each dtype with one scoring routine in both. A
-wrapper runs the plain version only for tensors on the CPU; for CUDA
+bf16 store's steps 1 and 3 and an int8 store's step 1 (beyond 4 queries)
+run on tensor cores (``csrc/mma.cuh``, ``csrc/groupmin_mma.cuh``), an f32
+store's on CUDA cores. Each store dtype scores a row the same way in steps
+1 and 3 (int8: the same exact int32 sum, with ``__dp4a`` in step 3), so a
+group's step-1 min is bit for bit the min of its step-3 scores. A wrapper
+runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``.
 
@@ -56,6 +59,11 @@ _SMEM_BYTES = 200 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: int8 rows wider than this could overflow the int32 sum (127^2 * d >= 2^31)
 MAX_Q8_DIM = 133_000
+#: batches of up to this many queries take the int8 sweep on CUDA cores,
+#: larger ones the tensor-core sweep (over 1M x 2048 on the H100 the first
+#: is ~7% faster at Q = 1 and 4, the second ~17% faster at Q = 8:
+#: chip_smoke.py phase 4, PERF.md)
+DP4A_MAX_Q = 4
 #: store rows per float64 product in the int8 plain versions (bounds the copy)
 _Q8_REF_ROWS = 1 << 14
 
@@ -133,14 +141,16 @@ def _query_tile(nq: int, row_bytes: int) -> int:
     return qt
 
 
-# The bf16 tensor-core sweep and rescore (csrc/topk_twophase.cu
-# groupmin_mma_kernel, rescore_mma_kernel; csrc/mma_bf16.cuh)
+# The tensor-core sweep of bf16 and int8 stores and the bf16 rescore
+# (csrc/groupmin_mma.cuh groupmin_mma_kernel, csrc/topk_twophase.cu
+# rescore_mma_kernel; csrc/mma.cuh). Their tile arithmetic counts bytes: a
+# k-step is 32 bytes of a row (16 bf16 values, 32 int8 codes).
 #: queries per phase-1 block
 MMA_BQ = (16, 32, 64, 128)
-#: store columns per shared-memory stage the sweep tries, widest first
-_MMA_KC = (128, 64, 32, 16)
-_MMA_K = 16  # bf16 elements per mma k-step
-_MMA_PAD = 8  # bf16 elements appended to every shared-memory row (SMEM_PAD)
+#: bytes of a row per shared-memory stage the sweep tries, widest first
+_MMA_KC_BYTES = (256, 128, 64, 32)
+_MMA_K_BYTES = 32  # bytes of a row per mma k-step (MMA_KBYTES in csrc/mma.cuh)
+_MMA_PAD_BYTES = 16  # appended to every shared-memory row (SMEM_PAD_BYTES)
 _MMA_WARPS = 8  # warps per phase-1 block (WARPS in csrc/scoring.cuh)
 #: shared memory under which two sweep blocks fit one SM (228 KB, 1 KB each reserved)
 _MMA_SMEM_TWO_BLOCKS = 113 * 1024
@@ -153,26 +163,31 @@ _RESCORE_MMA_KC = 128  # store columns per phase-2 stage (two stages per warp)
 _GRID_MAX = 2 ** 31 - 1  # CUDA's gridDim.x limit
 
 
-def _groupmin_mma_smem(bq: int, nq: int, dp: int, kc: int, resident: bool) -> int:
-    """Shared-memory bytes of a sweep block (groupmin_mma_smem in the .cu):
-    a resident query tile (min(bq, nq + 1) rows: a batch of fewer than bq
-    queries stages its own and one zero row), two stages of 128 store rows
-    (and, streamed, bq query rows), the cross-warp mins."""
+def _groupmin_mma_smem(bq: int, nq: int, dp: int, kc: int, resident: bool,
+                       itemsize: int = 2) -> int:
+    """Shared-memory bytes of a sweep block over elements of ``itemsize``
+    bytes (groupmin_mma_smem in the .cuh): a resident query tile (min(bq, nq
+    + 1) rows: a batch of fewer than bq queries stages its own and one zero
+    row), two stages of 128 store rows (and, streamed, bq query rows), the
+    cross-warp mins."""
     wn = _MMA_WARPS // (2 if bq >= 32 else 1)
     qrows, srows = (min(bq, nq + 1), GROUP) if resident else (0, GROUP + bq)
-    return qrows * (dp + _MMA_PAD) * 2 + 2 * srows * (kc + _MMA_PAD) * 2 + wn * bq * 4
+    return (qrows * (dp * itemsize + _MMA_PAD_BYTES)
+            + 2 * srows * (kc * itemsize + _MMA_PAD_BYTES) + wn * bq * 4)
 
 
 @dataclass(frozen=True)
 class MmaPlan:
-    """The tile arithmetic of the bf16 tensor-core kernels for Q queries over
-    N rows of d: phase 1 runs ``grid`` blocks of ``bq`` queries and a slice
-    of ``gps`` groups each, block b on query tile b % nqt and slice b // nqt,
-    streaming each group's padded row in k-chunks of ``kc`` columns past a
-    query tile kept in shared memory (``resident``) or streamed with them;
-    phase 2 runs a block per (query, group) pair, whose warps stream
-    ``rescore_kc`` columns of their 32 rows at a time. Both double-buffer
-    their copies. ``dp`` is d zero-padded to a multiple of 16."""
+    """The tile arithmetic of the tensor-core kernels for Q queries over N
+    rows of d elements of ``itemsize`` bytes (2: bf16, 1: int8): phase 1
+    runs ``grid`` blocks of ``bq`` queries and a slice of ``gps`` groups
+    each, block b on query tile b % nqt and slice b // nqt, streaming each
+    group's padded row in k-chunks of ``kc`` elements past a query tile kept
+    in shared memory (``resident``) or streamed with them; the bf16 phase 2
+    runs a block per (query, group) pair, whose warps stream ``rescore_kc``
+    columns of their 32 rows at a time. Both double-buffer their copies.
+    ``dp`` is d zero-padded to whole 32-byte k-steps (16 bf16 values, 32
+    int8 codes)."""
 
     nq: int
     n: int
@@ -183,6 +198,7 @@ class MmaPlan:
     resident: bool
     gps: int
     rescore_kc: int
+    itemsize: int = 2
 
     @property
     def ngroups(self) -> int:
@@ -198,13 +214,14 @@ class MmaPlan:
 
     @property
     def smem(self) -> int:
-        return _groupmin_mma_smem(self.bq, self.nq, self.dp, self.kc, self.resident)
+        return _groupmin_mma_smem(self.bq, self.nq, self.dp, self.kc, self.resident,
+                                  self.itemsize)
 
     @property
     def rescore_smem(self) -> int:
         rows = GROUP // _RESCORE_MMA_WARPS
-        return 2 * (self.dp + _MMA_PAD) * 2 + _RESCORE_MMA_WARPS * 2 * rows * (
-            self.rescore_kc + _MMA_PAD) * 2
+        return 2 * (self.dp * 2 + _MMA_PAD_BYTES) + _RESCORE_MMA_WARPS * 2 * rows * (
+            self.rescore_kc * 2 + _MMA_PAD_BYTES)
 
     def rescore_grid(self, t: int) -> int:
         """Phase-2 blocks for t candidate groups per query."""
@@ -218,19 +235,22 @@ class MmaPlan:
                 sl * self.gps, torch.clamp((sl + 1) * self.gps, max=self.ngroups))
 
 
-def mma_plan(nq: int, n: int, d: int) -> MmaPlan:
-    """The tile plan of the bf16 sweep and rescore for Q = nq queries over an
-    (n, d) store, the one both wrappers launch with. bq is the smallest
-    query tile that holds min(Q, 128) queries. Two blocks should share an
-    SM: the tile stays resident in shared memory if they still do, else it
-    streams with the store if they then do (one block an SM only when
-    neither does), with the widest k-chunk that allows it. The slice has as
-    many groups as keep the grid near ``_MMA_TARGET_BLOCKS`` blocks, between
-    4 (and bq / 32) and 16. Raises on shapes the kernels cannot take."""
-    if nq < 1 or n < 1 or d < 1:
-        raise ValueError(f"no tile plan for Q={nq}, N={n}, d={d}")
-    dp = -(-d // _MMA_K) * _MMA_K
-    kcs = sorted({min(dp, kc) for kc in _MMA_KC}, reverse=True)
+def mma_plan(nq: int, n: int, d: int, itemsize: int = 2) -> MmaPlan:
+    """The tile plan of the tensor-core sweep for Q = nq queries over an (n,
+    d) store of ``itemsize``-byte elements (2: bf16, also the plan of the
+    bf16 rescore; 1: int8), the one the wrappers launch with. bq is the
+    smallest query tile that holds min(Q, 128) queries. Two blocks should
+    share an SM: the tile stays resident in shared memory if they still do,
+    else it streams with the store if they then do (one block an SM only
+    when neither does), with the widest k-chunk that allows it. The slice
+    has as many groups as keep the grid near ``_MMA_TARGET_BLOCKS`` blocks,
+    between 4 (and bq / 32) and 16. Raises on shapes the kernels cannot
+    take."""
+    if nq < 1 or n < 1 or d < 1 or itemsize not in (1, 2):
+        raise ValueError(f"no tile plan for Q={nq}, N={n}, d={d}, itemsize={itemsize}")
+    step = _MMA_K_BYTES // itemsize
+    dp = -(-d // step) * step
+    kcs = sorted({min(dp, kc // itemsize) for kc in _MMA_KC_BYTES}, reverse=True)
     bq = next(b for b in MMA_BQ if b >= min(nq, MMA_BQ[-1]))
     nqt, ng = -(-nq // bq), num_groups(n)
     gps = min(ng, max(_MMA_MIN_SLICE, bq // 32,
@@ -238,9 +258,11 @@ def mma_plan(nq: int, n: int, d: int) -> MmaPlan:
     # a streamed tile's narrowest chunk fits at any d, so there is always one
     resident, kc = next((r, k) for limit in (_MMA_SMEM_TWO_BLOCKS, _SMEM_BYTES)
                         for r in (True, False)
-                        for k in kcs if _groupmin_mma_smem(bq, nq, dp, k, r) <= limit)
-    plan = MmaPlan(nq, n, d, bq, dp, kc, resident, gps, min(dp, _RESCORE_MMA_KC))
-    if plan.rescore_smem > _SMEM_BYTES:
+                        for k in kcs
+                        if _groupmin_mma_smem(bq, nq, dp, k, r, itemsize) <= limit)
+    plan = MmaPlan(nq, n, d, bq, dp, kc, resident, gps, min(dp, _RESCORE_MMA_KC), itemsize)
+    # the int8 phase 2 runs on CUDA cores (rescore_q8) and takes no plan
+    if itemsize == 2 and plan.rescore_smem > _SMEM_BYTES:
         raise ValueError(f"d={d} exceeds the bf16 rescore's shared-memory query row")
     if plan.grid > _GRID_MAX:
         raise ValueError(f"Q={nq} over N={n} rows exceeds the sweep's grid")
@@ -248,13 +270,15 @@ def mma_plan(nq: int, n: int, d: int) -> MmaPlan:
 
 
 def _vec_mma(q: torch.Tensor, x: torch.Tensor) -> int:
-    """bf16 elements per copy into shared memory: 8 (16-byte copies) when the
-    rows of both are 16-byte multiples at 16-byte aligned addresses, 2
-    (4-byte copies) when they are 4-byte ones, else 1."""
-    d = x.shape[1]
+    """Elements per copy into shared memory: 16 bytes of them when the rows
+    of both are 16-byte multiples at 16-byte aligned addresses, 4 bytes of
+    them when they are 4-byte ones, else 1 (bf16: 8, 2 or 1; int8: 16, 4 or
+    1)."""
+    d, isz = x.shape[1], x.element_size()
     ptrs = (q.data_ptr(), x.data_ptr())
-    for vec in (8, 2):
-        if d % vec == 0 and all(p % (2 * vec) == 0 for p in ptrs):
+    for nbytes in (16, 4):
+        vec = nbytes // isz
+        if d % vec == 0 and all(p % nbytes == 0 for p in ptrs):
             return vec
     return 1
 
@@ -367,31 +391,51 @@ def groupmin_q8(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor,
     dequant scale (halved for ip).
 
     Replaces ``_groupmin_kernel_q8`` (image_search_engine_tpu/ops/
-    topk_pallas.py:276, launched :631). What bounds it on the card: it
-    streams the store once per call, N*d code bytes plus 8 bytes of norm and
-    scale per row, while at serving batch sizes its 2*Q*N*d integer
-    operations are far below the card's rate, so it is a memory-bandwidth
-    kernel, 4x lighter than the f32 sweep. The design is ``groupmin``'s:
-    up to 8 int8 queries in shared memory per block, 16-byte loads of 16
-    codes each multiplied with ``__dp4a`` into int32 (a scalar loop for
-    rows that are not 16-byte multiples), query tiles of one group back to
-    back so they find it in L2. Integer sums are exact in any order, so the
-    f32 epilogue, rounded step by step, is the only rounding: the kernel
-    equals :func:`groupmin_q8_ref` bit for bit.
+    topk_pallas.py:276, launched :631), an int8 product on the TPU's matrix
+    unit followed by 128-column mins. What bounds it on the card: the store,
+    N*d code bytes plus 8 bytes of norm and scale per row, at serving batch
+    sizes; the 2*Q*N*d integer operations at large Q (1,979 TOP/s on the
+    int8 tensor cores). Two kernels, by batch size:
+
+    * more than ``DP4A_MAX_Q`` queries, on tensor cores
+      (``groupmin_mma_kernel`` in ``csrc/groupmin_mma.cuh``, the bf16
+      sweep's template with int8 operands): ``mma.sync`` m16n8k32 into
+      int32, query tiles of up to 128 queries against slices of groups
+      streamed through shared memory (``cp.async``, double-buffered), d
+      zero-padded to 32 codes, the tiles from ``mma_plan(..., itemsize=1)``;
+      the epilogue converts each int32 sum with ``score_q8`` and takes the
+      group mins, so no score leaves the chip;
+    * up to ``DP4A_MAX_Q`` queries, on CUDA cores (``groupmin_q8_kernel``):
+      only the store's bytes count there, and its warps stream whole rows
+      with 16-byte loads, multiplying 4 codes at a time with ``__dp4a``,
+      closer to the memory rate than the tile sweep's column slices.
+
+    Integer sums are exact in any order and the zero padding adds 0, so the
+    f32 epilogue, rounded step by step, is the only rounding: both kernels
+    equal :func:`groupmin_q8_ref` bit for bit, and each group min is the
+    min of its rows' :func:`rescore_q8` scores.
     """
     _check_q8_args(q, qscale, x, scales, norms)
     if not _on_cuda(q, qscale, x, scales, norms):
         return groupmin_q8_ref(q, qscale, x, scales, norms)
     nq, d = q.shape
     n = x.shape[0]
-    qt = _query_tile(nq, d)
     out = torch.empty((nq, num_groups(n)), dtype=torch.float32, device=x.device)
     if nq == 0 or n == 0:
         return out
     with torch.cuda.device(x.device):
-        err = _kernels.library().ise_groupmin_q8(
-            q.data_ptr(), qscale.data_ptr(), norms.data_ptr(), scales.data_ptr(), x.data_ptr(),
-            out.data_ptr(), nq, n, d, qt, _vec_q8(q, x), _stream(x))
+        lib = _kernels.library()
+        if nq <= DP4A_MAX_Q:
+            err = lib.ise_groupmin_q8(
+                q.data_ptr(), qscale.data_ptr(), norms.data_ptr(), scales.data_ptr(),
+                x.data_ptr(), out.data_ptr(), nq, n, d, _query_tile(nq, d), _vec_q8(q, x),
+                _stream(x))
+        else:
+            p = mma_plan(nq, n, d, itemsize=1)
+            err = lib.ise_groupmin_q8_mma(
+                q.data_ptr(), qscale.data_ptr(), norms.data_ptr(), scales.data_ptr(),
+                x.data_ptr(), out.data_ptr(), nq, n, d, p.bq, p.dp, p.kc, p.gps,
+                int(p.resident), p.smem, _vec_mma(q, x), _stream(x))
     _kernels.check(err, "groupmin_q8")
     groupmin_q8.launches += 1
     return out

@@ -1,7 +1,7 @@
 """The bf16 tensor-core phase 1 and phase 2 of the port's flat search
 (image_search_engine_tpu_torch/ops/topk.py ``groupmin``, ``rescore``;
-``csrc/topk_twophase.cu`` ``groupmin_mma_kernel``, ``rescore_mma_kernel``;
-``csrc/mma_bf16.cuh``).
+``csrc/groupmin_mma.cuh`` ``groupmin_mma_kernel``, ``csrc/topk_twophase.cu``
+``rescore_mma_kernel``; ``csrc/mma.cuh``).
 
 The kernels run only on the card, where ``chip_smoke.py`` holds them to
 their plain versions. Here:
