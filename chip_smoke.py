@@ -10,15 +10,19 @@ Phases (each raises on failure; the script then exits non-zero):
   1. each kernel of the two-phase search against its plain PyTorch
      version on the same tensors on the card, through FlatIndex.search
      and the three kernel wrappers directly, with CUDA-event timings: f32
-     stores on CUDA cores (at 1M x 2048, Q = 1 and 64, beside cuBLAS's f32
-     product alone), bf16 stores on tensor cores (also at 1M x 2048, Q = 1
-     and 64, beside the bf16 product alone and the row_dot sweep),
-     and an edge sweep of the bf16 kernels' tiles; every group min equal
-     to the min of its rescored rows bit for bit;
+     stores at 1M x 2048 beside cuBLAS's f32 product alone, Q = 1 on CUDA
+     cores, Q = 64 and 256 on tensor cores (3xTF32 on the warpgroup MMA,
+     both phases) and on CUDA cores, the CUDA-core and the tensor-core
+     sweep at Q = 1, 2, 4, 8, 16; bf16 stores on tensor cores (also at 1M
+     x 2048, Q = 1 and 64, beside the bf16 product alone and the row_dot
+     sweep); edge sweeps of the bf16 and the f32 tensor-core
+     kernels' tiles and f32 rows of one sign; every group min equal to the
+     min of its rescored rows bit for bit, every certificate true;
   2. the flat main path through the user's entry points: 4,096 PNGs
      indexed by the port's indexer CLI (ResNet-50, flat l2, f32 store), the
      port's HTTP server queried with corpus images, and the kernel launch
-     counts of that serving run;
+     counts of that serving run; then a batch of 64 stored embeddings
+     through FlatIndex.search (the f32 tensor-core route);
   3. IVF-PQ: an IVFPQIndex (nlist 1024, nprobe 4, m 16) built on the card
      over 1,000,000 x 2048 clustered rows, its two kernels (k-means
      assignment, probed scan) and the probed top-k against their plain
@@ -41,10 +45,11 @@ Phases (each raises on failure; the script then exits non-zero):
      2048 f32 and Q = 1 over bf16, ids equal to its plain version's, and
      ``topk_merged`` (the two-phase search in one cooperative launch) at Q =
      1 and 64 over 1M x 2048 f32 and bf16 and at Q = 2048 and 4096 over 1M x
-     128 bf16, equal to ``topk_twophase(t_margin=2)`` (bit for bit over
-     f32; over bf16, whose two-phase search runs on tensor cores, within
-     tolerance, ids equal but at near-ties); edge sweeps for both; timings
-     beside the two-phase search;
+     128 bf16, equal to ``topk_twophase(t_margin=2)`` (bit for bit where
+     both score f32 on CUDA cores; where the two-phase search runs on
+     tensor cores, bf16 and f32 beyond a few queries, within tolerance, ids
+     equal but at near-ties); edge sweeps for both; timings beside the
+     two-phase search;
   6. bench.py's operating point (1M x 128 bf16, k = 10): the bench twin
      (``image_search_engine_tpu_torch.bench``) at Q = 4096 over 100
      dispatches, each ported benchmark script's searches once with their
@@ -69,7 +74,7 @@ Phases (each raises on failure; the script then exits non-zero):
 
 Before its last two lines it prints a JSON object describing the 16
 kernels (launches, errors, times, bounds; ``groupmin`` and ``rescore``
-per store dtype) and the card's name and power
+per store dtype and, for f32, per route) and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
 """
@@ -116,6 +121,8 @@ SOURCES = {
     "rescore_gather_sweep2": CSRC + "rescore_variants.cu",
     "rescore_cross": CSRC + "rescore_variants.cu",
 }
+# the f32 tensor-core route: one warpgroup-MMA kernel for both phases
+SOURCES_F32_TC = {"groupmin": CSRC + "groupmin_tf32.cu", "rescore": CSRC + "groupmin_tf32.cu"}
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
     "select_topt": "image_search_engine_tpu/ops/topk_pallas.py:361",
@@ -218,15 +225,18 @@ def max_abs_err(a, b) -> float:
 
 
 def assert_same_topk(d, i, rd, ri, tol: float, what: str) -> None:
-    """Distances within tol; id sets equal except ties at the k-th distance."""
+    """Distances within tol, row for row; an id in both lists passes, and an
+    id in one list only passes where its distance lies within tol of that
+    list's own k-th distance (a near-tie at the boundary swapped in)."""
     if not np.allclose(d, rd, rtol=0, atol=tol):
         raise AssertionError(f"{what}: distances differ by {np.abs(d - rd).max()} > {tol}")
     for r in range(d.shape[0]):
-        kth = rd[r, -1]
-        a = set(i[r][np.abs(d[r] - kth) > tol].tolist())
-        b = set(ri[r][np.abs(rd[r] - kth) > tol].tolist())
-        if a != b:
-            raise AssertionError(f"{what}: query {r} ids differ beyond ties: {sorted(a ^ b)[:8]}")
+        for ids, dist, other in ((i[r], d[r], ri[r]), (ri[r], rd[r], i[r])):
+            only = ~np.isin(ids, other)
+            far = only & (np.abs(dist - dist[-1]) > tol)
+            if far.any():
+                raise AssertionError(f"{what}: query {r} ids differ beyond ties: "
+                                     f"{sorted(ids[far].tolist())[:8]}")
 
 
 def check_search(name, index, q):
@@ -257,13 +267,40 @@ def check_search(name, index, q):
     return qs, qf, knorms, tol
 
 
+@contextlib.contextmanager
+def f32_kernel(route: str):
+    """An f32 store's groupmin and rescore on one of their routes whatever
+    the batch size: "cuda" (row_dot on CUDA cores) or "mma" (3xTF32 on the
+    warpgroup MMA, for rows of whole 16-byte units; other rows stay on CUDA
+    cores); the wrappers pick by ``F32_CUDA_CORE_MAX_Q``, which this sets
+    for the duration."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    keep = T.F32_CUDA_CORE_MAX_Q
+    T.F32_CUDA_CORE_MAX_Q = sys.maxsize if route == "cuda" else 0
+    try:
+        yield
+    finally:
+        T.F32_CUDA_CORE_MAX_Q = keep
+
+
+def f32_route(x, nq: int) -> str:
+    """The route the wrappers give a batch of nq queries over the f32 store x."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    return "mma" if T._on_tensor_cores(x, nq) else "cuda"
+
+
 def check_kernels(name, qf, store, knorms, tol):
     """Each kernel against its plain version on the same inputs; the select
-    gets the same mins in both versions and must match bit for bit.
+    gets the same mins in both versions and must match bit for bit; every
+    group min the min of its rescored rows bit for bit; the certificate of
+    ``topk_twophase``'s margin true for every query (so no escalation).
     Returns ({kernel: max_abs_err}, mins, candidate ids, t)."""
     import torch
 
     from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.ops.distances import stable_smallest
 
     errs = {}
     mins = T.groupmin(qf, store, knorms)
@@ -279,16 +316,46 @@ def check_kernels(name, qf, store, knorms, tol):
     # one scoring routine in both kernels: a group's min is its rows' min
     if not torch.equal(scores.view(qf.shape[0], t, -1).amin(2), torch.gather(mins, 1, ids.long())):
         raise AssertionError(f"{name}: phase-1 group mins differ from phase-2 scores")
+    if t < mins.shape[1]:  # at t = ngroups topk_twophase skips the select and the certificate
+        kth = stable_smallest(scores, min(K, scores.shape[1]))[0][:, -1]
+        if not bool((kth <= vals[:, -1]).all()):
+            raise AssertionError(f"{name}: certificate false for {int((kth > vals[:, -1]).sum())} "
+                                 "queries")
     for k in ("groupmin", "rescore"):
         if errs[k] > tol:
             raise AssertionError(f"{name}: {k} error {errs[k]} > tolerance {tol}")
     return errs, mins, ids, t
 
 
-def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scale=1.0):
+def kernel_bounds(nq, n, d, isz, ng, t, rows, on_tensor_cores):
+    """bound() of groupmin, select_topt and rescore: the store (or the
+    ``rows`` distinct candidate rows), norms, queries and outputs once;
+    2 Q N d operations (rescore: 2 Q t 128 d) at the f32 CUDA-core rate,
+    three times that at the tf32 rate for f32 on tensor cores (the 3xTF32
+    split), once at the bf16 rate for bf16."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    mult, peak = (1, BF16_FLOPS) if isz == 2 else (3, TF32_FLOPS) if on_tensor_cores else \
+        (1, F32_FLOPS)
+    return {
+        "groupmin": bound(n * d * isz + n * 4 + nq * d * isz + nq * ng * 4,
+                          mult * 2 * nq * n * d, peak),
+        "select_topt": bound(nq * ng * 4 + nq * t * 8, 0, peak),
+        "rescore": bound(rows * (d * isz + 4) + nq * d * isz + nq * t * (4 + T.GROUP * 4),
+                         mult * 2 * nq * t * T.GROUP * d, peak),
+    }
+
+
+def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scale=1.0,
+                routes=()):
     """One timed phase-1 shape: the search and the kernels checked, then
-    each kernel and its plain version timed. Returns {kernel:
-    {max_abs_err, ms, plain_ms}}."""
+    each kernel and its plain version timed. An f32 batch that the wrappers
+    put on tensor cores is also checked and timed on the CUDA-core route
+    ("cuda_cores": groupmin, rescore, the search). ``routes``: f32 batch
+    sizes at which both groupmin routes run on new queries, each within
+    score_tol of the plain version, and are timed ("routes" {Q: {route:
+    ms}}: where ``F32_CUDA_CORE_MAX_Q`` should lie). Returns {kernel:
+    {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}}."""
     import torch
 
     from image_search_engine_tpu_torch.index.flat import FlatIndex
@@ -310,14 +377,9 @@ def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scal
 
     nq, d = qf.shape
     n, isz, ng = store.shape[0], store.element_size(), mins.shape[1]
-    peak = F32_FLOPS if isz == 4 else BF16_FLOPS
     rows = torch.unique(ids).numel() * T.GROUP  # distinct candidate rows this run reads
-    bounds = {
-        "groupmin": bound(n * d * isz + n * 4 + nq * d * isz + nq * ng * 4, 2 * nq * n * d, peak),
-        "select_topt": bound(nq * ng * 4 + nq * t * 8, 0, peak),
-        "rescore": bound(rows * (d * isz + 4) + nq * d * isz + nq * t * (4 + T.GROUP * 4),
-                         2 * nq * t * T.GROUP * d, peak),
-    }
+    f32_mma = isz == 4 and f32_route(store, nq) == "mma"
+    bounds = kernel_bounds(nq, n, d, isz, ng, t, rows, isz == 2 or f32_mma)
     res = {}
     for kname, fn, ref, lib in (
         ("groupmin", lambda: T.groupmin(qf, store, knorms), lambda: T.groupmin_ref(qf, store, knorms),
@@ -341,10 +403,42 @@ def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scal
         extra += f", row_dot sweep {res['groupmin']['row_dot_sweep_ms']:.4f} ms"
     smetric = "l2" if metric == "l2" else "ip"
     search_ms = median_ms(lambda: T.topk_twophase(qs, store, K, smetric, x_norms=norms), flush)
+    res["search_ms"] = search_ms
+    if f32_mma:  # the same batch on the CUDA-core route
+        with f32_kernel("cuda"):
+            cerrs, _, cids, _ = check_kernels(f"{name} (CUDA cores)", qf, store, knorms, tol)
+            cb = kernel_bounds(nq, n, d, isz, ng, t, rows, False)
+            cc = {k: {"max_abs_err": cerrs[k], "bound_ms": cb[k][0], "bound_by": cb[k][1]}
+                  for k in ("groupmin", "rescore")}
+            cc["groupmin"]["ms"] = median_ms(lambda: T.groupmin(qf, store, knorms), flush, reps=5)
+            cc["rescore"]["ms"] = median_ms(lambda: T.rescore(qf, store, knorms, cids), flush)
+            cc["search_ms"] = median_ms(
+                lambda: T.topk_twophase(qs, store, K, smetric, x_norms=norms), flush, reps=5)
+        res["cuda_cores"] = cc
+        extra += (f"; on the CUDA-core route groupmin {cc['groupmin']['ms']:.4f} ms, rescore "
+                  f"{cc['rescore']['ms']:.4f} ms, two-phase search {cc['search_ms']:.4f} ms")
+    if routes:
+        res["routes"] = {}
+        for rq in routes:
+            rqf = torch.randn(rq, d, device="cuda", generator=gen).to(store.dtype)
+            want = T.groupmin_ref(rqf, store, knorms)
+            rtol = score_tol(rqf, norms)
+            res["routes"][rq] = {}
+            for route in ("cuda", "mma"):
+                with f32_kernel(route):
+                    err = max_abs_err(T.groupmin(rqf, store, knorms), want)
+                    if err > rtol:
+                        raise AssertionError(f"{name} Q={rq}: groupmin ({route}) error {err} > "
+                                             f"tolerance {rtol}")
+                    res["routes"][rq][route] = median_ms(
+                        lambda: T.groupmin(rqf, store, knorms), flush)
+        extra += "; groupmin by route (CUDA cores / tensor cores): " + ", ".join(
+            f"Q={rq} {v['cuda']:.4f} / {v['mma']:.4f} ms" for rq, v in res["routes"].items())
     scan_ms = median_ms(lambda: local_topk_with_norms(qs, store, norms, K, smetric), flush)
     log(f"  {name}: tol {tol:.3g}; " + "; ".join(
-        f"{k} err {v['max_abs_err']:.3g} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, bound "
-        f"{v['bound_ms']:.4f} ms)" for k, v in res.items())
+        f"{k} err {res[k]['max_abs_err']:.3g} {res[k]['ms']:.4f} ms (plain "
+        f"{res[k]['plain_ms']:.4f} ms, bound {res[k]['bound_ms']:.4f} ms by {res[k]['bound_by']})"
+        for k in ("groupmin", "select_topt", "rescore"))
         + f"; two-phase search {search_ms:.4f} ms, plain full scan {scan_ms:.4f} ms" + extra)
     return res
 
@@ -375,50 +469,99 @@ def edge_sweep(gen) -> float:
     return worst
 
 
-def edge_sweep_mma(gen) -> float:
-    """The bf16 tensor-core kernels at their tile edges, untimed: N in {1,
-    127, 128, 129, 5000} x Q in {1, 7, 15, 16, 17, 33, 129} x d in {16, 128,
-    130, 2048} (d = 130: 4-byte copies; Q = 17, 33, 129: partial query
-    tiles), l2 and ip in turn (ip: the query halved, zero norms, 10% of the
-    rows poisoned with PAD_NORM). check_kernels: each within score_tol of its
-    plain version, the group mins the rescored rows' mins bit for bit.
-    Returns the largest kernel error."""
+def edge_sweep_mma(gen, dtype, nqs, ds) -> float:
+    """The tensor-core kernels of ``dtype`` (torch.bfloat16, or torch.float32
+    held on the tensor-core route) at their tile edges, untimed: N in {1,
+    127, 128, 129, 5000} x Q in ``nqs`` x d in ``ds`` (bf16 d = 130: 4-byte
+    copies; f32 d = 16, 132, 2052: a partial last 32-column stage; f32 d =
+    130, 2049, rows of no whole 16-byte units: the CUDA-core route in both
+    phases, checked here; Q = 17, 33, 129: partial query tiles), l2 and ip
+    in turn (ip: the query halved, zero norms, 10% of the rows poisoned
+    with PAD_NORM). check_kernels: each within score_tol of its plain
+    version, the group mins the rescored rows' mins bit for bit, the
+    certificate true. Returns the largest kernel error on tensor cores."""
     import torch
 
+    from image_search_engine_tpu_torch.ops import topk as T
     from image_search_engine_tpu_torch.parallel.topk import PAD_NORM, ip_penalty
 
-    worst, cases = 0.0, 0
-    for n in (1, 127, 128, 129, 5000):
-        for nq in (1, 7, 15, 16, 17, 33, 129):
-            for d in (16, 128, 130, 2048):
-                x = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
-                q = torch.randn(nq, d, device="cuda", generator=gen).to(torch.bfloat16)
-                norms = (x.float() ** 2).sum(1)
-                if cases % 2:
-                    norms[torch.rand(n, device="cuda", generator=gen) < 0.1] = PAD_NORM
-                    qf, knorms = (q * 0.5).contiguous(), ip_penalty(norms)
-                else:
-                    qf, knorms = q, norms
-                tol = score_tol(qf, norms) if bool((norms < 1e29).any()) else 0.0
-                errs, *_ = check_kernels(f"bf16 edge N={n} Q={nq} d={d}", qf, x, knorms, tol)
-                worst = max(worst, errs["groupmin"], errs["rescore"])
-                cases += 1
-    log(f"  bf16 tensor-core edge sweep: {cases} shapes (l2, ip with PAD_NORM rows), largest "
-        f"error {worst:.3g}, group mins = rescored rows' mins bit for bit")
+    worst, cases, on_tc = 0.0, 0, 0
+    name = str(dtype).split(".")[-1]
+    route = f32_kernel("mma") if dtype == torch.float32 else contextlib.nullcontext()
+    with route:
+        for n in (1, 127, 128, 129, 5000):
+            for nq in nqs:
+                for d in ds:
+                    x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+                    q = torch.randn(nq, d, device="cuda", generator=gen).to(dtype)
+                    norms = (x.float() ** 2).sum(1)
+                    if cases % 2:
+                        norms[torch.rand(n, device="cuda", generator=gen) < 0.1] = PAD_NORM
+                        qf, knorms = (q * 0.5).contiguous(), ip_penalty(norms)
+                    else:
+                        qf, knorms = q, norms
+                    tol = score_tol(qf, norms) if bool((norms < 1e29).any()) else 0.0
+                    T.reset_launch_counts()
+                    errs, *_ = check_kernels(f"{name} edge N={n} Q={nq} d={d}", qf, x, knorms,
+                                             tol)
+                    tc = (T.groupmin.tensor_core_launches, T.rescore.tensor_core_launches)
+                    want = dtype == torch.bfloat16 or d % 4 == 0
+                    if tc != (int(want), int(want)):
+                        raise AssertionError(f"{name} edge N={n} Q={nq} d={d}: tensor-core "
+                                             f"launches {tc}, want {int(want)} of each")
+                    if want:
+                        worst = max(worst, errs["groupmin"], errs["rescore"])
+                        on_tc += 1
+                    cases += 1
+    rest = f" ({cases - on_tc} on CUDA cores in both phases)" if on_tc < cases else ""
+    log(f"  {name} tensor-core edge sweep: {cases} shapes (l2, ip with PAD_NORM rows){rest}, "
+        f"largest tensor-core error {worst:.3g}, group mins = rescored rows' mins bit for bit, "
+        "certificates true")
+    return worst
+
+
+def one_sign_rows_f32(gen) -> float:
+    """The f32 tensor-core kernels over rows and queries of one sign (|N(0,
+    1)|, as post-ReLU embeddings are), where every product of a dot adds in
+    one direction: Q = 64 over 100,000 x 2048 l2, random queries and
+    queries next to store rows, check_kernels as in the edge sweep. Returns
+    the largest error over its tolerance."""
+    import torch
+
+    rows = torch.randn(100_000, 2048, device="cuda", generator=gen).abs()
+    norms = (rows * rows).sum(1)
+    worst = 0.0
+    with f32_kernel("mma"):
+        for what, q in (("random", torch.randn(64, 2048, device="cuda", generator=gen).abs()),
+                        ("near store rows", rows[:64] + 0.01 * torch.randn(
+                            64, 2048, device="cuda", generator=gen))):
+            tol = score_tol(q, norms)
+            errs, *_ = check_kernels(f"f32 one-sign rows, {what} queries", q.contiguous(), rows,
+                                     norms, tol)
+            worst = max(worst, errs["groupmin"] / tol, errs["rescore"] / tol)
+            log(f"  f32 one-sign rows Q=64 N=100,000 d=2048, {what} queries: groupmin err "
+                f"{errs['groupmin']:.4g}, rescore err {errs['rescore']:.4g} (tol {tol:.4g})")
     return worst
 
 
 def phase1() -> dict:
     import torch
 
+    from image_search_engine_tpu_torch.ops import topk as T
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
     log("phase 1: kernels against their plain versions")
     shapes = {}
     x = torch.randn(1_000_000, 2048, device="cuda", generator=gen)
-    for nq in (1, 64):  # the f32 sweep on CUDA cores beside cuBLAS's f32 product alone
+    # f32 beside cuBLAS's f32 product alone: Q = 1 on CUDA cores, with both
+    # sweeps at the batch sizes where F32_CUDA_CORE_MAX_Q lies; Q = 64 and
+    # 256 (128-query tiles) on tensor cores (3xTF32), and on the CUDA-core
+    # route
+    for nq, routes in ((1, (1, 2, 4, 8, 16)), (64, ()), (256, ())):
         shapes[f"Q{nq}_N1M_d2048_f32_l2"] = check_shape(f"Q={nq} N=1,000,000 d=2048 f32 l2", x,
-                                                        nq, "l2", "f32", gen, flush)
+                                                        nq, "l2", "f32", gen, flush,
+                                                        routes=routes)
     for nq in (1, 64):  # the bf16 tensor-core kernels at the corpus scale
         shapes[f"Q{nq}_N1M_d2048_bf16_l2"] = check_shape(
             f"Q={nq} N=1,000,000 d=2048 bf16 l2", x, nq, "l2", "bf16", gen, flush)
@@ -442,7 +585,13 @@ def phase1() -> dict:
     del x
     torch.cuda.empty_cache()
     edge_sweep(gen)
-    return shapes, edge_sweep_mma(gen)
+    mma_edge = {"bf16": edge_sweep_mma(gen, torch.bfloat16, (1, 7, 15, 16, 17, 33, 129),
+                                       (16, 128, 130, 2048)),
+                "f32": edge_sweep_mma(gen, torch.float32,
+                                      (T.F32_CUDA_CORE_MAX_Q + 1, 15, 16, 17, 33, 129),
+                                      (16, 128, 130, 132, 2049, 2052)),
+                "f32_one_sign_err_over_tol": one_sign_rows_f32(gen)}
+    return shapes, mma_edge
 
 
 # ---------------------------------------------------------------------------
@@ -582,7 +731,33 @@ def phase2(workdir: Path) -> dict:
         f"request latency p50 {out['p50_ms']:.2f} ms (client clock, 8 requests); "
         f"certificate escalations {out['escalations']}")
     return {"launches": counts, "p50_ms": out["p50_ms"], "escalations": out["escalations"],
-            "paths": paths, "art": art}
+            "paths": paths, "art": art, "batch": search_batch(out["engine"].index)}
+
+
+def search_batch(index) -> dict:
+    """A batch caller's path over the served f32 index: 64 of its stored
+    embeddings through FlatIndex.search in one call, beyond
+    F32_CUDA_CORE_MAX_Q, so on the tensor-core route (launch counts set to
+    0 just before, read just after); each stored row its own nearest, and
+    the search against the plain full scan (check_search)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    rows = np.arange(0, index.ntotal, index.ntotal // 64)[:64]
+    q = index.store.values()[torch.as_tensor(rows, device=index.store.vectors.device)]
+    T.reset_launch_counts()
+    _, ids = index.search(q, K)
+    launches = {"groupmin": T.groupmin.tensor_core_launches,
+                "rescore": T.rescore.tensor_core_launches, "select_topt": T.select_topt.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"f32 batch Q=64: a tensor-core kernel did not launch: {launches}")
+    if not np.array_equal(ids[:, 0], rows):
+        raise AssertionError("f32 batch Q=64: a stored row is not its own nearest")
+    check_search("f32 batch Q=64 (served index)", index, q)
+    log(f"  batch of 64 stored embeddings through FlatIndex.search: each its own nearest, = the "
+        f"plain full scan, certificates true; tensor-core launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1026,15 +1201,11 @@ def edge_sweep_q8(gen) -> None:
     (the search, its certificate and both kernels): partial query tiles (Q
     in {1, 2, 3, 9, 15, 16, 17, 33, 129}), rows that are not 16-byte
     multiples (d = 130, 2049: the narrower copies), a one-group store,
-    ragged last groups; l2, ip and cosine. Then the tensor-core sweep's
-    tile edges on quantized rows directly: N in {1, 127, 128, 129, 5000} x
-    Q in {1, 15, 16, 17, 33, 129} x d in {16, 130, 2049}, l2 and ip in turn
-    (ip: the query scale halved, zero norms, 10% of the rows poisoned with
-    PAD_NORM), and one Q = 4096 batch over 20,000 x 128 (ip; the search's
-    tolerance comparison with the dequantized full scan flags an id whose
-    distance sits within rounding of the k-th distance plus the tolerance
-    once among so many queries, with the two id sets equal, so this batch
-    is held to the kernels' plain versions bit for bit instead). Every
+    ragged last groups; l2, ip and cosine; and one Q = 4096 batch over
+    20,000 x 128 (ip). Then the tensor-core sweep's tile edges on quantized
+    rows directly: N in {1, 127, 128, 129, 5000} x Q in {1, 15, 16, 17, 33,
+    129} x d in {16, 130, 2049}, l2 and ip in turn (ip: the query scale
+    halved, zero norms, 10% of the rows poisoned with PAD_NORM). Every
     kernel output equals its plain version bit for bit, every group min
     the min of its rescored rows."""
     import torch
@@ -1058,9 +1229,11 @@ def edge_sweep_q8(gen) -> None:
                          (4000, 256, 129)):
             through_index(metric, n, d, nq)
             cases += 1
+    through_index("ip", 20_000, 128, 4096)
+    cases += 1
     tiles = [(n, nq, d) for n in (1, 127, 128, 129, 5000) for nq in (1, 15, 16, 17, 33, 129)
              for d in (16, 130, 2049)]
-    for n, nq, d in tiles + [(20_000, 4096, 128)]:
+    for n, nq, d in tiles:
         codes, scales = T.quantize_int8(torch.randn(n, d, device="cuda", generator=gen))
         qi, qscale = T.quantize_int8(torch.randn(nq, d, device="cuda", generator=gen))
         deq = codes.float() * scales[:, None]
@@ -1257,10 +1430,11 @@ def check_running(name, q, x, k, metric, *, x_norms=None, got=None):
 
 def check_merged(name, q, x, k, metric, *, x_norms=None, got=None, plain=True):
     """topk_merged (``got``, or run now) against topk_twophase at the same
-    margin: over an f32 store equal bit for bit (distances, ids,
-    certificate); over a bf16 store, whose two-phase search scores on
-    tensor cores while topk_merged keeps row_dot, distances within 2
-    score_tol, ids equal but at near-ties, and both certificates all True.
+    margin: where both score on CUDA cores (f32, up to F32_CUDA_CORE_MAX_Q
+    queries) equal bit for bit (distances, ids, certificate); where the
+    two-phase search scores on tensor cores (bf16; f32 beyond that) while
+    topk_merged keeps row_dot, distances within 2 score_tol, ids equal but
+    at near-ties, and both certificates all True.
     Every certificate True; then its kernel wrapper: each candidate group's
     stage-1 min equal to the min of its stage-3 rows, and (``plain``) mins
     and scores against the plain version. Returns the largest kernel error
@@ -1277,7 +1451,7 @@ def check_merged(name, q, x, k, metric, *, x_norms=None, got=None, plain=True):
     qs, xs, sn = search_inputs(q, x, metric)
     smetric = "l2" if metric == "l2" else "ip"
     qf = qs.to(xs.dtype).contiguous() * (1.0 if smetric == "l2" else 0.5)
-    if x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16 or f32_route(x, q.shape[0]) == "mma":
         tol = 2 * score_tol(qf, sn)
         derr = max_abs_err(got[0], want[0])
         if derr > tol:
@@ -1359,8 +1533,8 @@ def edge_sweep_phase5(gen) -> dict:
                 mcases += 1
     log(f"  edge sweeps: topk_running {cases} shapes, ids equal to the plain version's "
         f"({near} near-tie positions), largest error {worst:.3g}; topk_merged {mcases} shapes "
-        f"equal to topk_twophase (f32 bit for bit, bf16 within tolerance), largest kernel error "
-        f"{mworst:.3g}")
+        f"equal to topk_twophase (bit for bit where both score f32 on CUDA cores, else within "
+        f"tolerance), largest kernel error {mworst:.3g}")
     return {"topk_running": worst, "topk_merged": mworst}
 
 
@@ -1452,7 +1626,8 @@ def phase5() -> dict:
         res["merged"][c] = r
         plain = "not timed: (Q, N) f32 too large" if r["plain_ms"] is None else \
             f"{r['plain_ms']:.4f} ms"
-        same = "bit for bit" if x.dtype == torch.float32 else "within 2 score_tol, ids at near-ties"
+        same = ("bit for bit" if x.dtype == torch.float32 and f32_route(x, nq) == "cuda"
+                else "within 2 score_tol, ids at near-ties")
         log(f"  topk_merged {c} (N={n:,} d={d} {str(x.dtype)[6:]} k={k}, t={t}): = "
             f"topk_twophase {same}, certificates all True, kernel err {err:.3g}; kernel "
             f"{r['ms']:.4f} ms (plain "
@@ -1586,9 +1761,11 @@ def check_ties(gen) -> dict:
     """The flat paths over a store whose second half repeats its first (a
     corpus holding each image twice): ids equal to the plain full scan's
     (which sorts stably) except at near-ties of distinct rows, ties in
-    ascending id order, and topk_merged equal to topk_twophase bit for bit.
-    FlatIndex f32 and int8 (l2, ip), topk_twophase_safe, topk_merged, and
-    k = 200 (the full-scan path)."""
+    ascending id order, and topk_merged equal to topk_twophase (check_merged:
+    bit for bit where both score on CUDA cores, within tolerance where the
+    two-phase search's Q = 16 f32 batch runs on tensor cores). FlatIndex f32
+    and int8 (l2, ip), topk_twophase_safe, topk_merged, and k = 200 (the
+    full-scan path)."""
     import torch
 
     from image_search_engine_tpu_torch.index.flat import FlatIndex
@@ -1618,9 +1795,10 @@ def check_ties(gen) -> dict:
     ties += assert_ties_ascending("ties topk_twophase_safe", d.cpu().numpy(), i.cpu().numpy())
     check_merged("ties topk_merged", q, xs, K, "l2", x_norms=norms, plain=False)
     checks += 2
+    same = "bit for bit" if f32_route(xs, TIE_Q) == "cuda" else "within tolerance"
     log(f"  ties: {checks} searches over {2 * TIE_HALF:,} x {TIE_D} rows (second half = first "
         f"half), ids equal to the stable plain scan's, {ties} tied neighbours all in ascending "
-        f"id order; topk_merged = topk_twophase bit for bit")
+        f"id order; topk_merged = topk_twophase {same}")
     return {"checks": checks, "tied_neighbours": ties}
 
 
@@ -2140,6 +2318,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from image_search_engine_tpu_torch.ops import _kernels
+    from image_search_engine_tpu_torch.ops import topk as T
 
     t_start = time.perf_counter()
     card = gpu_name_and_power()
@@ -2185,11 +2364,36 @@ def main() -> int:
         "library_ms": head[name]["library_ms"],
         "shape": "Q=1 N=1,000,000 d=2048 f32 l2 k=20",
     } for name in ("groupmin", "select_topt", "rescore")]
-    # the f32 sweep beside cuBLAS's f32 product alone, at Q = 1 and 64
-    q64 = shapes["Q64_N1M_d2048_f32_l2"]["groupmin"]
+    # the f32 sweep beside cuBLAS's f32 product alone at Q = 1; both f32
+    # sweeps by batch size; Q = 64 on tensor cores (3xTF32) and on CUDA cores
     kernels[0]["product_alone_ms"] = head["groupmin"]["product_alone_ms"]
-    kernels[0]["Q64"] = {k: q64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "product_alone_ms")}
+    kernels[0]["f32_ms_by_batch"] = {f"Q={q}": {"cuda_cores" if r == "cuda" else "tensor_cores": v
+                                                for r, v in rt.items()}
+                                     for q, rt in head["routes"].items()}
+    f32q64, f32q256 = shapes["Q64_N1M_d2048_f32_l2"], shapes["Q256_N1M_d2048_f32_l2"]
+    for entry in kernels:
+        name = entry["name"]
+        if name not in ("groupmin", "rescore"):
+            continue
+        r = f32q64[name]
+        tc = {"route": "tensor cores, 3xTF32", "from_q": T.F32_CUDA_CORE_MAX_Q + 1,
+              "source": SOURCES_F32_TC[name], "shape": "Q=64 N=1,000,000 d=2048 f32 l2 k=20",
+              "launches": served["batch"][name],
+              "max_abs_err": max(r["max_abs_err"], f32q256[name]["max_abs_err"],
+                                 mma_edge["f32"]),
+              **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+              "search_ms": f32q64["search_ms"],
+              "cuda_core_route": {**f32q64["cuda_cores"][name],
+                                  "search_ms": f32q64["cuda_cores"]["search_ms"]},
+              "Q256": {**{k: f32q256[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                       "search_ms": f32q256["search_ms"],
+                       "cuda_core_ms": f32q256["cuda_cores"][name]["ms"],
+                       "cuda_core_search_ms": f32q256["cuda_cores"]["search_ms"]}}
+        if name == "groupmin":
+            tc["product_alone_ms"] = r["product_alone_ms"]
+            tc["Q256"]["product_alone_ms"] = f32q256[name]["product_alone_ms"]
+        entry["f32_tensor_cores"] = tc
+        entry["f32_cuda_cores_up_to_q"] = T.F32_CUDA_CORE_MAX_Q
     # the bf16 store's kernels (tensor cores): bench.py's point, then 1M x 2048
     corpus = {f"N1M_d2048_Q{nq}": shapes[f"Q{nq}_N1M_d2048_bf16_l2"] for nq in (1, 64)}
     for entry in kernels:
@@ -2199,7 +2403,7 @@ def main() -> int:
         bf16 = dict(sixth["bf16"][name])
         if name == "rescore":
             bf16.update(seventh["rescore_bf16"])
-        bf16["max_abs_err"] = max(bf16["max_abs_err"], mma_edge,
+        bf16["max_abs_err"] = max(bf16["max_abs_err"], mma_edge["bf16"],
                                   *(c[name]["max_abs_err"] for c in corpus.values()))
         for c, r in corpus.items():
             bf16[c] = {k: v for k, v in r[name].items() if k != "max_abs_err"}

@@ -53,12 +53,13 @@
 #include <cstdint>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int BM = 256;   // points per block: 128 per consumer warpgroup
 constexpr int BN = 128;   // centroids per tile: the wgmma's N
-constexpr int BK = 32;    // f32 columns per stage: 128 bytes, one swizzle span
+constexpr int BK = SW128_COLS;  // f32 columns per stage: 128 bytes, one swizzle span
 constexpr int KSTEPS = BK / 8;
 constexpr int MT = 2;     // 64-row tiles per consumer warpgroup
 constexpr int STAGES = 3;
@@ -73,97 +74,6 @@ constexpr size_t ASSIGN_SMEM = 1024 + (size_t)STAGES * STAGE_BYTES + 2 * STAGES 
 
 __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);
-}
-
-// ---- mbarriers and the Tensor Memory Accelerator ----
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-// the box at (c0, c1, c2) of a 3-D tensor map into shared memory at dst,
-// counted on the barrier's transaction bytes
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// ---- the warpgroup MMA ----
-
-// A descriptor of a K-major operand tile in the 128-byte swizzle: rows of
-// 128 bytes, 8-row atoms 1024 bytes apart; the k-step's 32 bytes are
-// selected by the start address.
-__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3ffff) >> 4) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d += a . b for a 64 x 128 x 8 tf32 tile: a from registers (each warp its
-// 16 rows in mma.sync m16n8k8's A fragment), b from shared memory (desc_b).
-__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], const uint32_t (&a)[4],
-                                                     uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of r across the async MMA
-__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void fence_operand(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
 }
 
 __global__ void __launch_bounds__(ASSIGN_THREADS, 1)
@@ -272,9 +182,9 @@ __global__ void __launch_bounds__(ASSIGN_THREADS, 1)
     for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
       for (int t = 0; t < MT; ++t) {  // the small terms of each k-step first
-        wgmma_tf32_m64n128k8(acc[t], ah[t][kk], dl[kk]);
-        wgmma_tf32_m64n128k8(acc[t], al[t][kk], dh[kk]);
-        wgmma_tf32_m64n128k8(acc[t], ah[t][kk], dh[kk]);
+        wgmma_tf32<BN>(acc[t], ah[t][kk], dl[kk], 1);
+        wgmma_tf32<BN>(acc[t], al[t][kk], dh[kk], 1);
+        wgmma_tf32<BN>(acc[t], ah[t][kk], dh[kk], 1);
       }
     wgmma_commit();
     wgmma_wait_all();
@@ -344,41 +254,6 @@ __global__ void __launch_bounds__(ASSIGN_THREADS, 1)
         mins[(long long)bt * n + row0 + r] = v;
       }
     }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's tensor-map encoder, looked up through the runtime (the
-// library links no libcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A 3-D f32 tensor map of `cols` contiguous columns and two more dimensions
-// (extents e1, e2; strides s1, s2 elements) with a box of 32 columns x b1 x
-// b2, 128-byte swizzled, zero-filling out of bounds.
-bool tensor_map(CUtensorMap* map, const void* base, long long cols, long long e1, long long s1,
-                int b1, long long e2, long long s2, int b2) {
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)e1, (cuuint64_t)e2};
-  const cuuint64_t strides[2] = {(cuuint64_t)s1 * 4, (cuuint64_t)s2 * 4};
-  const cuuint32_t box[3] = {BK, (cuuint32_t)b1, (cuuint32_t)b2};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
-                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

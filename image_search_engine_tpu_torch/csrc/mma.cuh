@@ -2,8 +2,9 @@
 // mma.sync products, their ldmatrix operand loads from padded shared memory,
 // cp.async tile copies, and the 3xTF32 split. Used by the flat search's
 // group-min sweep (groupmin_mma.cuh: bf16 and int8 stores), its bf16 rescore
-// (topk_twophase.cu) and the k-means assignment (kmeans_assign.cu, whose
-// warpgroup MMA takes its A operand in mma.sync m16n8k8's tf32 fragment).
+// (topk_twophase.cu), and the warpgroup-MMA kernels (groupmin_tf32.cu: the
+// f32 store's sweep and rescore; kmeans_assign.cu), which take their A
+// operand in mma.sync m16n8k8's tf32 fragment.
 //
 //   bf16  mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 //   int8  mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32

@@ -26,10 +26,12 @@
 // three-kernel search's f32 kernels (topk_twophase.cu) and scores rows with
 // the same routine (scoring.cuh's row_dot and score_of, the same VEC), so
 // over an f32 store this search equals topk_twophase at the same margin bit
-// for bit: the same mins, the same candidate groups in the same order, the
-// same scores. Over a bf16 store topk_twophase scores on tensor cores
-// (mma.cuh) while this search keeps row_dot: the two agree within the
-// f32 summation-order tolerance.
+// for bit wherever topk_twophase scores f32 on CUDA cores (a few queries,
+// ops/topk.py F32_CUDA_CORE_MAX_Q): the same mins, the same candidate
+// groups in the same order, the same scores. Over a bf16 store, and over an
+// f32 one beyond those few queries, topk_twophase scores on tensor cores
+// (mma.cuh, groupmin_tf32.cu) while this search keeps row_dot: the two
+// agree within the f32 summation-order tolerance.
 //
 // What bounds it: as the two-phase search, one read of the store per query
 // tile (bytes at small Q; the 2*Q*N*d operations at large Q), then the

@@ -3,8 +3,9 @@
 // nvcc and binds it; ops/topk.py holds the wrappers and the plain PyTorch
 // version of each kernel).
 //
-//   groupmin_kernel      phase 1, f32 store: for each 128-row group of the
-//                        store and each query, min over the group of
+//   groupmin_kernel      phase 1, f32 store (small batches, or rows of no
+//                        whole 16-byte units): for each 128-row group of
+//                        the store and each query, min over the group of
 //                        norms[r] - 2 q.x[r] on CUDA cores.
 //   groupmin_mma_kernel  phase 1, bf16 store: the same mins from a tiled
 //                        tensor-core sweep (groupmin_mma.cuh, shared with
@@ -13,22 +14,28 @@
 //                        _groupmin_kernel.
 //   select_kernel        per query, the t smallest group mins in ascending
 //                        (value, group id) order. Replaces _select_topt_kernel.
-//   rescore_kernel       phase 2, f32 store: for each (query, candidate
-//                        group) the 128 scores norms[r] - 2 q.x[r], read in
-//                        place from the store (no gather buffer).
+//   rescore_kernel       phase 2, f32 store (as groupmin_kernel): for each
+//                        (query, candidate group) the 128 scores norms[r] -
+//                        2 q.x[r], read in place from the store (no gather
+//                        buffer).
 //   rescore_mma_kernel   phase 2, bf16 store: the same on tensor cores. Both
 //                        replace _fused_rescore_kernel.
 //
-// Phase 1 and phase 2 score a row with one routine per store dtype: f32
-// with row_dot (scoring.cuh: the same lane striding, the same explicit fmaf
+// An f32 store's batches beyond a few queries over rows of whole 16-byte
+// units take both phases on the warpgroup MMA instead (groupmin_tf32.cu;
+// ops/topk.py picks the route, the same for both phases). Phase 1 and phase
+// 2 score a row with one routine per store dtype and route: f32 here with
+// row_dot (scoring.cuh: the same lane striding, the same explicit fmaf
 // chain and the same butterfly reduction), bf16 with mma_steps
 // (mma.cuh: the same lane, register and mma sequence for every score).
 // A phase-1 group min is therefore bit for bit the min of the phase-2 scores
 // of that group, so the certificate "k-th final score <= t-th selected group
 // min" holds whenever t >= k.
 //
-// f32 stores are scored in IEEE f32 (fmaf, no TF32). bf16 stores multiply
-// bf16 by bf16 (exact in f32) and accumulate in f32 on the tensor cores.
+// f32 stores are scored here in IEEE f32 (fmaf, no TF32); groupmin_tf32.cu
+// scores them with a 3xTF32 split, the counterpart of the JAX package's
+// Precision.HIGHEST. bf16 stores multiply bf16 by bf16 (exact in f32) and
+// accumulate in f32 on the tensor cores.
 // Rows at or past n score +inf, so the store is never padded or copied per
 // call.
 

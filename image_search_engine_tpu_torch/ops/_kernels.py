@@ -27,9 +27,9 @@ _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
            _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu",
            _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu", _CSRC / "groupmin_variants.cu",
-           _CSRC / "rescore_variants.cu")
+           _CSRC / "rescore_variants.cu", _CSRC / "groupmin_tf32.cu")
 HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh", _CSRC / "mma.cuh",
-           _CSRC / "groupmin_mma.cuh")
+           _CSRC / "groupmin_mma.cuh", _CSRC / "wgmma.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -109,12 +109,16 @@ def library() -> ctypes.CDLL:
             lib.ise_groupmin.restype = i
             lib.ise_groupmin_mma.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, p]
             lib.ise_groupmin_mma.restype = i
+            lib.ise_groupmin_tf32.argtypes = [p, p, p, p, p, i, ll, i, i, i, p]
+            lib.ise_groupmin_tf32.restype = i
             lib.ise_select_topt.argtypes = [p, p, p, i, i, i, p]
             lib.ise_select_topt.restype = i
             lib.ise_rescore.argtypes = [p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_rescore.restype = i
             lib.ise_rescore_mma.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, i, i, p]
             lib.ise_rescore_mma.restype = i
+            lib.ise_rescore_tf32.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, p]
+            lib.ise_rescore_tf32.restype = i
             lib.ise_groupmin_q8.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_groupmin_q8.restype = i
             lib.ise_groupmin_q8_mma.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, i, i, i, i, i, p]

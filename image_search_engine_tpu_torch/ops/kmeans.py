@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from image_search_engine_tpu_torch.ops import _kernels
 from image_search_engine_tpu_torch.ops.distances import l2_normalize
-from image_search_engine_tpu_torch.ops.topk import _on_cuda, _stream
+from image_search_engine_tpu_torch.ops.topk import _on_cuda, _stream, tf32_split
 from image_search_engine_tpu_torch.utils.device import resolve_device
 
 _NORM_ROWS = 1 << 16  # rows per ||x||^2 pass (bounds the squared temporary)
@@ -104,23 +104,6 @@ def _row_sq_norms(x: torch.Tensor) -> torch.Tensor:
         xc = x[:, s:s + _NORM_ROWS]
         out[:, s:s + _NORM_ROWS] = (xc * xc).sum(-1)
     return out
-
-
-def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The 3xTF32 split of f32 values: (hi, lo) f32 with hi = tf32(v) and lo
-    = tf32(v - hi), each rounded to nearest with ties away from zero (as
-    ``cvt.rna.tf32.f32``: half a tf32 ulp added to the magnitude, the 13 low
-    mantissa bits cleared), so each holds 10 explicit mantissa bits. v - hi
-    is exact in f32, so hi + lo is v within 2^-22 |v| (finite v below
-    2^128 - 2^114, where hi rounds to inf). The kernel reads the centroids
-    split by this and splits the points the same way (``tf32_split`` in
-    ``csrc/mma.cuh``)."""
-    def rna(t: torch.Tensor) -> torch.Tensor:
-        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-
-    v = v.float()
-    hi = rna(v)
-    return hi, rna(v - hi)
 
 
 def _assign_kernel(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

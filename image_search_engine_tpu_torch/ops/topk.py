@@ -22,11 +22,15 @@ scales fold into an f32 epilogue.
 
 Each step is a hand-written CUDA kernel (``csrc/topk_twophase.cu``,
 ``csrc/topk_twophase_q8.cu``) with a plain PyTorch version beside it; a
-bf16 store's steps 1 and 3 and an int8 store's step 1 (beyond 4 queries)
-run on tensor cores (``csrc/mma.cuh``, ``csrc/groupmin_mma.cuh``), an f32
-store's on CUDA cores. Each store dtype scores a row the same way in steps
-1 and 3 (int8: the same exact int32 sum, with ``__dp4a`` in step 3), so a
-group's step-1 min is bit for bit the min of its step-3 scores. A wrapper
+bf16 store's steps 1 and 3 and an int8 store's step 1 beyond
+``DP4A_MAX_Q`` queries run on tensor cores (``csrc/mma.cuh``,
+``csrc/groupmin_mma.cuh``), an f32 store's steps 1 and 3 beyond
+``F32_CUDA_CORE_MAX_Q`` queries on the warpgroup MMA with a 3xTF32 split
+(``csrc/groupmin_tf32.cu``, where the rows are whole 16-byte units),
+smaller f32 and int8 batches on CUDA cores. Each store dtype and batch
+size scores a row the same way in steps 1 and 3 (int8: the same exact
+int32 sum, with ``__dp4a`` in step 3), so a group's step-1 min is bit for
+bit the min of its step-3 scores. A wrapper
 runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``.
@@ -64,6 +68,12 @@ MAX_Q8_DIM = 133_000
 #: is ~7% faster at Q = 1 and 4, the second ~17% faster at Q = 8:
 #: chip_smoke.py phase 4, PERF.md)
 DP4A_MAX_Q = 4
+#: batches of up to this many queries score an f32 store on CUDA cores
+#: (``row_dot``, IEEE f32 FMAs) in both phases, larger ones on tensor cores
+#: with a 3xTF32 split where the rows allow (over 1M x 2048 on the H100 the
+#: first is faster at Q = 1 and 2, the second from Q = 4 on: chip_smoke.py
+#: phase 1, PERF.md)
+F32_CUDA_CORE_MAX_Q = 2
 #: store rows per float64 product in the int8 plain versions (bounds the copy)
 _Q8_REF_ROWS = 1 << 14
 
@@ -177,28 +187,16 @@ def _groupmin_mma_smem(bq: int, nq: int, dp: int, kc: int, resident: bool,
 
 
 @dataclass(frozen=True)
-class MmaPlan:
-    """The tile arithmetic of the tensor-core kernels for Q queries over N
-    rows of d elements of ``itemsize`` bytes (2: bf16, 1: int8): phase 1
-    runs ``grid`` blocks of ``bq`` queries and a slice of ``gps`` groups
-    each, block b on query tile b % nqt and slice b // nqt, streaming each
-    group's padded row in k-chunks of ``kc`` elements past a query tile kept
-    in shared memory (``resident``) or streamed with them; the bf16 phase 2
-    runs a block per (query, group) pair, whose warps stream ``rescore_kc``
-    columns of their 32 rows at a time. Both double-buffer their copies.
-    ``dp`` is d zero-padded to whole 32-byte k-steps (16 bf16 values, 32
-    int8 codes)."""
+class SweepGrid:
+    """A tensor-core sweep's blocks for Q = nq queries over N rows (the
+    bf16 and int8 sweep's, :class:`MmaPlan`, and the f32 one's,
+    :func:`wgmma_plan`): block b takes query tile b % nqt (``bq`` queries)
+    and the slice of ``gps`` 128-row groups b // nqt."""
 
     nq: int
     n: int
-    d: int
     bq: int
-    dp: int
-    kc: int
-    resident: bool
     gps: int
-    rescore_kc: int
-    itemsize: int = 2
 
     @property
     def ngroups(self) -> int:
@@ -211,6 +209,34 @@ class MmaPlan:
     @property
     def grid(self) -> int:
         return -(-self.ngroups // self.gps) * self.nqt
+
+    def block_tiles(self, b: torch.Tensor):
+        """(q0, q1, g0, g1) of phase-1 blocks ``b``: the queries [q0, q1) and
+        groups [g0, g1) each one writes, as the kernel maps its blockIdx."""
+        qt, sl = b % self.nqt, b // self.nqt
+        return (qt * self.bq, torch.clamp((qt + 1) * self.bq, max=self.nq),
+                sl * self.gps, torch.clamp((sl + 1) * self.gps, max=self.ngroups))
+
+
+@dataclass(frozen=True)
+class MmaPlan(SweepGrid):
+    """The tile arithmetic of the tensor-core kernels for Q queries over N
+    rows of d elements of ``itemsize`` bytes (2: bf16, 1: int8): phase 1
+    runs ``grid`` blocks of ``bq`` queries and a slice of ``gps`` groups
+    each, block b on query tile b % nqt and slice b // nqt, streaming each
+    group's padded row in k-chunks of ``kc`` elements past a query tile kept
+    in shared memory (``resident``) or streamed with them; the bf16 phase 2
+    runs a block per (query, group) pair, whose warps stream ``rescore_kc``
+    columns of their 32 rows at a time. Both double-buffer their copies.
+    ``dp`` is d zero-padded to whole 32-byte k-steps (16 bf16 values, 32
+    int8 codes)."""
+
+    d: int
+    dp: int
+    kc: int
+    resident: bool
+    rescore_kc: int
+    itemsize: int = 2
 
     @property
     def smem(self) -> int:
@@ -226,13 +252,6 @@ class MmaPlan:
     def rescore_grid(self, t: int) -> int:
         """Phase-2 blocks for t candidate groups per query."""
         return self.nq * t
-
-    def block_tiles(self, b: torch.Tensor):
-        """(q0, q1, g0, g1) of phase-1 blocks ``b``: the queries [q0, q1) and
-        groups [g0, g1) each one writes, as the kernel maps its blockIdx."""
-        qt, sl = b % self.nqt, b // self.nqt
-        return (qt * self.bq, torch.clamp((qt + 1) * self.bq, max=self.nq),
-                sl * self.gps, torch.clamp((sl + 1) * self.gps, max=self.ngroups))
 
 
 def mma_plan(nq: int, n: int, d: int, itemsize: int = 2) -> MmaPlan:
@@ -260,13 +279,67 @@ def mma_plan(nq: int, n: int, d: int, itemsize: int = 2) -> MmaPlan:
                         for r in (True, False)
                         for k in kcs
                         if _groupmin_mma_smem(bq, nq, dp, k, r, itemsize) <= limit)
-    plan = MmaPlan(nq, n, d, bq, dp, kc, resident, gps, min(dp, _RESCORE_MMA_KC), itemsize)
+    plan = MmaPlan(nq=nq, n=n, bq=bq, gps=gps, d=d, dp=dp, kc=kc, resident=resident,
+                   rescore_kc=min(dp, _RESCORE_MMA_KC), itemsize=itemsize)
     # the int8 phase 2 runs on CUDA cores (rescore_q8) and takes no plan
     if itemsize == 2 and plan.rescore_smem > _SMEM_BYTES:
         raise ValueError(f"d={d} exceeds the bf16 rescore's shared-memory query row")
     if plan.grid > _GRID_MAX:
         raise ValueError(f"Q={nq} over N={n} rows exceeds the sweep's grid")
     return plan
+
+
+#: queries per tile of the f32 warpgroup-MMA kernels (csrc/groupmin_tf32.cu)
+_TF32_BQ = (16, 32, 64, 128)
+_TF32_GROUP_ROWS_MAX = 2 ** 31 - 1 - GROUP  # their tensor maps take int row coordinates
+
+
+def wgmma_plan(nq: int, n: int, sms: int) -> SweepGrid:
+    """The f32 warpgroup-MMA sweep's blocks for Q = nq queries over n rows on
+    a card of ``sms`` SMs: the smallest query tile of 16, 32, 64 or 128 that
+    holds min(Q, 128) queries, and slices of as many groups as give about one
+    block (its four-stage ring fills an SM) per SM. The f32 rescore runs on
+    the same query tile (``bq``), so it repeats phase 1's products."""
+    if nq < 1 or n < 1 or sms < 1:
+        raise ValueError(f"no tile plan for Q={nq}, N={n} on {sms} SMs")
+    bq = next(b for b in _TF32_BQ if b >= min(nq, _TF32_BQ[-1]))
+    nqt = -(-nq // bq)
+    ng = num_groups(n)
+    grid = SweepGrid(nq, n, bq, min(ng, max(1, -(-ng * nqt // sms))))
+    if grid.grid > _GRID_MAX:
+        raise ValueError(f"Q={nq} over N={n} rows exceeds the sweep's grid")
+    return grid
+
+
+def _wgmma_rows(x: torch.Tensor) -> bool:
+    """Whether the f32 store's rows suit the warpgroup-MMA kernels: d a
+    multiple of 4 (16-byte rows), a 16-byte aligned base, int row indices."""
+    return (x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+            and x.shape[0] <= _TF32_GROUP_ROWS_MAX)
+
+
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of f32 values: (hi, lo) f32 with hi = tf32(v) and lo
+    = tf32(v - hi), each rounded to nearest with ties away from zero (as
+    ``cvt.rna.tf32.f32``: half a tf32 ulp added to the magnitude, the 13 low
+    mantissa bits cleared), so each holds 10 explicit mantissa bits. v - hi
+    is exact in f32, so hi + lo is v within 2^-22 |v| (finite v below
+    2^128 - 2^114, where hi rounds to inf). The warpgroup-MMA kernels read
+    their right operand split by this (the k-means centroids, the f32
+    search's queries) and split their left one the same way in registers
+    (``tf32_split`` in ``csrc/mma.cuh``)."""
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    v = v.float()
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
+def _wgmma_plan(x: torch.Tensor, nq: int) -> SweepGrid:
+    """:func:`wgmma_plan` for Q = nq queries over the store ``x`` on its card."""
+    return wgmma_plan(nq, x.shape[0],
+                      torch.cuda.get_device_properties(x.device).multi_processor_count)
 
 
 def _vec_mma(q: torch.Tensor, x: torch.Tensor) -> int:
@@ -287,6 +360,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _on_tensor_cores(x: torch.Tensor, nq: int) -> bool:
+    """Whether :func:`groupmin` and :func:`rescore` score Q = nq queries
+    against the f32 or bf16 store ``x`` on tensor cores: bf16 always, f32
+    beyond ``F32_CUDA_CORE_MAX_Q`` queries over rows of whole 16-byte units
+    (``_wgmma_rows``). One rule for both phases, so a group's phase-1 min is
+    its phase-2 rows' min bit for bit."""
+    return x.dtype == torch.bfloat16 or (nq > F32_CUDA_CORE_MAX_Q and _wgmma_rows(x))
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: group mins
 # ---------------------------------------------------------------------------
@@ -299,27 +381,38 @@ def groupmin(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> torch.Ten
 
     Replaces ``_groupmin_kernel`` (image_search_engine_tpu/ops/
     topk_pallas.py:252), a product on the TPU's matrix unit followed by
-    128-column mins. Two kernels, by store dtype:
+    128-column mins (f32 at ``Precision.HIGHEST``). Three kernels, all
+    bounded by the 2*Q*N*d operations at large Q (three times that for f32,
+    on the tf32 units) and by the store's bytes at small Q, none of which
+    lets a score leave the chip:
 
-    * bf16, on tensor cores (``groupmin_mma_kernel``): bounded by the
-      2*Q*N*d operations at large Q (the bench point) and by the store's
-      N*d*2 bytes at small Q. A block keeps a tile of up to 128 queries in
-      shared memory and streams a slice of groups past it (``cp.async``,
-      double-buffered, k-chunked for wide rows; where a resident tile of
-      wide rows would leave an SM room for one block only, the tile streams
-      with the store instead); warps multiply with
-      ``mma.sync`` m16n8k16 and take each group's min in the epilogue, so
-      no score leaves the chip. Q = 1 takes the same route: its 16x unused
-      products cost little next to reading the store. The tiles come from
-      :func:`mma_plan`.
-    * f32, on CUDA cores (``groupmin_kernel``): at serving batch sizes (Q
-      <= 8) its 2*Q*N*d flops are far below the f32 rate, so it is a
-      memory-bandwidth kernel. It streams each row with 16-byte loads,
-      keeps up to 8 queries in shared memory per block so one read of a
-      row serves all of them, and orders blocks so the query tiles of one
-      group run back to back and find the group in L2.
+    * bf16, on tensor cores (``groupmin_mma_kernel``): a block keeps a tile
+      of up to 128 queries in shared memory and streams a slice of groups
+      past it (``cp.async``, double-buffered, k-chunked for wide rows; where
+      a resident tile of wide rows would leave an SM room for one block
+      only, the tile streams with the store instead); warps multiply with
+      ``mma.sync`` m16n8k16 and take each group's min in the epilogue. Q =
+      1 takes the same route: its 16x unused products cost little next to
+      reading the store. The tiles come from :func:`mma_plan`.
+    * f32 beyond ``F32_CUDA_CORE_MAX_Q`` queries over rows of whole 16-byte
+      units (``flat_tf32_kernel``, ``csrc/groupmin_tf32.cu``): the
+      warpgroup MMA with a 3xTF32 split, store rows as its A operand (split
+      once each in registers), the queries' halves (:func:`tf32_split`) as
+      B; the Tensor Memory Accelerator streams 32-column stages of a group
+      and up to 128 queries through a ring that one producer thread fills
+      while two warpgroups multiply, about one block an SM
+      (:func:`wgmma_plan`). Per 4 k-steps the products lo.hi, hi.lo, hi.hi
+      of each step go into a zeroed sum, which one f32 add puts into the
+      row's.
+    * other f32 batches, on CUDA cores (``groupmin_kernel``, IEEE f32
+      FMAs): up to ``F32_CUDA_CORE_MAX_Q`` queries its 2*Q*N*d flops are
+      far below the f32 rate, so it is a memory-bandwidth kernel. It
+      streams each row with 16-byte loads, keeps up to 8 queries in shared
+      memory per block so one read of a row serves all of them, and orders
+      blocks so the query tiles of one group run back to back and find the
+      group in L2.
 
-    Neither pads or copies the store: the kernels mask the ragged edge.
+    None pads or copies the store: the kernels mask the ragged edge.
     """
     _check_scoring_args(q, x, norms)
     if not _on_cuda(q, x, norms):
@@ -329,22 +422,31 @@ def groupmin(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> torch.Ten
     out = torch.empty((nq, num_groups(n)), dtype=torch.float32, device=x.device)
     if nq == 0 or n == 0:
         return out
+    mma = _on_tensor_cores(x, nq)
     with torch.cuda.device(x.device):
         lib = _kernels.library()
-        if x.dtype == torch.bfloat16:
+        if mma and x.dtype == torch.bfloat16:
             p = mma_plan(nq, n, d)
             err = lib.ise_groupmin_mma(
                 q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, d, p.bq,
                 p.dp, p.kc, p.gps, int(p.resident), p.smem, _vec_mma(q, x), _stream(x))
+        elif mma:
+            hi, lo = tf32_split(q)
+            p = _wgmma_plan(x, nq)
+            err = lib.ise_groupmin_tf32(x.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                                        norms.data_ptr(), out.data_ptr(), nq, n, d, p.bq, p.gps,
+                                        _stream(x))
         else:
             err = lib.ise_groupmin(q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(),
                                    nq, n, d, _query_tile(nq, d * 4), _vec(x), _stream(x))
     _kernels.check(err, "groupmin")
     groupmin.launches += 1
+    groupmin.tensor_core_launches += int(mma)
     return out
 
 
 groupmin.launches = 0
+groupmin.tensor_core_launches = 0  # of those, the tensor-core sweep's
 
 
 def groupmin_ref(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
@@ -528,9 +630,9 @@ def rescore(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
     Replaces ``_fused_rescore_kernel`` (topk_pallas.py:298, launched at
     :775). What bounds it on the card: the gathered bytes, Q*t*128*d*
     itemsize, read from scattered 128-row blocks in place from the store
-    (no (Q, t*128, d) gather buffer). Each store dtype is scored by the
-    routine of its phase 1, so a group's phase-1 min is bit for bit the min
-    of its phase-2 scores:
+    (no (Q, t*128, d) gather buffer). The rows are scored by the routine of
+    phase 1 for the same store dtype and batch size (``_on_tensor_cores``),
+    so a group's phase-1 min is bit for bit the min of its phase-2 scores:
 
     * bf16 (``rescore_mma_kernel``): :func:`groupmin`'s tensor-core
       routine, a block per (query, group) pair, with the query in A row
@@ -538,9 +640,15 @@ def rescore(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
       phase 1 gives it; each of the block's four warps streams 32 of the
       rows in k-chunks (``cp.async``, two stages per warp), so a pair keeps
       four chunks in flight.
-    * f32 (``rescore_kernel``): each group split over 4 blocks (32 rows, 4
-      per warp) to put more SMs on the gather at Q = 1, each row scored by
-      ``row_dot`` as in phase 1.
+    * f32 beyond ``F32_CUDA_CORE_MAX_Q`` queries over rows of whole 16-byte
+      units (``flat_tf32_kernel``, ``csrc/groupmin_tf32.cu``): phase 1's
+      kernel, a block per (query, group) pair, on the query tile phase 1
+      gave the query (:func:`wgmma_plan`'s ``bq``), so every score comes
+      from phase 1's instructions on phase 1's operands; the tile's other
+      queries' products are discarded.
+    * other f32 batches (``rescore_kernel``): each group split over 4
+      blocks (32 rows, 4 per warp) to put more SMs on the gather at Q = 1,
+      each row scored by ``row_dot`` as in phase 1.
     """
     _check_scoring_args(q, x, norms)
     _check_cand(cand, q.shape[0])
@@ -548,29 +656,36 @@ def rescore(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
         return rescore_ref(q, x, norms, cand)
     nq, d = q.shape
     t = cand.shape[1]
-    bf16 = x.dtype == torch.bfloat16
-    if not bf16 and d * 4 > _SMEM_BYTES:
+    mma = _on_tensor_cores(x, nq)
+    if not mma and d * 4 > _SMEM_BYTES:
         raise ValueError(f"d={d} exceeds the kernel's shared-memory query row")
     out = torch.empty((nq, t * GROUP), dtype=torch.float32, device=x.device)
     if nq == 0 or t == 0:
         return out
     with torch.cuda.device(x.device):
         lib = _kernels.library()
-        if bf16:
+        if mma and x.dtype == torch.bfloat16:
             p = mma_plan(nq, x.shape[0], d)
             err = lib.ise_rescore_mma(
                 q.data_ptr(), norms.data_ptr(), x.data_ptr(), cand.data_ptr(), out.data_ptr(), nq,
                 x.shape[0], d, t, p.dp, p.rescore_kc, p.rescore_smem, _vec_mma(q, x),
                 _stream(x))
+        elif mma:
+            hi, lo = tf32_split(q)
+            err = lib.ise_rescore_tf32(x.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                                       norms.data_ptr(), cand.data_ptr(), out.data_ptr(), nq,
+                                       x.shape[0], d, t, _wgmma_plan(x, nq).bq, _stream(x))
         else:
             err = lib.ise_rescore(q.data_ptr(), norms.data_ptr(), x.data_ptr(), cand.data_ptr(),
                                   out.data_ptr(), nq, x.shape[0], d, t, _vec(x), _stream(x))
     _kernels.check(err, "rescore")
     rescore.launches += 1
+    rescore.tensor_core_launches += int(mma)
     return out
 
 
 rescore.launches = 0
+rescore.tensor_core_launches = 0  # of those, the tensor-core rescore's
 
 
 def rescore_ref(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
@@ -782,6 +897,7 @@ KERNELS = (groupmin, select_topt, rescore, groupmin_q8, rescore_q8, topk_running
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    groupmin.tensor_core_launches = rescore.tensor_core_launches = 0
 
 
 def launch_counts() -> dict:

@@ -8,15 +8,17 @@ stable candidate sort, id rebuild and certificate as the two-phase search.
 f32 and bf16 stores, l2, ip and cosine, k <= 128, no escalation: with
 ``with_certificate`` the caller sees which queries are proved exact.
 
-On the card, over an f32 store, it equals ``topk_twophase(..., t_margin=
-t_margin)`` bit for bit (the same row routine, the same work items, the
-same select order). Over a bf16 store it keeps the CUDA-core row routine
-(``row_dot``) while ``topk_twophase`` scores bf16 on tensor cores, so the
+On the card, over an f32 store and up to ``F32_CUDA_CORE_MAX_Q`` queries,
+it equals ``topk_twophase(..., t_margin=t_margin)`` bit for bit (the same
+row routine, the same work items, the same select order). Over a bf16
+store, and over an f32 one beyond that many queries (rows of whole
+16-byte units), it keeps the CUDA-core row routine (``row_dot``) while
+``topk_twophase`` scores on tensor cores (f32 with a 3xTF32 split), so the
 two agree within the f32 summation-order tolerance, with ids equal but at
-near-ties. On the CPU both run the same plain versions. The JAX package counts t = min(k +
-t_margin, ngroups) over a store padded to its tile, so the two packages
-agree whenever k + t_margin <= ceil(N / 128), the real group count the port
-uses; below that the port rescores every real group.
+near-ties. On the CPU both run the same plain versions. The JAX package
+counts t = min(k + t_margin, ngroups) over a store padded to its tile, so
+the two packages agree whenever k + t_margin <= ceil(N / 128), the real
+group count the port uses; below that the port rescores every real group.
 """
 
 from __future__ import annotations

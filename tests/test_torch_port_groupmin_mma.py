@@ -12,7 +12,8 @@ their plain versions. Here:
       exactly once, as the kernel maps its block index;
   (b) the routing, with a fake kernel library and ``_on_cuda`` patched: a
       bf16 store calls the tensor-core entry points on one plan, an f32 store
-      the CUDA-core ones, and a non-zero return code raises;
+      of up to ``F32_CUDA_CORE_MAX_Q`` queries the CUDA-core ones, and a
+      non-zero return code raises;
   (c) the port's bf16 ``topk_twophase`` on the CPU (each kernel's plain
       version) against the JAX package's ``topk_twophase`` in interpret mode
       at d = 130 (rows of no 16-byte multiple), Q = 17 (a partial 16-query
@@ -203,8 +204,9 @@ def test_bf16_routes_to_the_tensor_core_kernels_on_one_plan(fake_cuda):
 
 
 def test_f32_routes_to_the_cuda_core_kernels(fake_cuda):
+    # batches up to F32_CUDA_CORE_MAX_Q (larger ones: test_torch_port_groupmin_tf32.py)
     lib = fake_cuda()
-    q, x, norms, cand = inputs(torch.float32, d=128)
+    q, x, norms, cand = inputs(torch.float32, nq=T.F32_CUDA_CORE_MAX_Q, d=128)
     T.groupmin(q, x, norms)
     T.rescore(q, x, norms, cand)
     assert [c[0] for c in lib.calls] == ["ise_groupmin", "ise_rescore"]
