@@ -17,12 +17,20 @@ Phases (each raises on failure; the script then exits non-zero):
      x 2048, Q = 1 and 64, beside the bf16 product alone and the row_dot
      sweep); edge sweeps of the bf16 and the f32 tensor-core
      kernels' tiles and f32 rows of one sign; every group min equal to the
-     min of its rescored rows bit for bit, every certificate true;
+     min of its rescored rows bit for bit, every certificate true; then the
+     select (``select_topt``: the radix route up to SELECT_RADIX_MAX_T, the
+     extract-min kernel beyond) bit-equal to its plain version over a sweep
+     of row widths, t, batch sizes and rows (random, tie-heavy, +-0.0, +inf,
+     small entries off the sampled positions), each route timed where it
+     runs, beside ``torch.topk`` and, for the radix route, the extract-min
+     kernel it replaced (CUDA events around each call, and around a CUDA
+     graph's replay for the device's time alone);
   2. the flat main path through the user's entry points: 4,096 PNGs
      indexed by the port's indexer CLI (ResNet-50, flat l2, f32 store), the
      port's HTTP server queried with corpus images, and the kernel launch
      counts of that serving run; then a batch of 64 stored embeddings
-     through FlatIndex.search (the f32 tensor-core route);
+     through FlatIndex.search (the f32 tensor-core route), and the select on
+     the served index's group mins (Q = 1, 32 groups) timed;
   3. IVF-PQ: an IVFPQIndex (nlist 1024, nprobe 4, m 16) built on the card
      over 1,000,000 x 2048 clustered rows, its two kernels (k-means
      assignment, probed scan) and the probed top-k against their plain
@@ -30,13 +38,17 @@ Phases (each raises on failure; the script then exits non-zero):
      IVF-PQ path through the entry points (the same PNGs, indexer CLI with
      ``--index-type ivfpq --pq-rerank 64``, HTTP server) with the launch
      counts of the build and of serving; the assignment (3xTF32 on tensor
-     cores) beside cuBLAS's f32 product alone and both bounds;
+     cores) beside cuBLAS's f32 product alone and both bounds; the select
+     timed on the probed scan's width at Q = 1 and 64, and a search with k
+     beyond SELECT_RADIX_MAX_T through the select's extract-min route;
   4. the int8 store and chi2: quantization on the card bit-identical to the
      numpy formula, the int8 kernels (phase 1 on CUDA cores up to 4 queries,
      on tensor cores beyond) equal to their plain versions bit for bit at Q
      = 1 x 1M x 2048 and three other shapes plus a 118-shape edge sweep,
      with timings (both phase-1 kernels at Q = 1, 4, 8, 16; ``torch._int_mm``'s
-     product alone as a yardstick); then the same PNGs through
+     product alone as a yardstick; the rescore with its slots in slot order
+     and in group order at Q = 1, 64 and 256, and the group order's kernel);
+     then the same PNGs through
      ``--store-dtype int8`` and through ``--index-type chi2``, each served
      over HTTP with its launch counts; after phase 7, phase 1 at bench.py's
      point quantized to int8 (Q = 2048);
@@ -105,7 +117,7 @@ TIMING_REPS = 20
 CSRC = "image_search_engine_tpu_torch/csrc/"
 SOURCES = {
     "groupmin": CSRC + "topk_twophase.cu",
-    "select_topt": CSRC + "topk_twophase.cu",
+    "select_topt": CSRC + "select_topt.cu",
     "rescore": CSRC + "topk_twophase.cu",
     "probed_scan": CSRC + "ivf_probed_scan.cu",
     "kmeans_assign": CSRC + "kmeans_assign.cu",
@@ -123,6 +135,8 @@ SOURCES = {
 }
 # the f32 tensor-core route: one warpgroup-MMA kernel for both phases
 SOURCES_F32_TC = {"groupmin": CSRC + "groupmin_tf32.cu", "rescore": CSRC + "groupmin_tf32.cu"}
+# the select's route for t beyond SELECT_RADIX_MAX_T: t extract-min passes
+SOURCE_SELECT_EXTRACT_MIN = CSRC + "topk_twophase.cu"
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
     "select_topt": "image_search_engine_tpu/ops/topk_pallas.py:361",
@@ -188,6 +202,21 @@ def median_ms(fn, flush, reps: int = TIMING_REPS) -> float:
         e.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+def graph_ms(fn, flush, reps: int = TIMING_REPS) -> float:
+    """Median CUDA-event time of one replay of ``fn`` captured in a CUDA
+    graph, the L2 cache flushed before each: the device's time for fn's
+    launches without the host's time to issue them, which median_ms counts
+    where it exceeds the flush's."""
+    import torch
+
+    fn()  # built and configured before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return median_ms(graph.replay, flush, reps)
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
@@ -291,6 +320,149 @@ def f32_route(x, nq: int) -> str:
     return "mma" if T._on_tensor_cores(x, nq) else "cuda"
 
 
+@contextlib.contextmanager
+def select_route(route: str):
+    """select_topt on one of its routes whatever t: "extract_min" (t passes,
+    the kernel the radix select replaced up to SELECT_RADIX_MAX_T) or
+    "radix" (as the wrapper picks for t up to it); the wrapper picks by
+    ``SELECT_RADIX_MAX_T``, which this sets for the duration."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    keep = T.SELECT_RADIX_MAX_T
+    T.SELECT_RADIX_MAX_T = 0 if route == "extract_min" else keep
+    try:
+        yield
+    finally:
+        T.SELECT_RADIX_MAX_T = keep
+
+
+def assert_same_select(name, mins, t) -> None:
+    """select_topt equal to select_topt_ref bit for bit: values (-0.0 kept)
+    and ids."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    vals, ids = T.select_topt(mins, t)
+    rv, rids = T.select_topt_ref(mins, t)
+    if not (torch.equal(vals.view(torch.int32), rv.view(torch.int32))
+            and torch.equal(ids, rids)):
+        bad = int((ids != rids).sum()) + int((vals.view(torch.int32) != rv.view(torch.int32))
+                                             .sum())
+        raise AssertionError(f"{name}: select differs from its plain version ({bad} entries)")
+
+
+def time_select(name, mins, t, flush) -> dict:
+    """select_topt at its wrapper's route against its plain version bit for
+    bit, then timed beside its plain version, torch.topk on the same mins
+    (the library call) and the extract-min kernel (the route the radix
+    select replaced, forced); bound: the mins read once and the output
+    written once."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    nq, w = mins.shape
+    assert_same_select(name, mins, t)
+    plan = T.select_plan(nq, w, t, torch.cuda.get_device_properties(0).multi_processor_count)
+    b = bound(nq * w * 4 + nq * t * 8, 0, F32_FLOPS)
+    topk = lambda: torch.topk(mins, t, dim=1, largest=False)  # noqa: E731
+    res = {"route": plan.route, "split": plan.split, "max_abs_err": 0.0,
+           "ms": median_ms(lambda: T.select_topt(mins, t), flush),
+           "device_ms": graph_ms(lambda: T.select_topt(mins, t), flush),
+           "plain_ms": median_ms(lambda: T.select_topt_ref(mins, t), flush),
+           "library_ms": median_ms(topk, flush), "library_device_ms": graph_ms(topk, flush),
+           "bound_ms": b[0], "bound_by": b[1], "shape": f"Q={nq} W={w} t={t}"}
+    if plan.route == "radix":
+        with select_route("extract_min"):
+            assert_same_select(f"{name} (extract-min route)", mins, t)
+            res["extract_min_ms"] = median_ms(lambda: T.select_topt(mins, t), flush)
+            res["extract_min_device_ms"] = graph_ms(lambda: T.select_topt(mins, t), flush)
+    else:
+        res["extract_min_ms"], res["extract_min_device_ms"] = res["ms"], res["device_ms"]
+    log(f"  select_topt {name} Q={nq} W={w} t={t}: = plain bit for bit; {plan.route} "
+        f"(split {plan.split}) {res['ms']:.4f} ms (device {res['device_ms']:.4f}), extract-min "
+        f"{res['extract_min_ms']:.4f} ms (device {res['extract_min_device_ms']:.4f}), torch.topk "
+        f"{res['library_ms']:.4f} ms (device {res['library_device_ms']:.4f}), plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms by {res['bound_by']}")
+    return res
+
+
+SELECT_SWEEP_W = (1, 31, 32, 33, 1000, 5088, 7813, 65536)
+SELECT_SWEEP_T = (1, 12, 24, 52, 160)  # and W - 1
+SELECT_SWEEP_Q = (1, 2, 64, 4096)
+# but for Q = 4096 at W = 65,536, t = W - 1: the extract-min route's t passes
+# over rows that no longer fit L2 together would take ~30 s per row kind
+SELECT_SWEEP_MAX_WORK = 2 ** 40
+
+
+def select_rows(kind: str, nq: int, w: int, gen):
+    """(nq, w) f32 rows on the card: "random" N(0, 1); "ties" four levels;
+    "zeros" -0.0 and +0.0 mixed with a few N(0, 1) values; "inf" N(0, 1)
+    with 80% +inf (IVF pad slots) and a first row all +inf; "hidden" N(0, 1)
+    with every 8th entry 100 larger (the radix select's sampled threshold
+    then lets more than its scratch through, and it selects over the whole
+    row)."""
+    import torch
+
+    v = torch.randn(nq, w, device="cuda", generator=gen)
+    if kind == "hidden":  # every 8th entry large: the sampled threshold lets too many through
+        v[:, ::8] += 100.0
+        return v
+    if kind == "ties":
+        return torch.randint(-2, 2, (nq, w), device="cuda", generator=gen).float()
+    u = torch.rand(nq, w, device="cuda", generator=gen)
+    if kind == "zeros":
+        z = torch.where(u < 0.5, torch.tensor(-0.0, device="cuda"),
+                        torch.tensor(0.0, device="cuda"))
+        return torch.where(torch.rand(nq, w, device="cuda", generator=gen) < 0.1, v, z)
+    if kind == "inf":
+        v[u < 0.8] = float("inf")
+        v[0] = float("inf")
+    return v.contiguous()
+
+
+def select_sweep(gen, flush) -> dict:
+    """select_topt against select_topt_ref bit for bit (values with their
+    sign of zero, and ids) at every W in SELECT_SWEEP_W, t in SELECT_SWEEP_T
+    and W - 1 (t <= W), Q in SELECT_SWEEP_Q (Q W t <= SELECT_SWEEP_MAX_WORK),
+    on each kind of select_rows: both routes (the radix select, split and
+    whole rows, sampled or not; the extract-min kernel beyond
+    SELECT_RADIX_MAX_T), each counted. Then each
+    route timed where the wrapper takes it: the radix select at W = 7813, t
+    = 24 (Q = 1, a split row; Q = 4096, whole rows), the extract-min kernel
+    at W = 7813, t = 300 (Q = 1, 64)."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    T.reset_launch_counts()
+    shapes = 0
+    for w in SELECT_SWEEP_W:
+        for t in sorted({*SELECT_SWEEP_T, w - 1}):
+            if not 0 < t <= w:
+                continue
+            for nq in SELECT_SWEEP_Q:
+                if w * t * nq > SELECT_SWEEP_MAX_WORK:
+                    continue
+                for kind in ("random", "ties", "zeros", "inf", "hidden"):
+                    assert_same_select(f"select sweep {kind} Q={nq} W={w} t={t}",
+                                       select_rows(kind, nq, w, gen), t)
+                    shapes += 1
+    launches = {"radix": T.select_topt.radix_launches,
+                "extract_min": T.select_topt.extract_min_launches}
+    if not all(launches.values()):
+        raise AssertionError(f"select sweep: a route did not launch: {launches}")
+    log(f"  select sweep: {shapes} shapes (W {SELECT_SWEEP_W}, t {SELECT_SWEEP_T} and W - 1, Q "
+        f"{SELECT_SWEEP_Q}, Q W t <= 2^40; random, tie-heavy, +-0.0, +inf rows and rows whose "
+        f"small entries avoid the sampled positions) = plain bit for bit; launches by route "
+        f"{launches}")
+    routes = {f"radix_Q{nq}": time_select("radix route", select_rows("random", nq, 7813, gen),
+                                          24, flush) for nq in (1, 4096)}
+    routes.update({f"extract_min_Q{nq}": time_select(
+        "extract-min route", select_rows("random", nq, 7813, gen), T.SELECT_RADIX_MAX_T + 44,
+        flush) for nq in (1, 64)})
+    return {"shapes": shapes, "launches": launches, "routes": routes}
+
+
 def check_kernels(name, qf, store, knorms, tol):
     """Each kernel against its plain version on the same inputs; the select
     gets the same mins in both versions and must match bit for bit; every
@@ -308,7 +480,8 @@ def check_kernels(name, qf, store, knorms, tol):
     t = min(K + 4, mins.shape[1])
     vals, ids = T.select_topt(mins, t)
     rv, rids = T.select_topt_ref(mins, t)
-    if not (torch.equal(vals, rv) and torch.equal(ids, rids)):
+    if not (torch.equal(vals.view(torch.int32), rv.view(torch.int32))
+            and torch.equal(ids, rids)):
         raise AssertionError(f"{name}: select differs from its plain version")
     errs["select_topt"] = 0.0
     scores = T.rescore(qf, store, knorms, ids)
@@ -328,7 +501,7 @@ def check_kernels(name, qf, store, knorms, tol):
 
 
 def kernel_bounds(nq, n, d, isz, ng, t, rows, on_tensor_cores):
-    """bound() of groupmin, select_topt and rescore: the store (or the
+    """bound() of groupmin and rescore: the store (or the
     ``rows`` distinct candidate rows), norms, queries and outputs once;
     2 Q N d operations (rescore: 2 Q t 128 d) at the f32 CUDA-core rate,
     three times that at the tf32 rate for f32 on tensor cores (the 3xTF32
@@ -340,7 +513,6 @@ def kernel_bounds(nq, n, d, isz, ng, t, rows, on_tensor_cores):
     return {
         "groupmin": bound(n * d * isz + n * 4 + nq * d * isz + nq * ng * 4,
                           mult * 2 * nq * n * d, peak),
-        "select_topt": bound(nq * ng * 4 + nq * t * 8, 0, peak),
         "rescore": bound(rows * (d * isz + 4) + nq * d * isz + nq * t * (4 + T.GROUP * 4),
                          mult * 2 * nq * t * T.GROUP * d, peak),
     }
@@ -381,22 +553,22 @@ def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scal
     f32_mma = isz == 4 and f32_route(store, nq) == "mma"
     bounds = kernel_bounds(nq, n, d, isz, ng, t, rows, isz == 2 or f32_mma)
     res = {}
-    for kname, fn, ref, lib in (
-        ("groupmin", lambda: T.groupmin(qf, store, knorms), lambda: T.groupmin_ref(qf, store, knorms),
-         None),
-        ("select_topt", lambda: T.select_topt(mins, t), lambda: T.select_topt_ref(mins, t),
-         lambda: torch.topk(mins, t, dim=1, largest=False)),
+    for kname, fn, ref in (
+        ("groupmin", lambda: T.groupmin(qf, store, knorms),
+         lambda: T.groupmin_ref(qf, store, knorms)),
         ("rescore", lambda: T.rescore(qf, store, knorms, ids),
-         lambda: T.rescore_ref(qf, store, knorms, ids), None),
+         lambda: T.rescore_ref(qf, store, knorms, ids)),
     ):
         res[kname] = {"max_abs_err": errs[kname], "ms": median_ms(fn, flush),
-                      "plain_ms": median_ms(ref, flush),
-                      "library_ms": None if lib is None else median_ms(lib, flush),
+                      "plain_ms": median_ms(ref, flush), "library_ms": None,
                       "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
+    # the select beside torch.topk and the extract-min kernel it replaced
+    res["select_topt"] = time_select(name, mins, t, flush)
+    extra = ""
     # the sweep's yardsticks: the product alone (f32: cuBLAS with TF32 off, as
     # phase 0 set it), and for bf16 the row_dot sweep it replaced
     res["groupmin"]["product_alone_ms"] = median_ms(lambda: torch.matmul(qf, store.T), flush)
-    extra = f"; {dtype} product alone {res['groupmin']['product_alone_ms']:.4f} ms"
+    extra += f"; {dtype} product alone {res['groupmin']['product_alone_ms']:.4f} ms"
     if isz == 2:
         res["groupmin"]["row_dot_sweep_ms"] = median_ms(
             lambda: GV.groupmin_width(qf, store, knorms, T.GROUP), flush, reps=3)
@@ -591,7 +763,7 @@ def phase1() -> dict:
                                       (T.F32_CUDA_CORE_MAX_Q + 1, 15, 16, 17, 33, 129),
                                       (16, 128, 130, 132, 2049, 2052)),
                 "f32_one_sign_err_over_tol": one_sign_rows_f32(gen)}
-    return shapes, mma_edge
+    return shapes, mma_edge, select_sweep(gen, flush)
 
 
 # ---------------------------------------------------------------------------
@@ -697,7 +869,8 @@ def serve_and_query(art: Path, index_type: str, paths: list, label: str,
             if not (np.all(np.isfinite(dists)) and dists == sorted(dists)):
                 raise AssertionError(f"{label} query {i}: distances not finite ascending: {dists}")
             first += names[0] == str(paths[i])
-        counts = {**T.launch_counts(), "probed_scan": IV.probed_scan.launches}
+        counts = {**T.launch_counts(), "select_topt_radix": T.select_topt.radix_launches,
+                  "group_order": T.group_order.launches, "probed_scan": IV.probed_scan.launches}
         status, _ = post_image(base + "/similar_images", b"not an image")
         if status != 400:
             raise AssertionError(f"{label} garbage upload answered {status}, want 400")
@@ -727,11 +900,30 @@ def phase2(workdir: Path) -> dict:
         raise AssertionError("the index must have more groups than t so the select runs")
     if not all(v > 0 for v in counts.values()):
         raise AssertionError(f"a kernel did not launch while serving: {counts}")
+    if out["launches"]["select_topt_radix"] != counts["select_topt"]:
+        raise AssertionError(f"serving's select took the extract-min route: {out['launches']}")
     log(f"  8 queries ok (top-1 = the query's own file); launches while serving {counts}; "
         f"request latency p50 {out['p50_ms']:.2f} ms (client clock, 8 requests); "
         f"certificate escalations {out['escalations']}")
     return {"launches": counts, "p50_ms": out["p50_ms"], "escalations": out["escalations"],
-            "paths": paths, "art": art, "batch": search_batch(out["engine"].index)}
+            "paths": paths, "art": art, "batch": search_batch(out["engine"].index),
+            "select_radix_launches": out["launches"]["select_topt_radix"],
+            "select": served_select(out["engine"].index)}
+
+
+def served_select(index) -> dict:
+    """select_topt on the served index's group mins for one of its rows
+    (Q = 1, W = 32 groups, t = K + 4, as each request runs it), against its
+    plain version bit for bit and timed (time_select)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
+    store = index.store
+    mins = T.groupmin(store.values()[:1].to(store.vectors.dtype).contiguous(), store.vectors,
+                      store.norms)
+    return time_select("served index (4,096 rows, f32)", mins, K + 4, flush)
 
 
 def search_batch(index) -> dict:
@@ -837,6 +1029,7 @@ def phase3_scale() -> dict:
     from image_search_engine_tpu_torch.index.ivf import IVFPQIndex
     from image_search_engine_tpu_torch.ops import ivf as IV
     from image_search_engine_tpu_torch.ops import kmeans as KM
+    from image_search_engine_tpu_torch.ops import topk as T
 
     log("phase 3: IVF-PQ at corpus scale")
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
@@ -911,7 +1104,10 @@ def phase3_scale() -> dict:
         assert_same_topk(d.cpu().numpy(), i.cpu().numpy(), rd.cpu().numpy(), ri.cpu().numpy(),
                          2 * tol, f"probed top-k Q={nq}")
         ub = torch.unique(probe).numel()  # distinct buckets this run reads
+        select = time_select("IVF-PQ probed width", IV.probed_scan(qf, recon, rnorms, probe), K,
+                             flush)
         scan[nq] = {
+            "select": select,
             "max_abs_err": err, "tol": tol,
             "ms": median_ms(lambda: IV.probed_scan(qf, recon, rnorms, probe), flush),
             "plain_ms": median_ms(lambda: IV.probed_scan_ref(qf, recon, rnorms, probe), flush),
@@ -961,11 +1157,25 @@ def phase3_scale() -> dict:
                              f"vs rerank {rec_rr}")
     serve_ms = {nq: median_ms(lambda: index.search_batched(q64[:nq], K, rerank=64), flush)
                 for nq in (1, 64)}
+    # k beyond SELECT_RADIX_MAX_T: the select's extract-min route on a user's path
+    k_wide = T.SELECT_RADIX_MAX_T + 44
+    T.reset_launch_counts()
+    d_wide, i_wide = index.search_batched(q64[:8], k_wide, rerank=0)
+    extract_min_launches = T.select_topt.extract_min_launches
+    if extract_min_launches == 0 or T.select_topt.radix_launches != 0:
+        raise AssertionError(f"IVF-PQ k={k_wide}: select routes radix "
+                             f"{T.select_topt.radix_launches}, extract-min {extract_min_launches}")
+    rd, ri = plain_probed_topk(q64[:8], bc, recon, rnorms, lists, k_wide, nprobe)
+    assert_same_topk(d_wide, i_wide, rd.cpu().numpy(), ri.cpu().numpy(),
+                     2 * score_tol(q64[:8].to(recon.dtype), rnorms), f"IVF-PQ k={k_wide}")
+    log(f"  search_batched(k={k_wide}) over 8 queries: the select's extract-min route "
+        f"({extract_min_launches} launch), = the plain route's top-{k_wide}")
     log(f"  search_batched(k={K}, rerank=64) incl. host transfer: Q=1 {serve_ms[1]:.3f} ms, "
         f"Q=64 {serve_ms[64]:.3f} ms")
     del index, recon, rnorms, x
     torch.cuda.empty_cache()
     return {"build_s": build_s, "scan": scan, "nprobe": nprobe, "cap": cap,
+            "extract_min_launches": extract_min_launches,
             "assign": {"max_abs_err": max(err_c, err_b), "ms": assign_ms,
                        "plain_ms": assign_plain_ms, "bound": a_bound,
                        "f32_cuda_core_bound_ms": a_bound_f32[0], "product_alone_ms": product_ms,
@@ -985,7 +1195,7 @@ def phase3_entry(workdir: Path, paths: list) -> dict:
     out = serve_and_query(art, "ivfpq", paths, "ivfpq", own_first=False)
     if type(out["engine"].index).__name__ != "IVFPQIndex":
         raise AssertionError(f"engine loaded {type(out['engine'].index).__name__}")
-    counts = {k: out["launches"][k] for k in ("probed_scan", "select_topt")}
+    counts = {k: out["launches"][k] for k in ("probed_scan", "select_topt", "select_topt_radix")}
     if assign_launches == 0 or not all(v > 0 for v in counts.values()):
         raise AssertionError(f"a kernel did not launch: assign {assign_launches} during the "
                              f"build, {counts} while serving")
@@ -1109,8 +1319,46 @@ def q8_kernel(route: str):
         T.DP4A_MAX_Q = keep
 
 
+def check_group_order(name, cand, ng, flush) -> dict:
+    """group_order against its plain version (a stable argsort): a
+    permutation of the slots whose group sequence is the plain version's
+    (the order within a group is free), timed beside its plain version and
+    torch.argsort of the ids; bound: the ids read and the order written."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    order, ref = T.group_order(cand, ng), T.group_order_ref(cand, ng)
+    flat = cand.view(-1)
+    if not (torch.equal(torch.sort(order).values, torch.arange(flat.numel(), device="cuda",
+                                                               dtype=torch.int32))
+            and torch.equal(flat[order.long()], flat[ref.long()])):
+        raise AssertionError(f"{name}: group_order does not group the slots as its plain version")
+    b = bound(flat.numel() * 8 + (ng + 2) * 4, 0, F32_FLOPS)
+    return {"max_abs_err": 0.0, "ms": median_ms(lambda: T.group_order(cand, ng), flush),
+            "device_ms": graph_ms(lambda: T.group_order(cand, ng), flush),
+            "plain_ms": median_ms(lambda: T.group_order_ref(cand, ng), flush),
+            "library_ms": median_ms(lambda: torch.argsort(flat), flush),
+            "bound_ms": b[0], "bound_by": b[1], "shape": f"{flat.numel()} slots, {ng} groups"}
+
+
+@contextlib.contextmanager
+def q8_rescore_order(group_order: bool):
+    """rescore_q8 with its candidate slots in group order or in slot order,
+    whatever the batch; the wrapper picks by RESCORE_Q8_GROUP_ORDER_MIN_SLOTS
+    and the store's groups, which this overrides for the duration."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    keep = T.RESCORE_Q8_GROUP_ORDER_MIN_SLOTS
+    T.RESCORE_Q8_GROUP_ORDER_MIN_SLOTS = -sys.maxsize if group_order else sys.maxsize
+    try:
+        yield
+    finally:
+        T.RESCORE_Q8_GROUP_ORDER_MIN_SLOTS = keep
+
+
 def check_shape_q8(name, x, nq, metric, gen, flush, *, pad_rows=None, q_scale=1.0,
-                   int_mm_rows=0, routes=()):
+                   int_mm_rows=0, routes=(), rescore_orders=False):
     """One timed int8 shape: FlatIndex(dtype="int8") over x, the search and
     both kernels checked, then each kernel and its plain version timed.
     ``int_mm_rows`` > 0 also times ``torch._int_mm``'s int8 product of the
@@ -1118,9 +1366,13 @@ def check_shape_q8(name, x, nq, metric, gen, flush, *, pad_rows=None, q_scale=1.
     ``routes``: batch sizes at which both groupmin_q8 kernels (CUDA cores,
     tensor cores) run on new queries, each bit for bit equal to the plain
     version, and are timed (where the wrapper's DP4A_MAX_Q should lie).
-    Returns {kernel: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
-    bound_by}} and, with ``int_mm_rows``, "int_mm_ms", with ``routes``,
-    "routes" {Q: {route: ms}}."""
+    ``rescore_orders``: rescore_q8 also with its slots in group order and in
+    slot order, bit for bit equal to its plain version, with its device
+    time; group_order checked and timed. Returns {kernel:
+    {max_abs_err, ms, device_ms, plain_ms, library_ms, bound_ms, bound_by}}
+    and, with ``int_mm_rows``, "int_mm_ms", with ``routes``, "routes" {Q:
+    {route: ms}}, with ``rescore_orders``, rescore_q8's "device_ms_by_order"
+    {plan: ms}."""
     import torch
 
     from image_search_engine_tpu_torch.index.flat import FlatIndex
@@ -1137,7 +1389,9 @@ def check_shape_q8(name, x, nq, metric, gen, flush, *, pad_rows=None, q_scale=1.
         store[pad_rows] = 0
         scales[pad_rows] = 0.0
         norms[pad_rows] = PAD_NORM
+    T.group_order.launches = 0
     qs, qi, qscale, knorms = check_search_q8(name, index, q)
+    order_launches = T.group_order.launches  # the searches' slot orders (Q t >= threshold)
     if pad_rows is not None and np.isin(index.search(q, K)[1], pad_rows.cpu().numpy()).any():
         raise AssertionError(f"{name}: a PAD_NORM row was returned")
     errs, mins, ids, t = check_kernels_q8(name, qi, qscale, store, scales, knorms)
@@ -1158,9 +1412,28 @@ def check_shape_q8(name, x, nq, metric, gen, flush, *, pad_rows=None, q_scale=1.
          lambda: T.rescore_q8_ref(qi, qscale, store, scales, knorms, ids)),
     ):
         res[kname] = {"max_abs_err": errs[kname], "ms": median_ms(fn, flush),
+                      "device_ms": graph_ms(fn, flush),
                       "plain_ms": median_ms(ref, flush, reps=5), "library_ms": None,
                       "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
     extra = ""
+    if rescore_orders:
+        res["group_order"] = check_group_order(name, ids, ng, flush)
+        res["group_order"]["search_launches"] = order_launches
+        want = T.rescore_q8_ref(qi, qscale, store, scales, knorms, ids)
+        orders = {}
+        for label, grouped in (("slot_order", False), ("group_order", True)):
+            with q8_rescore_order(grouped):
+                exact_err(f"{name} ({label})", "rescore_q8",
+                          T.rescore_q8(qi, qscale, store, scales, knorms, ids), want)
+                orders[label] = graph_ms(
+                    lambda: T.rescore_q8(qi, qscale, store, scales, knorms, ids), flush)
+        res["rescore_q8"]["device_ms_by_order"] = orders
+        go = res["group_order"]
+        extra += "; rescore_q8 device ms by order " + ", ".join(
+            f"{k} {v:.4f}" for k, v in orders.items()) + (
+            f"; group_order = plain, {go['ms']:.4f} ms (device {go['device_ms']:.4f}; plain "
+            f"{go['plain_ms']:.4f}, torch.argsort {go['library_ms']:.4f}), {go['search_launches']}"
+            f" launches in the searches")
     if routes:
         res["routes"] = {}
         for rq in routes:
@@ -1189,9 +1462,9 @@ def check_shape_q8(name, x, nq, metric, gen, flush, *, pad_rows=None, q_scale=1.
             res["int_mm_ms"] = None
             extra += f"; torch._int_mm refused: {e}"
     log(f"  {name}: " + "; ".join(
-        f"{k} err {v['max_abs_err']:.3g} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, bound "
-        f"{v['bound_ms']:.4f} ms by {v['bound_by']})" for k, v in res.items()
-        if k in ("groupmin_q8", "rescore_q8"))
+        f"{k} err {v['max_abs_err']:.3g} {v['ms']:.4f} ms (device {v['device_ms']:.4f} ms; plain "
+        f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by {v['bound_by']})"
+        for k, v in res.items() if k in ("groupmin_q8", "rescore_q8"))
         + f"; two-phase search {search_ms:.4f} ms, plain full scan {scan_ms:.4f} ms" + extra)
     return res
 
@@ -1302,12 +1575,19 @@ def phase4_kernels() -> dict:
     shapes = {}
     x = torch.randn(1_000_000, 2048, device="cuda", generator=gen)
     shapes["Q1_N1M_d2048_int8_l2"] = check_shape_q8("Q=1 N=1,000,000 d=2048 int8 l2", x, 1,
-                                                    "l2", gen, flush, routes=(1, 4, 8, 16))
+                                                    "l2", gen, flush, routes=(1, 4, 8, 16),
+                                                    rescore_orders=True)
     del x
     torch.cuda.empty_cache()
     x = torch.randn(200_003, 2048, device="cuda", generator=gen)
     shapes["Q64_N200003_d2048_int8_ip"] = check_shape_q8(
-        "Q=64 N=200,003 d=2048 int8 ip", x, 64, "ip", gen, flush, int_mm_rows=200_000)
+        "Q=64 N=200,003 d=2048 int8 ip", x, 64, "ip", gen, flush, int_mm_rows=200_000,
+        rescore_orders=True)
+    # a batch past RESCORE_Q8_GROUP_ORDER_MIN_SLOTS: the rescore in group order
+    shapes["Q256_N200003_d2048_int8_ip"] = check_shape_q8(
+        "Q=256 N=200,003 d=2048 int8 ip", x, 256, "ip", gen, flush, rescore_orders=True)
+    if shapes["Q256_N200003_d2048_int8_ip"]["group_order"]["search_launches"] == 0:
+        raise AssertionError("Q=256 int8 search: the rescore's group order did not launch")
     del x
     base = torch.randn(25_000, 2048, device="cuda", generator=gen)
     x = base[torch.randint(0, 25_000, (100_000,), device="cuda", generator=gen)]
@@ -1338,7 +1618,7 @@ def phase4_entry(workdir: Path, paths: list, flat_art: Path) -> dict:
     q8 = serve_and_query(art, "l2", paths, "int8")
     idx8 = q8["engine"].index
     want = {"groupmin": 0, "select_topt": 8, "rescore": 0, "groupmin_q8": 8, "rescore_q8": 8,
-            "topk_running": 0, "probed_scan": 0}
+            "group_order": 0, "topk_running": 0, "select_topt_radix": 8, "probed_scan": 0}
     if idx8.dtype != "int8" or q8["launches"] != want or q8["escalations"] != 0:
         raise AssertionError(f"int8 serving: store {idx8.dtype}, launches {q8['launches']} (want "
                              f"{want}), escalations {q8['escalations']}")
@@ -1866,7 +2146,8 @@ def check_bench_kernels(name, qf, x, norms, t) -> tuple:
         errs["rescore"] = max(errs["rescore"], max_abs_err(
             scores[sl], T.rescore_ref(qf[sl], x, norms, cand[sl])))
         rv, rids = T.select_topt_ref(mins[sl], t)
-        if not (torch.equal(vals[sl], rv) and torch.equal(cand[sl], rids)):
+        if not (torch.equal(vals[sl].view(torch.int32), rv.view(torch.int32))
+                and torch.equal(cand[sl], rids)):
             raise AssertionError(f"{name}: select differs from its plain version")
     if not torch.equal(scores.view(qf.shape[0], t, -1).amin(2), mins.gather(1, cand.long())):
         raise AssertionError(f"{name}: phase-1 group mins differ from phase-2 scores")
@@ -1902,7 +2183,8 @@ def twin_breakdown(q, x, norms, flush) -> dict:
            "rescore_ms": ms(lambda: T.rescore(qf, x, norms, cand)),
            "finish_ms": ms(lambda: T.finish_candidates(q, scores, cand, vals[:, t - 1], bench.K,
                                                        "l2", True)),
-           "select_library_ms": ms(lambda: torch.topk(mins, t, dim=1, largest=False))}
+           "select_library_ms": ms(lambda: torch.topk(mins, t, dim=1, largest=False)),
+           "select": time_select("bench point", mins, t, flush)}
     res["other_ms"] = res["dispatch_ms"] - sum(res[k] for k in (
         "groupmin_ms", "select_topt_ms", "rescore_ms", "finish_ms"))
     return res
@@ -2335,7 +2617,7 @@ def main() -> int:
         f"registers {min(map(int, regs))}-{max(map(int, regs))}, "
         f"max spill stores {max(map(int, spills))} bytes")
 
-    shapes, mma_edge = phase1()
+    shapes, mma_edge, sel_sweep = phase1()
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         served = phase2(workdir)
@@ -2364,6 +2646,29 @@ def main() -> int:
         "library_ms": head[name]["library_ms"],
         "shape": "Q=1 N=1,000,000 d=2048 f32 l2 k=20",
     } for name in ("groupmin", "select_topt", "rescore")]
+    # the select: the radix route at each shape the main paths give it, the
+    # extract-min route (t beyond SELECT_RADIX_MAX_T) where a user's k takes
+    # it and, forced, at the radix route's shapes; the sweep
+    sel = kernels[1]
+    for k in ("device_ms", "extract_min_ms", "extract_min_device_ms"):
+        sel[k] = head["select_topt"][k]
+    sel["radix_route_launches"] = served["select_radix_launches"]
+    sel["radix_max_t"] = T.SELECT_RADIX_MAX_T
+    sel["served_index_Q1"] = served["select"]
+    sel["Q64_N1M_d2048"] = {k: v for k, v in shapes["Q64_N1M_d2048_f32_l2"]["select_topt"].items()
+                            if k != "max_abs_err"}
+    sel["ivf_probed"] = {f"Q{nq}": scale["scan"][nq]["select"] for nq in (1, 64)}
+    sel["bench_point"] = sixth["twin_split"]["select"]
+    em = sel_sweep["routes"]["extract_min_Q1"]
+    sel["extract_min_route"] = {
+        "source": SOURCE_SELECT_EXTRACT_MIN, "from_t": T.SELECT_RADIX_MAX_T + 1,
+        "launches": scale["extract_min_launches"],
+        **{k: em[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "shape")},
+        "Q64": sel_sweep["routes"]["extract_min_Q64"]}
+    sel["sweep"] = {"shapes": sel_sweep["shapes"], "launches": sel_sweep["launches"],
+                    "radix_Q1_W7813_t24": sel_sweep["routes"]["radix_Q1"],
+                    "radix_Q4096_W7813_t24": sel_sweep["routes"]["radix_Q4096"]}
     # the f32 sweep beside cuBLAS's f32 product alone at Q = 1; both f32
     # sweeps by batch size; Q = 64 on tensor cores (3xTF32) and on CUDA cores
     kernels[0]["product_alone_ms"] = head["groupmin"]["product_alone_ms"]
@@ -2429,21 +2734,36 @@ def main() -> int:
                      "shape": f"B={PQ_M} N=65,536 K=256 dsub={SCALE_D // PQ_M}"},
     })
     head, q64 = shapes_q8["Q1_N1M_d2048_int8_l2"], shapes_q8["Q64_N200003_d2048_int8_ip"]
+    q256 = shapes_q8["Q256_N200003_d2048_int8_ip"]
     for name in ("groupmin_q8", "rescore_q8"):
-        at_q64 = {k: q64[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        at_q64 = {k: q64[name][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
         extra = {}
         if name == "groupmin_q8":  # the int8 product alone; the compute-bound bench point
             at_q64["int_mm_product_ms"] = q64["int_mm_ms"]
             extra = {"bench_point": bench_q8,
                      "kernel_ms_by_batch": {f"Q={q}": r for q, r in head["routes"].items()}}
+        else:  # slot order and group order: device ms at each Q
+            at_q64["device_ms_by_order"] = q64[name]["device_ms_by_order"]
+            extra = {"device_ms_by_order": head[name]["device_ms_by_order"],
+                     "q256": {k: q256[name][k] for k in ("ms", "device_ms", "plain_ms",
+                                                          "bound_ms", "bound_by",
+                                                          "device_ms_by_order")},
+                     "group_order": {
+                         "source": SOURCES["rescore_q8"], "from_slots":
+                             T.RESCORE_Q8_GROUP_ORDER_MIN_SLOTS,
+                         "launches": q256["group_order"]["search_launches"],
+                         **{k: q256["group_order"][k] for k in (
+                             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "shape")},
+                         "q64": q64["group_order"]}}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": q8_served["launches"][name],
             "max_abs_err": max(s[name]["max_abs_err"] for s in shapes_q8.values()),
-            "ms": head[name]["ms"], "plain_ms": head[name]["plain_ms"],
-            "bound_ms": head[name]["bound_ms"], "bound_by": head[name]["bound_by"],
-            "library_ms": None, "shape": "Q=1 N=1,000,000 d=2048 int8 l2 k=20",
-            "q64": at_q64, **extra,
+            "ms": head[name]["ms"], "device_ms": head[name]["device_ms"],
+            "plain_ms": head[name]["plain_ms"], "bound_ms": head[name]["bound_ms"],
+            "bound_by": head[name]["bound_by"], "library_ms": None,
+            "shape": "Q=1 N=1,000,000 d=2048 int8 l2 k=20", "q64": at_q64, **extra,
         })
     for name, cases, shape in (
             ("topk_running", last["running"], "Q=1 N=1,000,000 d=2048 f32 l2 k=20"),

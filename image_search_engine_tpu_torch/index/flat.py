@@ -102,7 +102,10 @@ class FlatIndex:
         else:
             d, i = topk_twophase_safe(q, store.vectors, k_eff, metric, x_norms=store.norms,
                                       x_scale=store.scales, wide_margin=WIDE_MARGIN)
-        return faiss_tail(d.cpu().numpy(), i.cpu().numpy(), k, descending=metric == "ip")
+        # int32 ids, as the JAX package's FlatIndex and the port's IVF indexes
+        # return them (both searches above give int64, topk_flat's contract)
+        return faiss_tail(d.cpu().numpy(), i.cpu().numpy().astype(np.int32), k,
+                          descending=metric == "ip")
 
     def save(self, path: str | Path) -> None:
         """The JAX package's ``.npz`` layout (bf16 as uint16 bits; int8 codes

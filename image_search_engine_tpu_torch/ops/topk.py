@@ -21,7 +21,8 @@ store, the int8 x int8 products are exact int32 sums, and the per-row
 scales fold into an f32 epilogue.
 
 Each step is a hand-written CUDA kernel (``csrc/topk_twophase.cu``,
-``csrc/topk_twophase_q8.cu``) with a plain PyTorch version beside it; a
+``csrc/topk_twophase_q8.cu``; step 2 ``csrc/select_topt.cu``, a radix
+select, up to ``SELECT_RADIX_MAX_T``) with a plain PyTorch version beside it; a
 bf16 store's steps 1 and 3 and an int8 store's step 1 beyond
 ``DP4A_MAX_Q`` queries run on tensor cores (``csrc/mma.cuh``,
 ``csrc/groupmin_mma.cuh``), an f32 store's steps 1 and 3 beyond
@@ -573,19 +574,111 @@ def groupmin_q8_ref(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+#: the one-pass (radix) select takes t up to this; larger t take the
+#: extract-min kernel (t passes over the row): a route chosen on t, as the
+#: radix select keeps its t selected entries in shared memory and sorts them
+#: by counting (SEL_MAX_T in csrc/select_topt.cu)
+SELECT_RADIX_MAX_T = 256
+#: a row of a batch of at most a quarter as many queries as the card has
+#: SMs is split over blocks of at least this many entries, ...
+_SELECT_SPLIT_MIN_SLICE = 1024
+#: ... at most this many blocks a row, ...
+_SELECT_SPLIT_MAX = 16
+#: ... whose split * t candidates the merging block stages (SEL_MERGE_MAX)
+_SELECT_MERGE_MAX = 1024
+#: slices of up to this many entries are staged in shared memory (48 KB;
+#: SEL_STAGE_MAX), wider ones re-read through L1/L2
+SELECT_STAGE_MAX = 12288
+#: entries a block's sampled threshold may let through (SEL_CAND_MAX)
+_SELECT_CAND_MAX = 1024
+_SELECT_SAMPLE_MAX_STRIDE = 8  # the sample takes every stride-th entry, stride <= this
+
+
+def select_sample_stride(n: int, t: int) -> int:
+    """The radix select's sample stride over a block's n entries for t
+    (``sample_stride`` in ``csrc/select_topt.cu``): the digit passes run
+    over every stride-th entry, whose t-th (value, position) pair lets about
+    stride * t entries of the n through, then over those. 1 (no sample)
+    unless the sample holds at least 2t entries and stride * t is within
+    half the ``_SELECT_CAND_MAX`` scratch."""
+    st = min(_SELECT_SAMPLE_MAX_STRIDE, _SELECT_CAND_MAX // (2 * t))
+    return st if st >= 2 and n // st >= 2 * t else 1
+
+
+@dataclass(frozen=True)
+class SelectPlan:
+    """How :func:`select_topt` runs over (Q, W) mins: ``route`` "radix" (the
+    one-pass select, ``csrc/select_topt.cu``) or "extract_min" (t passes,
+    ``csrc/topk_twophase.cu`` ``select_kernel``); for "radix", each row split
+    over ``split`` blocks of ``slice`` entries (the last may be shorter),
+    whose candidates the row's last block to finish merges."""
+
+    route: str
+    split: int
+    slice: int
+
+    @property
+    def staged(self) -> bool:
+        """Whether a block stages its slice in shared memory."""
+        return self.slice <= SELECT_STAGE_MAX
+
+
+def select_plan(nq: int, w: int, t: int, sms: int) -> SelectPlan:
+    """:func:`select_topt`'s plan for Q = nq rows of w entries and t on a card
+    of ``sms`` SMs: the extract-min route beyond ``SELECT_RADIX_MAX_T``, else
+    the radix select, with each row split over as many blocks as put about
+    one block on each SM (at most ``_SELECT_SPLIT_MAX``, slices of at least
+    ``_SELECT_SPLIT_MIN_SLICE`` entries, the merge's ``split * t`` candidates
+    within ``_SELECT_MERGE_MAX``) when the batch has at most sms / 4 rows."""
+    if nq < 1 or sms < 1 or not 0 < t <= w:
+        raise ValueError(f"no select plan for Q={nq}, W={w}, t={t} on {sms} SMs")
+    if t > SELECT_RADIX_MAX_T:
+        return SelectPlan("extract_min", 1, w)
+    split = 1
+    if 4 * nq <= sms:
+        split = max(1, min(_SELECT_SPLIT_MAX, w // _SELECT_SPLIT_MIN_SLICE, sms // nq,
+                           _SELECT_MERGE_MAX // t))
+    slice_ = -(-w // split)
+    return SelectPlan("radix", -(-w // slice_), slice_)
+
+
+#: per (device, stream): the split select's ticket counters, zero between
+#: launches (the merging block of a row resets its counter)
+_select_counters: dict = {}
+
+
+def _counters(mins: torch.Tensor) -> torch.Tensor:
+    """At least Q zeroed ticket counters for the split select of ``mins``."""
+    key = (mins.device, _stream(mins))
+    buf = _select_counters.get(key)
+    if buf is None or buf.numel() < mins.shape[0]:
+        buf = torch.zeros(max(mins.shape[0], 1024), dtype=torch.int32, device=mins.device)
+        _select_counters[key] = buf
+    return buf
+
+
 def select_topt(mins: torch.Tensor, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per query, the t smallest group mins in ascending (value, group id)
-    order: (vals (Q, t) f32, ids (Q, t) int32). Ties go to the lowest group
-    id; vals[:, t-1] is the certificate threshold.
+    """Per query, the t smallest entries of a (Q, W) row in ascending
+    (value, position) order: (vals (Q, t) f32, ids (Q, t) int32). Ties go to
+    the lowest position (-0.0 and +0.0 tie; each value keeps its own bits);
+    vals[:, t-1] is the certificate threshold.
 
     Replaces ``_select_topt_kernel`` (topk_pallas.py:361, via
-    ``_select_topt`` :392). What bounds it on the card: it reads only the
-    (Q, ngroups) mins, 1/(128*d) of the store, but t passes over a row are
-    serial, so at Q = 1 its time is t block-wide reductions on one SM
-    (latency, not bandwidth). The design gives each query one block of up
-    to 1024 threads and replaces the TPU kernel's retire-by-+inf scratch
-    copy with a lexicographic "after the previous winner" filter, so a
-    pass needs one read of the row and two barriers.
+    ``_select_topt`` :392). What bounds it on the card: it reads the (Q, W)
+    mins once, 1/(128*d) of the store (the bench point: 128 MB, 0.038 ms).
+    The TPU kernel's t extract-min passes are serial, each a block-wide
+    reduction: the route kept for t beyond ``SELECT_RADIX_MAX_T``
+    (``select_kernel``, whose time is t passes' latency). Up to it, a radix
+    select (``csrc/select_topt.cu``) reads the row once into shared memory,
+    finds the t-th (value, position) pair digit by digit (a bounded number of
+    barriers, whatever t), then compacts the t entries at or below it and
+    sorts only those (the t-th pair of a sample of the row bounds the
+    entries the digit passes must see); 256-thread blocks let several
+    queries share an SM, and a batch of a few rows splits each row over
+    several blocks whose candidates the row's last block merges
+    (:func:`select_plan`). Counts
+    its launches in ``launches`` and per route in ``radix_launches`` and
+    ``extract_min_launches``.
     """
     nq, ng = mins.shape
     if not 0 < t <= ng:
@@ -598,20 +691,40 @@ def select_topt(mins: torch.Tensor, t: int) -> Tuple[torch.Tensor, torch.Tensor]
     ids = torch.empty((nq, t), dtype=torch.int32, device=mins.device)
     if nq == 0:
         return vals, ids
+    plan = select_plan(nq, ng, t, torch.cuda.get_device_properties(mins.device)
+                       .multi_processor_count)
     with torch.cuda.device(mins.device):
-        err = _kernels.library().ise_select_topt(
-            mins.data_ptr(), vals.data_ptr(), ids.data_ptr(), nq, ng, t, _stream(mins))
+        lib = _kernels.library()
+        if plan.route == "extract_min":
+            err = lib.ise_select_topt(mins.data_ptr(), vals.data_ptr(), ids.data_ptr(), nq, ng,
+                                      t, _stream(mins))
+        else:
+            part_v = part_i = counters = 0
+            if plan.split > 1:  # the slices' candidates: values, then positions
+                part = torch.empty(2 * nq * plan.split * t, dtype=torch.int32,
+                                   device=mins.device)
+                part_v, part_i = part.data_ptr(), part.data_ptr() + 4 * nq * plan.split * t
+                counters = _counters(mins).data_ptr()
+            err = lib.ise_select_radix(mins.data_ptr(), vals.data_ptr(), ids.data_ptr(), part_v,
+                                       part_i, counters, nq, ng, t, plan.split, plan.slice,
+                                       int(plan.staged), _stream(mins))
     _kernels.check(err, "select_topt")
     select_topt.launches += 1
+    if plan.route == "extract_min":
+        select_topt.extract_min_launches += 1
+    else:
+        select_topt.radix_launches += 1
     return vals, ids
 
 
 select_topt.launches = 0
+select_topt.radix_launches = 0  # of those, the radix select's (t <= SELECT_RADIX_MAX_T)
+select_topt.extract_min_launches = 0  # and the extract-min kernel's (larger t)
 
 
 def select_topt_ref(mins: torch.Tensor, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`select_topt`: a stable ascending sort is the
-    (value, id) order of the extract-min passes, ties included."""
+    (value, position) order of both routes, ties included."""
     vals, ids = torch.sort(mins, dim=1, stable=True)
     return vals[:, :t].contiguous(), ids[:, :t].to(torch.int32).contiguous()
 
@@ -716,6 +829,57 @@ def _check_cand(cand: torch.Tensor, nq: int) -> None:
         raise ValueError("cand must be contiguous")
 
 
+#: rescore_q8 runs a batch's candidate slots in group order when they number
+#: at least this many and at least half the store's groups: fewer share too
+#: few groups to pay for the ordering (chip_smoke.py phase 4 times both
+#: orders at Q = 1, 64 and 256; PERF.md)
+RESCORE_Q8_GROUP_ORDER_MIN_SLOTS = 512
+
+
+def rescore_q8_order(cand: torch.Tensor, ngroups: int) -> torch.Tensor | None:
+    """The order in which :func:`rescore_q8` scores the (Q, t) candidate
+    slots: :func:`group_order`, so that the queries that picked one group
+    read it back to back, for a batch of at least
+    ``RESCORE_Q8_GROUP_ORDER_MIN_SLOTS`` slots that number at least half the
+    store's ``ngroups`` (many queries then share groups); else None (slot
+    order)."""
+    if cand.numel() < max(RESCORE_Q8_GROUP_ORDER_MIN_SLOTS, ngroups / 2):
+        return None
+    return group_order(cand, ngroups)
+
+
+def group_order(cand: torch.Tensor, ngroups: int) -> torch.Tensor:
+    """The flat (Q, t) candidate slots grouped by group id, groups ascending
+    (ids below 0 first, ids of ``ngroups`` or more last): an int32
+    permutation of range(Q * t). On the card a one-block counting sort
+    (``group_order_kernel``, ``csrc/topk_twophase_q8.cu``), which orders a
+    group's slots in any way; on the CPU its plain version, a stable
+    argsort. Counts its launches in ``group_order.launches``."""
+    _check_cand(cand, cand.shape[0])
+    if not _on_cuda(cand):
+        return group_order_ref(cand, ngroups)
+    order = torch.empty(cand.numel(), dtype=torch.int32, device=cand.device)
+    if cand.numel() == 0:
+        return order
+    bins = torch.empty(ngroups + 2, dtype=torch.int32, device=cand.device)
+    with torch.cuda.device(cand.device):
+        err = _kernels.library().ise_group_order(cand.data_ptr(), order.data_ptr(),
+                                                 bins.data_ptr(), cand.numel(), ngroups,
+                                                 _stream(cand))
+    _kernels.check(err, "group_order")
+    group_order.launches += 1
+    return order
+
+
+group_order.launches = 0
+
+
+def group_order_ref(cand: torch.Tensor, ngroups: int) -> torch.Tensor:
+    """Plain version of :func:`group_order`: a stable argsort of the ids
+    clamped to [-1, ngroups] (ties keep slot order)."""
+    return torch.argsort(cand.view(-1).clamp(-1, ngroups), stable=True).to(torch.int32)
+
+
 def rescore_q8(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
                norms: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     """:func:`groupmin_q8`'s score for every row r of each query's candidate
@@ -723,12 +887,17 @@ def rescore_q8(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor, scales: t
     is row cand[:, j]*128 + i. Rows past N score +inf.
 
     Replaces ``_fused_rescore_kernel_q8`` (topk_pallas.py:333, launched at
-    :756). What bounds it on the card: the gathered bytes, Q*t*128*(d + 8),
-    read from scattered 128-row blocks; at Q = 1 that is a few dozen blocks
-    and launch latency dominates. The design is ``rescore``'s (each group
-    split over 4 blocks, blocks read in place, no gather buffer), and it
-    scores a row with the same routine as :func:`groupmin_q8`, so a group's
-    phase-1 min is bit for bit the min of its phase-2 scores.
+    :756). What bounds it on the card: the distinct candidate groups' bytes,
+    128*(d + 8) each, read from scattered 128-row blocks in place (no gather
+    buffer); at Q = 1 that is a few dozen groups, and how many bytes are in
+    flight sets the time. So each row gets its own warp, which reads the
+    query's 16-byte chunks beside the row's from L2 (no staged query, no
+    barrier) and issues all of its loads before the ``__dp4a`` chain; and a
+    batch whose queries share groups runs its slots in group order
+    (:func:`rescore_q8_order`), so the queries that picked one group read
+    it back to back, from L2 after the first. Each row's int32 sum is exact
+    and its epilogue :func:`groupmin_q8`'s, so a group's phase-1 min is bit
+    for bit the min of its phase-2 scores, in any order.
     """
     _check_q8_args(q, qscale, x, scales, norms)
     _check_cand(cand, q.shape[0])
@@ -740,9 +909,11 @@ def rescore_q8(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor, scales: t
     if nq == 0 or t == 0:
         return out
     with torch.cuda.device(x.device):
+        order = rescore_q8_order(cand, num_groups(x.shape[0]))
         err = _kernels.library().ise_rescore_q8(
             q.data_ptr(), qscale.data_ptr(), norms.data_ptr(), scales.data_ptr(), x.data_ptr(),
-            cand.data_ptr(), out.data_ptr(), nq, x.shape[0], d, t, _vec_q8(q, x), _stream(x))
+            cand.data_ptr(), 0 if order is None else order.data_ptr(), out.data_ptr(), nq,
+            x.shape[0], d, t, _vec_q8(q, x), _stream(x))
     _kernels.check(err, "rescore_q8")
     rescore_q8.launches += 1
     return out
@@ -898,6 +1069,8 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     groupmin.tensor_core_launches = rescore.tensor_core_launches = 0
+    select_topt.radix_launches = select_topt.extract_min_launches = 0
+    group_order.launches = 0  # rescore_q8's slot order (counted apart from KERNELS)
 
 
 def launch_counts() -> dict:

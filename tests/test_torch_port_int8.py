@@ -284,3 +284,32 @@ def test_ip_penalty_keeps_pad_rows_out():
                            x_norms=store.norms, x_scale=store.scales)
     assert not np.isin(i.numpy(), pad.numpy()).any() and (d.numpy() < 0).all()
     assert (ip_penalty(store.norms)[pad] == PAD_NORM).all()
+
+
+@pytest.mark.parametrize("nq,t,ngroups,grouped", [
+    (1, 24, 1563, False), (21, 24, 1563, False), (32, 24, 1563, False), (33, 24, 1563, True),
+    (64, 24, 1563, True), (64, 24, 7813, False), (256, 24, 7813, True), (4096, 12, 157, True),
+    (22, 24, 32, True)])
+def test_rescore_q8_groups_the_slots_of_batches_that_share_groups(nq, t, ngroups, grouped):
+    """rescore_q8's slot order: group order for a batch of at least
+    RESCORE_Q8_GROUP_ORDER_MIN_SLOTS slots that number at least half the
+    store's groups (a permutation of the slots that keeps every group's
+    slots adjacent), else slot order."""
+    cand = torch.from_numpy(np.random.default_rng(nq).integers(
+        0, ngroups, (nq, t)).astype(np.int32))
+    order = T.rescore_q8_order(cand, ngroups)
+    if not grouped:
+        assert order is None
+        return
+    assert order.dtype == torch.int32
+    assert torch.equal(torch.sort(order.long()).values, torch.arange(nq * t))
+    groups = cand.view(-1)[order.long()]
+    assert bool((groups[1:] >= groups[:-1]).all())
+
+
+def test_group_order_keeps_out_of_range_ids_at_the_ends():
+    """group_order's plain version: ids below 0 first, ids past ngroups last,
+    a stable permutation of the slots."""
+    cand = torch.tensor([[5, -1, 9, 2], [2, 12, 0, -1]], dtype=torch.int32)
+    order = T.group_order(cand, 10)
+    assert order.tolist() == [1, 7, 6, 3, 4, 0, 2, 5]
