@@ -18,13 +18,16 @@ Phases (each raises on failure; the script then exits non-zero):
      sweep); edge sweeps of the bf16 and the f32 tensor-core
      kernels' tiles and f32 rows of one sign; every group min equal to the
      min of its rescored rows bit for bit, every certificate true; then the
-     select (``select_topt``: the radix route up to SELECT_RADIX_MAX_T, the
-     extract-min kernel beyond) bit-equal to its plain version over a sweep
-     of row widths, t, batch sizes and rows (random, tie-heavy, +-0.0, +inf,
-     small entries off the sampled positions), each route timed where it
-     runs, beside ``torch.topk`` and, for the radix route, the extract-min
-     kernel it replaced (CUDA events around each call, and around a CUDA
-     graph's replay for the device's time alone);
+     select (``select_topt``: the radix select for every t, its selected
+     entries sorted by counting up to t = 256, by a bitonic network up to
+     4096, by a radix sort in a global scratch beyond) bit-equal to its
+     plain version over a sweep of row widths, t (up to W - 1 = 65,535),
+     batch sizes and rows (random, tie-heavy, +-0.0, +inf, small entries
+     off the sampled positions), timed beside ``torch.topk`` and the
+     extract-min kernel it replaced, forced (also bit-equal), at the main
+     paths' shapes and at t = 257, 300, 1000 and 4096 (CUDA events around
+     each call, and around a CUDA graph's replay for the device's time
+     alone);
   2. the flat main path through the user's entry points: 4,096 PNGs
      indexed by the port's indexer CLI (ResNet-50, flat l2, f32 store), the
      port's HTTP server queried with corpus images, and the kernel launch
@@ -38,9 +41,18 @@ Phases (each raises on failure; the script then exits non-zero):
      IVF-PQ path through the entry points (the same PNGs, indexer CLI with
      ``--index-type ivfpq --pq-rerank 64``, HTTP server) with the launch
      counts of the build and of serving; the assignment (3xTF32 on tensor
-     cores) beside cuBLAS's f32 product alone and both bounds; the select
-     timed on the probed scan's width at Q = 1 and 64, and a search with k
-     beyond SELECT_RADIX_MAX_T through the select's extract-min route;
+     cores) beside cuBLAS's f32 product alone and both bounds; the probed
+     scan's two routes (slot by slot, bucket by bucket) bit-equal and timed
+     at Q = 1, 64 and 128 (either side of the plan's crossing),
+     ``ivf_probed_topk`` at Q = 1 split into its steps; the
+     select timed on the probed scan's width at Q = 1 and 64, and searches
+     with k = 300 and a rerank shortlist of 1000 on the radix select; then
+     batched IVF at the JAX package's point (benchmarks/ivf_batched_1m.py's
+     1M x 128 data, IVFIndex nlist 1024, nprobe 4, f32 and bf16 tables, Q =
+     1, 32, 64, 256, 1024): search_batched's launches by route, both scan routes
+     bit-equal, within tolerance of the plain version and timed beside the
+     distinct buckets' byte bound, the probed top-k equal to the plain
+     route's;
   4. the int8 store and chi2: quantization on the card bit-identical to the
      numpy formula, the int8 kernels (phase 1 on CUDA cores up to 4 queries,
      on tensor cores beyond) equal to their plain versions bit for bit at Q
@@ -86,7 +98,8 @@ Phases (each raises on failure; the script then exits non-zero):
 
 Before its last two lines it prints a JSON object describing the 16
 kernels (launches, errors, times, bounds; ``groupmin`` and ``rescore``
-per store dtype and, for f32, per route) and the card's name and power
+per store dtype and, for f32, per route; the extract-min select's launches
+in each main-path run, which must be 0) and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
 """
@@ -135,7 +148,7 @@ SOURCES = {
 }
 # the f32 tensor-core route: one warpgroup-MMA kernel for both phases
 SOURCES_F32_TC = {"groupmin": CSRC + "groupmin_tf32.cu", "rescore": CSRC + "groupmin_tf32.cu"}
-# the select's route for t beyond SELECT_RADIX_MAX_T: t extract-min passes
+# the extract-min kernel (t passes), timed beside the radix select that replaced it
 SOURCE_SELECT_EXTRACT_MIN = CSRC + "topk_twophase.cu"
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
@@ -169,6 +182,12 @@ INT8_OPS = 1979e12
 # embeddings; recalls on this corpus describe this corpus only)
 SCALE_N, SCALE_D, SCALE_CENTRES, SCALE_LATENT = 1_000_000, 2048, 4096, 64
 NLIST, NPROBE, PQ_M = 1024, 4, 16
+# phase 3, batched IVF: the JAX package's point (benchmarks/ivf_batched_1m.py:
+# its data, IVFIndex nlist 1024, nprobe 4, k = 10, Q = 64, 256 and 1024),
+# Q = 1, and Q = 32, the batch below probed_scan_plan's crossing (Q = 64 the
+# one above)
+BATCHED_N, BATCHED_D, BATCHED_NLIST, BATCHED_NPROBE, BATCHED_K = 1_000_000, 128, 1024, 4, 10
+BATCHED_Q = (1, 32, 64, 256, 1024)
 
 
 def log(msg: str) -> None:
@@ -217,6 +236,23 @@ def graph_ms(fn, flush, reps: int = TIMING_REPS) -> float:
     with torch.cuda.graph(graph):
         fn()
     return median_ms(graph.replay, flush, reps)
+
+
+class ReadFlush:
+    """An L2 flush by reading a buffer larger than L2 (``flush.zero_()`` in
+    median_ms writes one): the lines it leaves are clean, so a kernel timed
+    after it does not also pay the write-back of 50 MB of dirty lines, which
+    at a few dozen MB of reads doubles a small kernel's traffic."""
+
+    def __init__(self, buf):
+        import torch
+
+        self.buf, self.out = buf, torch.empty((), dtype=buf.dtype, device=buf.device)
+
+    def zero_(self):
+        import torch
+
+        torch.sum(self.buf, dim=0, out=self.out)
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
@@ -322,18 +358,35 @@ def f32_route(x, nq: int) -> str:
 
 @contextlib.contextmanager
 def select_route(route: str):
-    """select_topt on one of its routes whatever t: "extract_min" (t passes,
-    the kernel the radix select replaced up to SELECT_RADIX_MAX_T) or
-    "radix" (as the wrapper picks for t up to it); the wrapper picks by
-    ``SELECT_RADIX_MAX_T``, which this sets for the duration."""
+    """select_topt on one of its routes: "extract_min" (t passes, the TPU
+    kernel's algorithm, which the radix select replaced for every t; no
+    search path takes it) or "radix" (every plan of select_plan); this
+    swaps ``select_plan`` for the duration."""
     from image_search_engine_tpu_torch.ops import topk as T
 
-    keep = T.SELECT_RADIX_MAX_T
-    T.SELECT_RADIX_MAX_T = 0 if route == "extract_min" else keep
+    keep = T.select_plan
+    if route == "extract_min":
+        T.select_plan = lambda nq, w, t, sms: T.SelectPlan("extract_min", 1, w)
     try:
         yield
     finally:
-        T.SELECT_RADIX_MAX_T = keep
+        T.select_plan = keep
+
+
+#: the extract-min kernel's launches in each main-path run (counts set to 0
+#: just before the run, read just after; note_extract_min): the kernels
+#: line prints them and their sum
+MAIN_PATH_EXTRACT_MIN: dict = {}
+
+
+def note_extract_min(run: str) -> None:
+    """Record the extract-min kernel's launches in the main-path run just
+    made; any fails the script, since no search path takes that route."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    MAIN_PATH_EXTRACT_MIN[run] = T.select_topt.extract_min_launches
+    if MAIN_PATH_EXTRACT_MIN[run]:
+        raise AssertionError(f"{run}: {MAIN_PATH_EXTRACT_MIN[run]} extract-min select launches")
 
 
 def assert_same_select(name, mins, t) -> None:
@@ -352,12 +405,14 @@ def assert_same_select(name, mins, t) -> None:
         raise AssertionError(f"{name}: select differs from its plain version ({bad} entries)")
 
 
-def time_select(name, mins, t, flush) -> dict:
-    """select_topt at its wrapper's route against its plain version bit for
+def time_select(name, mins, t, flush, extract_min_reps: int = TIMING_REPS) -> dict:
+    """select_topt (the radix select) against its plain version bit for
     bit, then timed beside its plain version, torch.topk on the same mins
     (the library call) and the extract-min kernel (the route the radix
-    select replaced, forced); bound: the mins read once and the output
-    written once."""
+    select replaced, forced; also bit-equal, and timed over
+    ``extract_min_reps`` runs, its t passes taking ~45 ms at t = 4096, W =
+    65,536 on an H100 80GB HBM3 at 700 W); bound: the mins read once and
+    the output written once."""
     import torch
 
     from image_search_engine_tpu_torch.ops import topk as T
@@ -367,33 +422,35 @@ def time_select(name, mins, t, flush) -> dict:
     plan = T.select_plan(nq, w, t, torch.cuda.get_device_properties(0).multi_processor_count)
     b = bound(nq * w * 4 + nq * t * 8, 0, F32_FLOPS)
     topk = lambda: torch.topk(mins, t, dim=1, largest=False)  # noqa: E731
-    res = {"route": plan.route, "split": plan.split, "max_abs_err": 0.0,
+    res = {"route": plan.route, "split": plan.split, "sort": plan.sort, "max_abs_err": 0.0,
            "ms": median_ms(lambda: T.select_topt(mins, t), flush),
            "device_ms": graph_ms(lambda: T.select_topt(mins, t), flush),
            "plain_ms": median_ms(lambda: T.select_topt_ref(mins, t), flush),
            "library_ms": median_ms(topk, flush), "library_device_ms": graph_ms(topk, flush),
            "bound_ms": b[0], "bound_by": b[1], "shape": f"Q={nq} W={w} t={t}"}
-    if plan.route == "radix":
-        with select_route("extract_min"):
-            assert_same_select(f"{name} (extract-min route)", mins, t)
-            res["extract_min_ms"] = median_ms(lambda: T.select_topt(mins, t), flush)
-            res["extract_min_device_ms"] = graph_ms(lambda: T.select_topt(mins, t), flush)
-    else:
-        res["extract_min_ms"], res["extract_min_device_ms"] = res["ms"], res["device_ms"]
+    with select_route("extract_min"):
+        assert_same_select(f"{name} (extract-min route)", mins, t)
+        res["extract_min_ms"] = median_ms(lambda: T.select_topt(mins, t), flush,
+                                          extract_min_reps)
+        res["extract_min_device_ms"] = graph_ms(lambda: T.select_topt(mins, t), flush,
+                                                extract_min_reps)
     log(f"  select_topt {name} Q={nq} W={w} t={t}: = plain bit for bit; {plan.route} "
-        f"(split {plan.split}) {res['ms']:.4f} ms (device {res['device_ms']:.4f}), extract-min "
-        f"{res['extract_min_ms']:.4f} ms (device {res['extract_min_device_ms']:.4f}), torch.topk "
-        f"{res['library_ms']:.4f} ms (device {res['library_device_ms']:.4f}), plain "
-        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms by {res['bound_by']}")
+        f"(split {plan.split}, {plan.sort} sort) {res['ms']:.4f} ms (device "
+        f"{res['device_ms']:.4f}), extract-min {res['extract_min_ms']:.4f} ms (device "
+        f"{res['extract_min_device_ms']:.4f}), torch.topk {res['library_ms']:.4f} ms (device "
+        f"{res['library_device_ms']:.4f}), plain {res['plain_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.6f} ms by {res['bound_by']}")
     return res
 
 
 SELECT_SWEEP_W = (1, 31, 32, 33, 1000, 5088, 7813, 65536)
-SELECT_SWEEP_T = (1, 12, 24, 52, 160)  # and W - 1
+SELECT_SWEEP_T = (1, 12, 24, 52, 160, 257, 300, 1000, 4096)  # and W - 1
 SELECT_SWEEP_Q = (1, 2, 64, 4096)
-# but for Q = 4096 at W = 65,536, t = W - 1: the extract-min route's t passes
-# over rows that no longer fit L2 together would take ~30 s per row kind
+# but for Q = 4096 at W = 65,536, t = W - 1: the plain version's sort and
+# outputs (2 GB a row kind) and the radix sort's 4 GB of scratch
 SELECT_SWEEP_MAX_WORK = 2 ** 40
+# the select beyond t = 256 timed (the bitonic sort up to 4096), Q = 1 and 64
+SELECT_BIG_T = (257, 300, 1000, 4096)
 
 
 def select_rows(kind: str, nq: int, w: int, gen):
@@ -426,12 +483,14 @@ def select_sweep(gen, flush) -> dict:
     """select_topt against select_topt_ref bit for bit (values with their
     sign of zero, and ids) at every W in SELECT_SWEEP_W, t in SELECT_SWEEP_T
     and W - 1 (t <= W), Q in SELECT_SWEEP_Q (Q W t <= SELECT_SWEEP_MAX_WORK),
-    on each kind of select_rows: both routes (the radix select, split and
-    whole rows, sampled or not; the extract-min kernel beyond
-    SELECT_RADIX_MAX_T), each counted. Then each
-    route timed where the wrapper takes it: the radix select at W = 7813, t
-    = 24 (Q = 1, a split row; Q = 4096, whole rows), the extract-min kernel
-    at W = 7813, t = 300 (Q = 1, 64)."""
+    on each kind of select_rows: every shape on the radix select (split and
+    whole rows, sampled or not; its sort by counting, by the bitonic network
+    and by the global radix sort), none on the extract-min kernel, each
+    counted; the extract-min kernel, forced, bit-equal too at W = 7813 up to
+    t = 4096 (Q = 1 and 64). Then timed: the radix select at W = 7813, t =
+    24 (Q = 1, a split row; Q = 4096, whole rows), and at each t of
+    SELECT_BIG_T, W = 7813 and 65,536, Q = 1 and 64, beside torch.topk and
+    the extract-min kernel."""
     from image_search_engine_tpu_torch.ops import topk as T
 
     T.reset_launch_counts()
@@ -449,18 +508,29 @@ def select_sweep(gen, flush) -> dict:
                     shapes += 1
     launches = {"radix": T.select_topt.radix_launches,
                 "extract_min": T.select_topt.extract_min_launches}
-    if not all(launches.values()):
-        raise AssertionError(f"select sweep: a route did not launch: {launches}")
+    if launches != {"radix": shapes, "extract_min": 0}:
+        raise AssertionError(f"select sweep: {shapes} shapes, launches by route {launches}")
+    compared = 0
+    with select_route("extract_min"):
+        for t in SELECT_SWEEP_T:
+            for nq in (1, 64):
+                for kind in ("random", "ties", "zeros", "inf", "hidden"):
+                    assert_same_select(f"extract-min kernel {kind} Q={nq} W=7813 t={t}",
+                                       select_rows(kind, nq, 7813, gen), t)
+                    compared += 1
     log(f"  select sweep: {shapes} shapes (W {SELECT_SWEEP_W}, t {SELECT_SWEEP_T} and W - 1, Q "
         f"{SELECT_SWEEP_Q}, Q W t <= 2^40; random, tie-heavy, +-0.0, +inf rows and rows whose "
         f"small entries avoid the sampled positions) = plain bit for bit; launches by route "
-        f"{launches}")
+        f"{launches}; the extract-min kernel (forced) = plain bit for bit on {compared} shapes "
+        f"(W = 7813, t up to 4096)")
     routes = {f"radix_Q{nq}": time_select("radix route", select_rows("random", nq, 7813, gen),
                                           24, flush) for nq in (1, 4096)}
-    routes.update({f"extract_min_Q{nq}": time_select(
-        "extract-min route", select_rows("random", nq, 7813, gen), T.SELECT_RADIX_MAX_T + 44,
-        flush) for nq in (1, 64)})
-    return {"shapes": shapes, "launches": launches, "routes": routes}
+    big_t = {f"W{w}_t{t}_Q{nq}": time_select(
+        "beyond t = 256", select_rows("random", nq, w, gen), t, flush,
+        extract_min_reps=TIMING_REPS if t * w <= 300 * 7813 else 5)
+        for w in (7813, 65536) for t in SELECT_BIG_T for nq in (1, 64)}
+    return {"shapes": shapes, "launches": launches, "extract_min_compared": compared,
+            "routes": routes, "big_t": big_t}
 
 
 def check_kernels(name, qf, store, knorms, tol):
@@ -854,7 +924,7 @@ def serve_and_query(art: Path, index_type: str, paths: list, label: str,
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
         T.reset_launch_counts()
-        IV.probed_scan.launches = 0
+        reset_scan_counts()
         first, lat = 0, []
         for i in np.linspace(0, len(paths) - 1, 8).astype(int):
             t0 = time.perf_counter()
@@ -870,7 +940,10 @@ def serve_and_query(art: Path, index_type: str, paths: list, label: str,
                 raise AssertionError(f"{label} query {i}: distances not finite ascending: {dists}")
             first += names[0] == str(paths[i])
         counts = {**T.launch_counts(), "select_topt_radix": T.select_topt.radix_launches,
-                  "group_order": T.group_order.launches, "probed_scan": IV.probed_scan.launches}
+                  "group_order": T.group_order.launches, "probed_scan": IV.probed_scan.launches,
+                  "probed_scan_slot": IV.probed_scan.slot_launches,
+                  "probed_scan_bucket": IV.probed_scan.bucket_launches}
+        note_extract_min(f"{label} serving")
         status, _ = post_image(base + "/similar_images", b"not an image")
         if status != 400:
             raise AssertionError(f"{label} garbage upload answered {status}, want 400")
@@ -942,6 +1015,7 @@ def search_batch(index) -> dict:
     _, ids = index.search(q, K)
     launches = {"groupmin": T.groupmin.tensor_core_launches,
                 "rescore": T.rescore.tensor_core_launches, "select_topt": T.select_topt.launches}
+    note_extract_min("flat batch Q=64")
     if not all(launches.values()):
         raise AssertionError(f"f32 batch Q=64: a tensor-core kernel did not launch: {launches}")
     if not np.array_equal(ids[:, 0], rows):
@@ -1020,6 +1094,119 @@ def plain_probed_topk(q, bc, table, norms, lists, k, nprobe):
     return (vals + (q * q).sum(1, keepdim=True)).clamp(min=0.0), ids
 
 
+@contextlib.contextmanager
+def scan_route(route: str):
+    """probed_scan on one of its routes whatever the batch: "slot" or
+    "bucket", the kernel and its tile planned for that route
+    (``probed_scan_plan(..., route=route)``); this swaps
+    ``probed_scan_plan`` for the duration."""
+    from image_search_engine_tpu_torch.ops import ivf as IV
+
+    keep = IV.probed_scan_plan
+    IV.probed_scan_plan = lambda *a: keep(*a, route=route)
+    try:
+        yield
+    finally:
+        IV.probed_scan_plan = keep
+
+
+def check_probed_scan(name, qf, table, norms, probe, flush, reps: int = TIMING_REPS) -> dict:
+    """probed_scan on both routes: bit-equal to each other (the same
+    row_dot arithmetic), within score_tol of probed_scan_ref, each timed
+    (CUDA events, and a CUDA graph's replay for the device's time alone)
+    beside the plain version; bound: the distinct probed buckets' rows and
+    norms read once, the queries and probe ids read once, the scores
+    written once (or 2 cap d flops a slot at the f32 rate, if larger)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import ivf as IV
+
+    nq, d = qf.shape
+    nb, cap, _ = table.shape
+    nprobe = probe.shape[1]
+    isz = table.element_size()
+    plan = IV.probed_scan_plan(nq, nprobe, nb, cap, d, isz)
+    tol = score_tol(qf, norms)
+    ref = IV.probed_scan_ref(qf, table, norms, probe)
+    res = {"route": plan.route, "tol": tol, "shape": f"Q={nq} nprobe={nprobe} cap={cap} d={d} "
+           f"{str(table.dtype).replace('torch.', '')} table, {nb} buckets"}
+    got = {}
+    for route in ("slot", "bucket"):
+        with scan_route(route):
+            got[route] = IV.probed_scan(qf, table, norms, probe)
+            res[f"{route}_ms"] = median_ms(lambda: IV.probed_scan(qf, table, norms, probe), flush,
+                                           reps)
+            res[f"{route}_device_ms"] = graph_ms(
+                lambda: IV.probed_scan(qf, table, norms, probe), flush, reps)
+    if not torch.equal(got["slot"].view(torch.int32), got["bucket"].view(torch.int32)):
+        raise AssertionError(f"probed_scan {name}: the routes' scores differ")
+    res["max_abs_err"] = max_abs_err(got["bucket"], ref)
+    if res["max_abs_err"] > tol:
+        raise AssertionError(f"probed_scan {name}: error {res['max_abs_err']} > tolerance {tol}")
+    res["ms"], res["device_ms"] = res[f"{plan.route}_ms"], res[f"{plan.route}_device_ms"]
+    res["device_clean_l2_ms"] = graph_ms(lambda: IV.probed_scan(qf, table, norms, probe),
+                                         ReadFlush(flush), reps)
+    res["plain_ms"] = median_ms(lambda: IV.probed_scan_ref(qf, table, norms, probe), flush,
+                                min(reps, 5))
+    ub = torch.unique(probe[(probe >= 0) & (probe < nb)]).numel()  # distinct buckets read
+    res["bound_ms"], res["bound_by"] = bound(
+        ub * cap * (d * isz + 4) + nq * d * isz + nq * nprobe * (4 + cap * 4),
+        2 * nq * nprobe * cap * d, F32_FLOPS)
+    res["buckets"], res["slots"] = ub, nq * nprobe
+    log(f"  probed_scan {name} ({res['shape']}, {ub} distinct buckets of {nq * nprobe} slots): "
+        f"routes bit-equal, err {res['max_abs_err']:.3g} (tol {tol:.3g}); slot route "
+        f"{res['slot_ms']:.4f} ms (device {res['slot_device_ms']:.4f}), bucket route "
+        f"{res['bucket_ms']:.4f} ms (device {res['bucket_device_ms']:.4f}), the plan's: "
+        f"{plan.route} (device {res['device_clean_l2_ms']:.4f} ms after a flush that leaves no "
+        f"dirty lines); plain {res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
+        f"{res['bound_by']}")
+    return res
+
+
+def probed_topk_breakdown(q, bc, table, norms, lists, k, nprobe, flush) -> dict:
+    """ivf_probed_topk at len(q) queries split into its steps as it runs
+    them, CUDA-event medians (L2 flushed before each): the whole call, the
+    device's time of its CUDA graph, then rank_buckets, the query and probe
+    casts, the probed scan, the lists gather, the select and the finish
+    (ids, flags, distances); the rest is what the steps' separate timings
+    miss."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    nq, cap = q.shape[0], table.shape[1]
+    probe = IV.rank_buckets(q, bc, nprobe)
+    qf, probe32 = q.to(table.dtype).contiguous(), probe.to(torch.int32).contiguous()
+    scores = IV.probed_scan(qf, table, norms, probe32)
+    cand = lists[probe].reshape(nq, nprobe * cap)
+    vals, pos = T.select_topt(scores, k)
+
+    def finish():
+        ids = torch.gather(cand, 1, pos.long())
+        ok = torch.isfinite(vals) & (ids >= 0)
+        qnorm = (q.float() * q.float()).sum(1, keepdim=True)
+        return torch.clamp(vals + qnorm, min=0.0), ids, ok
+
+    call = lambda: IV.ivf_probed_topk(q, bc, table, norms, lists, k, nprobe)  # noqa: E731
+    res = {"topk_ms": median_ms(call, flush), "topk_device_ms": graph_ms(call, flush),
+           "rank_buckets_ms": median_ms(lambda: IV.rank_buckets(q, bc, nprobe), flush),
+           "casts_ms": median_ms(lambda: (q.to(table.dtype).contiguous(),
+                                          probe.to(torch.int32).contiguous()), flush),
+           "scan_ms": median_ms(lambda: IV.probed_scan(qf, table, norms, probe32), flush),
+           "gather_ms": median_ms(lambda: lists[probe].reshape(nq, nprobe * cap), flush),
+           "select_ms": median_ms(lambda: T.select_topt(scores, k), flush),
+           "finish_ms": median_ms(finish, flush)}
+    res["other_ms"] = res["topk_ms"] - sum(res[f"{s}_ms"] for s in (
+        "rank_buckets", "casts", "scan", "gather", "select", "finish"))
+    log(f"  ivf_probed_topk Q={nq} k={k} split: {res['topk_ms']:.4f} ms (device "
+        f"{res['topk_device_ms']:.4f}) = rank_buckets {res['rank_buckets_ms']:.4f} + casts "
+        f"{res['casts_ms']:.4f} + probed_scan {res['scan_ms']:.4f} + lists gather "
+        f"{res['gather_ms']:.4f} + select {res['select_ms']:.4f} + finish "
+        f"{res['finish_ms']:.4f} + rest {res['other_ms']:.4f} ms")
+    return res
+
+
 def phase3_scale() -> dict:
     """IVF-PQ over 1M x 2048 clustered rows: build, each kernel against its
     plain version, timings, and the search against ADC and exact search."""
@@ -1092,44 +1279,40 @@ def phase3_scale() -> dict:
         q = q64[:nq]
         probe = IV.rank_buckets(q, bc, nprobe).to(torch.int32).contiguous()
         qf = q.to(recon.dtype).contiguous()
-        tol = score_tol(qf, rnorms)
-        err = max_abs_err(IV.probed_scan(qf, recon, rnorms, probe),
-                          IV.probed_scan_ref(qf, recon, rnorms, probe))
-        if err > tol:
-            raise AssertionError(f"probed_scan Q={nq}: error {err} > tolerance {tol}")
+        res = check_probed_scan(f"IVF-PQ Q={nq}", qf, recon, rnorms, probe, flush)
         d, i, ok = IV.ivf_probed_topk(q, bc, recon, rnorms, lists, K, nprobe)
         rd, ri = plain_probed_topk(q, bc, recon, rnorms, lists, K, nprobe)
         if not bool(ok.all()):
             raise AssertionError(f"probed top-k Q={nq}: invalid slots among the top {K}")
         assert_same_topk(d.cpu().numpy(), i.cpu().numpy(), rd.cpu().numpy(), ri.cpu().numpy(),
-                         2 * tol, f"probed top-k Q={nq}")
-        ub = torch.unique(probe).numel()  # distinct buckets this run reads
-        select = time_select("IVF-PQ probed width", IV.probed_scan(qf, recon, rnorms, probe), K,
-                             flush)
-        scan[nq] = {
-            "select": select,
-            "max_abs_err": err, "tol": tol,
-            "ms": median_ms(lambda: IV.probed_scan(qf, recon, rnorms, probe), flush),
-            "plain_ms": median_ms(lambda: IV.probed_scan_ref(qf, recon, rnorms, probe), flush),
-            "topk_ms": median_ms(lambda: IV.ivf_probed_topk(q, bc, recon, rnorms, lists, K,
-                                                            nprobe), flush),
-            "bound": bound(ub * cap * (SCALE_D * 2 + 4) + nq * SCALE_D * 2
-                           + nq * nprobe * (4 + cap * 4), 2 * nq * nprobe * cap * SCALE_D,
-                           BF16_FLOPS),
-            "buckets": ub,
-        }
-        log(f"  probed_scan Q={nq} (bf16 table, {nprobe} probes x cap {cap}, {ub} distinct "
-            f"buckets): err {err:.3g} (tol {tol:.3g}); {scan[nq]['ms']:.4f} ms (plain "
-            f"{scan[nq]['plain_ms']:.4f} ms, bound {scan[nq]['bound'][0]:.4f} ms by "
-            f"{scan[nq]['bound'][1]}); probed top-{K} {scan[nq]['topk_ms']:.4f} ms, ids = plain "
-            f"route's")
+                         2 * res["tol"], f"probed top-k Q={nq}")
+        res["select"] = time_select("IVF-PQ probed width", IV.probed_scan(qf, recon, rnorms,
+                                                                          probe), K, flush)
+        res["topk_ms"] = median_ms(lambda: IV.ivf_probed_topk(q, bc, recon, rnorms, lists, K,
+                                                               nprobe), flush)
+        log(f"  probed top-{K} Q={nq}: {res['topk_ms']:.4f} ms, ids = plain route's")
+        scan[nq] = res
+    # the batch on the other side of the plan's crossing over these rows:
+    # Q = 64 above takes the slot route, Q = 128 the bucket route (queries
+    # from a generator of their own, so the rest of the phase is unchanged)
+    q128 = latent_rows(128, centres, proj, torch.Generator(device="cuda").manual_seed(SEED + 31))
+    scan[128] = check_probed_scan("IVF-PQ Q=128", q128.to(recon.dtype).contiguous(), recon,
+                                  rnorms, IV.rank_buckets(q128, bc, nprobe).to(torch.int32)
+                                  .contiguous(), flush)
+    if (scan[64]["route"], scan[128]["route"]) != ("slot", "bucket"):
+        raise AssertionError(f"IVF-PQ: the plan takes {scan[64]['route']} at Q=64, "
+                             f"{scan[128]['route']} at Q=128")
+    del q128
+    scan["breakdown_Q1"] = probed_topk_breakdown(q64[:1], bc, recon, rnorms, lists, K, nprobe,
+                                                 flush)
     qf = q64.contiguous()
     probe = IV.rank_buckets(qf, bc, nprobe).to(torch.int32).contiguous()
     err_raw = max_abs_err(IV.probed_scan(qf, index.packed, index.packed_norms, probe),
                           IV.probed_scan_ref(qf, index.packed, index.packed_norms, probe))
     if err_raw > score_tol(qf, index.packed_norms):
         raise AssertionError(f"probed_scan on the f32 table: error {err_raw}")
-    scan["max_abs_err"] = max(scan[1]["max_abs_err"], scan[64]["max_abs_err"], err_raw)
+    scan["max_abs_err"] = max(scan[1]["max_abs_err"], scan[64]["max_abs_err"],
+                              scan[128]["max_abs_err"], err_raw)
 
     # search quality: the probed scan against ADC, and rerank against exact
     _, i_adc = index.search(q64, 10)
@@ -1157,29 +1340,146 @@ def phase3_scale() -> dict:
                              f"vs rerank {rec_rr}")
     serve_ms = {nq: median_ms(lambda: index.search_batched(q64[:nq], K, rerank=64), flush)
                 for nq in (1, 64)}
-    # k beyond SELECT_RADIX_MAX_T: the select's extract-min route on a user's path
-    k_wide = T.SELECT_RADIX_MAX_T + 44
+    # k and rerank shortlists beyond 256: the select's radix route (its
+    # bitonic sort) on a user's path, and no extract-min launch
+    k_wide = 300
     T.reset_launch_counts()
     d_wide, i_wide = index.search_batched(q64[:8], k_wide, rerank=0)
-    extract_min_launches = T.select_topt.extract_min_launches
-    if extract_min_launches == 0 or T.select_topt.radix_launches != 0:
-        raise AssertionError(f"IVF-PQ k={k_wide}: select routes radix "
-                             f"{T.select_topt.radix_launches}, extract-min {extract_min_launches}")
+    wide = {"radix": T.select_topt.radix_launches,
+            "extract_min": T.select_topt.extract_min_launches}
+    note_extract_min(f"IVF-PQ k={k_wide}")
     rd, ri = plain_probed_topk(q64[:8], bc, recon, rnorms, lists, k_wide, nprobe)
     assert_same_topk(d_wide, i_wide, rd.cpu().numpy(), ri.cpu().numpy(),
                      2 * score_tol(q64[:8].to(recon.dtype), rnorms), f"IVF-PQ k={k_wide}")
-    log(f"  search_batched(k={k_wide}) over 8 queries: the select's extract-min route "
-        f"({extract_min_launches} launch), = the plain route's top-{k_wide}")
+    T.reset_launch_counts()
+    _, i_rr1000 = index.search_batched(q64, K, rerank=1000)
+    rerank = {"radix": T.select_topt.radix_launches,
+              "extract_min": T.select_topt.extract_min_launches}
+    note_extract_min("IVF-PQ rerank=1000")
+    if not (wide["radix"] and rerank["radix"]) or wide["extract_min"] or rerank["extract_min"]:
+        raise AssertionError(f"IVF-PQ beyond t = 256: select launches {wide} (k={k_wide}), "
+                             f"{rerank} (rerank=1000)")
+    sd, si, _ = IV.ivf_probed_topk(q64, bc, recon, rnorms, lists, 1000, nprobe)
+    rd, ri = plain_probed_topk(q64, bc, recon, rnorms, lists, 1000, nprobe)
+    assert_same_topk(sd.cpu().numpy(), si.cpu().numpy(), rd.cpu().numpy(), ri.cpu().numpy(),
+                     2 * score_tol(q64.to(recon.dtype), rnorms), "IVF-PQ shortlist of 1000")
+    rec1000 = recall(i_rr1000[:, :10])
+    if rec1000 < rec_rr:
+        raise AssertionError(f"IVF-PQ rerank=1000 recall@10 {rec1000} < rerank=64's {rec_rr}")
+    log(f"  search_batched(k={k_wide}) over 8 queries: = the plain route's top-{k_wide}; "
+        f"search_batched(k={K}, rerank=1000) over 64: its shortlist = the plain route's, "
+        f"recall@10 vs exact {rec1000:.4f}; select launches by route {wide} and {rerank}")
     log(f"  search_batched(k={K}, rerank=64) incl. host transfer: Q=1 {serve_ms[1]:.3f} ms, "
         f"Q=64 {serve_ms[64]:.3f} ms")
     del index, recon, rnorms, x
     torch.cuda.empty_cache()
     return {"build_s": build_s, "scan": scan, "nprobe": nprobe, "cap": cap,
-            "extract_min_launches": extract_min_launches,
+            "beyond_256_launches": {"k300": wide, "rerank1000": rerank},
             "assign": {"max_abs_err": max(err_c, err_b), "ms": assign_ms,
                        "plain_ms": assign_plain_ms, "bound": a_bound,
                        "f32_cuda_core_bound_ms": a_bound_f32[0], "product_alone_ms": product_ms,
                        "books_ms": books_ms, "books_plain_ms": books_plain_ms}}
+
+
+def reset_scan_counts() -> None:
+    """probed_scan's launch counts, all and per route, to 0."""
+    from image_search_engine_tpu_torch.ops import ivf as IV
+
+    IV.probed_scan.launches = IV.probed_scan.slot_launches = IV.probed_scan.bucket_launches = 0
+
+
+def batched_ivf_data(d: int = BATCHED_D):
+    """benchmarks/ivf_batched_1m.py's corpus and queries, made as it makes
+    them (numpy, seed 0): 4096 centres x 3, N // 4096 rows of unit noise
+    about each (999,424 rows), 1024 queries = random rows + 0.1 noise; its
+    width d = 128 unless another is asked for."""
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((4096, d)).astype(np.float32) * 3
+    x = np.concatenate([c + rng.standard_normal((BATCHED_N // 4096, d)).astype(np.float32)
+                        for c in centers])[:BATCHED_N]
+    q = x[rng.choice(BATCHED_N, 1024, replace=False)] + 0.1 * rng.standard_normal(
+        (1024, d)).astype(np.float32)
+    return x, q
+
+
+def phase3_batched() -> dict:
+    """Batched IVF at the JAX package's point: an IVFIndex (nlist 1024,
+    nprobe 4) over benchmarks/ivf_batched_1m.py's data with an f32 and a
+    bf16 table, at each Q of BATCHED_Q: search_batched through the user's
+    entry point (launch counts set to 0 just before, read just after: the
+    plan's probed-scan route, group_order with the bucket route, the
+    select), both probed-scan routes bit-equal and within score_tol of the
+    plain version and timed beside the distinct buckets' byte bound, and
+    ivf_probed_topk's ids equal to the plain route's and, bit for bit, to
+    the other scan route's."""
+    import torch
+
+    from image_search_engine_tpu_torch.index.ivf import IVFIndex
+    from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    log(f"phase 3: batched IVF at the JAX package's point ({BATCHED_N:,} x {BATCHED_D}, nlist "
+        f"{BATCHED_NLIST}, nprobe {BATCHED_NPROBE}, k = {BATCHED_K})")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
+    t0 = time.perf_counter()
+    x, queries = batched_ivf_data()
+    log(f"  data ({x.shape[0]:,} rows) made in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for dtype in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        index = IVFIndex("l2", nlist=BATCHED_NLIST, nprobe=BATCHED_NPROBE, table_dtype=dtype,
+                         device="cuda").add(x)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        nprobe = index._effective_nprobe()
+        bc, lists, table, norms = index._device_arrays()
+        nb, cap, _ = table.shape
+        log(f"  IVFIndex ({dtype} table): {nb} buckets of cap {cap}, {nprobe} probed, built in "
+            f"{build_s:.1f} s")
+        per_q = {}
+        for nq in BATCHED_Q:
+            plan = IV.probed_scan_plan(nq, nprobe, nb, cap, BATCHED_D, table.element_size())
+            T.reset_launch_counts()
+            reset_scan_counts()
+            _, ids = index.search_batched(queries[:nq], BATCHED_K)
+            launches = {"slot": IV.probed_scan.slot_launches,
+                        "bucket": IV.probed_scan.bucket_launches,
+                        "group_order": T.group_order.launches,
+                        "select_topt": T.select_topt.radix_launches}
+            note_extract_min(f"batched IVF {dtype} Q={nq}")
+            bucket = int(plan.route == "bucket")
+            if launches != {"slot": 1 - bucket, "bucket": bucket, "group_order": bucket,
+                            "select_topt": 1}:
+                raise AssertionError(f"batched IVF {dtype} Q={nq}: launches {launches} on the "
+                                     f"{plan.route} route")
+            q = index._prep(queries[:nq])
+            probe = IV.rank_buckets(q, bc, nprobe).to(torch.int32).contiguous()
+            res = check_probed_scan(f"batched {dtype} Q={nq}", q.to(table.dtype).contiguous(),
+                                    table, norms, probe, flush, reps=10)
+            d, i, ok = IV.ivf_probed_topk(q, bc, table, norms, lists, BATCHED_K, nprobe)
+            if not np.array_equal(torch.where(ok, i, -1).cpu().numpy(), ids):
+                raise AssertionError(f"batched IVF {dtype} Q={nq}: search_batched's ids differ "
+                                     f"from ivf_probed_topk's")
+            with scan_route("slot" if bucket else "bucket"):
+                d2, i2, _ = IV.ivf_probed_topk(q, bc, table, norms, lists, BATCHED_K, nprobe)
+            if not (torch.equal(i, i2) and torch.equal(d.view(torch.int32),
+                                                       d2.view(torch.int32))):
+                raise AssertionError(f"batched IVF {dtype} Q={nq}: the scan routes' top-k differ")
+            rd, ri = plain_probed_topk(q, bc, table, norms, lists, BATCHED_K, nprobe)
+            assert_same_topk(d.cpu().numpy(), i.cpu().numpy(), rd.cpu().numpy(),
+                             ri.cpu().numpy(), 2 * res["tol"], f"batched IVF {dtype} Q={nq}")
+            res["topk_ms"] = median_ms(lambda: IV.ivf_probed_topk(
+                q, bc, table, norms, lists, BATCHED_K, nprobe), flush, 10)
+            res["search_launches"] = launches
+            log(f"  batched IVF {dtype} Q={nq}: search_batched launches {launches}; probed "
+                f"top-{BATCHED_K} {res['topk_ms']:.4f} ms, ids = the plain route's and the other "
+                f"scan route's")
+            per_q[nq] = res
+        out[dtype] = {"build_s": build_s, "nbuckets": nb, "cap": cap, "nprobe": nprobe,
+                      "Q": per_q}
+        del index, bc, lists, table, norms
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase3_entry(workdir: Path, paths: list) -> dict:
@@ -1195,10 +1495,14 @@ def phase3_entry(workdir: Path, paths: list) -> dict:
     out = serve_and_query(art, "ivfpq", paths, "ivfpq", own_first=False)
     if type(out["engine"].index).__name__ != "IVFPQIndex":
         raise AssertionError(f"engine loaded {type(out['engine'].index).__name__}")
-    counts = {k: out["launches"][k] for k in ("probed_scan", "select_topt", "select_topt_radix")}
-    if assign_launches == 0 or not all(v > 0 for v in counts.values()):
-        raise AssertionError(f"a kernel did not launch: assign {assign_launches} during the "
-                             f"build, {counts} while serving")
+    used = ("probed_scan", "probed_scan_slot", "select_topt", "select_topt_radix")
+    counts = {k: out["launches"][k] for k in (*used, "probed_scan_bucket")}
+    # a served query takes the slot route (probed_scan_plan), and every
+    # select the radix one
+    if (assign_launches == 0 or not all(counts[k] for k in used) or counts["probed_scan_bucket"]
+            or counts["select_topt"] != counts["select_topt_radix"]):
+        raise AssertionError(f"a kernel did not launch, or off its route: assign "
+                             f"{assign_launches} during the build, {counts} while serving")
     log(f"  {assign_launches} assign launches in the build; 8 queries ok (own file in the top "
         f"{K}, ranked first in {out['first']} of 8); launches while serving {counts}; request "
         f"latency p50 {out['p50_ms']:.2f} ms (client clock)")
@@ -1322,19 +1626,25 @@ def q8_kernel(route: str):
 def check_group_order(name, cand, ng, flush) -> dict:
     """group_order against its plain version (a stable argsort): a
     permutation of the slots whose group sequence is the plain version's
-    (the order within a group is free), timed beside its plain version and
-    torch.argsort of the ids; bound: the ids read and the order written."""
+    (the order within a group is free), the bins' ends and the list of bins
+    that have slots equal to the plain version's, timed beside its plain
+    version and torch.argsort of the ids; bound: the ids read, the order,
+    the ends and the list written."""
     import torch
 
     from image_search_engine_tpu_torch.ops import topk as T
 
-    order, ref = T.group_order(cand, ng), T.group_order_ref(cand, ng)
+    got, ref = T.group_order(cand, ng), T.group_order_ref(cand, ng)
     flat = cand.view(-1)
-    if not (torch.equal(torch.sort(order).values, torch.arange(flat.numel(), device="cuda",
-                                                               dtype=torch.int32))
-            and torch.equal(flat[order.long()], flat[ref.long()])):
+    bins = flat.clamp(-1, ng)  # ids below 0 share a bin, as do those of ng or more
+    nlive = int(ref.live[0])
+    if not (torch.equal(torch.sort(got.order).values,
+                        torch.arange(flat.numel(), device="cuda", dtype=torch.int32))
+            and torch.equal(bins[got.order.long()], bins[ref.order.long()])
+            and torch.equal(got.ends, ref.ends)
+            and torch.equal(got.live[:1 + nlive], ref.live[:1 + nlive])):
         raise AssertionError(f"{name}: group_order does not group the slots as its plain version")
-    b = bound(flat.numel() * 8 + (ng + 2) * 4, 0, F32_FLOPS)
+    b = bound(flat.numel() * 8 + (ng + 2) * 4 + (1 + nlive) * 4, 0, F32_FLOPS)
     return {"max_abs_err": 0.0, "ms": median_ms(lambda: T.group_order(cand, ng), flush),
             "device_ms": graph_ms(lambda: T.group_order(cand, ng), flush),
             "plain_ms": median_ms(lambda: T.group_order_ref(cand, ng), flush),
@@ -1618,7 +1928,8 @@ def phase4_entry(workdir: Path, paths: list, flat_art: Path) -> dict:
     q8 = serve_and_query(art, "l2", paths, "int8")
     idx8 = q8["engine"].index
     want = {"groupmin": 0, "select_topt": 8, "rescore": 0, "groupmin_q8": 8, "rescore_q8": 8,
-            "group_order": 0, "topk_running": 0, "select_topt_radix": 8, "probed_scan": 0}
+            "group_order": 0, "topk_running": 0, "select_topt_radix": 8, "probed_scan": 0,
+            "probed_scan_slot": 0, "probed_scan_bucket": 0}
     if idx8.dtype != "int8" or q8["launches"] != want or q8["escalations"] != 0:
         raise AssertionError(f"int8 serving: store {idx8.dtype}, launches {q8['launches']} (want "
                              f"{want}), escalations {q8['escalations']}")
@@ -2238,6 +2549,7 @@ def phase6(store) -> dict:
                 "groupmin_two_level_layouts": GV.groupmin_two_level.launches - proto_launches,
                 "groupmin": T.groupmin.launches, "select_topt": T.select_topt.launches,
                 "rescore": T.rescore.launches}
+    note_extract_min("bench twin and scripts")
     if not all(launches.values()):
         raise AssertionError(f"phase 6 main path: a kernel did not launch: {launches}")
     ref_sum = sums["current"]
@@ -2623,6 +2935,7 @@ def main() -> int:
         served = phase2(workdir)
         scale = phase3_scale()
         pq_served = phase3_entry(workdir, served["paths"])
+        batched = phase3_batched()
         shapes_q8 = phase4_kernels()
         q8_served = phase4_entry(workdir, served["paths"], served["art"])
     finally:
@@ -2646,26 +2959,24 @@ def main() -> int:
         "library_ms": head[name]["library_ms"],
         "shape": "Q=1 N=1,000,000 d=2048 f32 l2 k=20",
     } for name in ("groupmin", "select_topt", "rescore")]
-    # the select: the radix route at each shape the main paths give it, the
-    # extract-min route (t beyond SELECT_RADIX_MAX_T) where a user's k takes
-    # it and, forced, at the radix route's shapes; the sweep
+    # the select: the radix route at each shape the main paths give it and
+    # beyond t = 256 (k = 300 and a rerank shortlist of 1000 over IVF-PQ),
+    # the extract-min kernel it replaced timed beside it; the sweep
     sel = kernels[1]
     for k in ("device_ms", "extract_min_ms", "extract_min_device_ms"):
         sel[k] = head["select_topt"][k]
     sel["radix_route_launches"] = served["select_radix_launches"]
-    sel["radix_max_t"] = T.SELECT_RADIX_MAX_T
+    sel["rank_max_t"], sel["shared_sort_max_t"] = T.SELECT_RANK_MAX_T, T.SELECT_SHARED_SORT_MAX_T
     sel["served_index_Q1"] = served["select"]
     sel["Q64_N1M_d2048"] = {k: v for k, v in shapes["Q64_N1M_d2048_f32_l2"]["select_topt"].items()
                             if k != "max_abs_err"}
     sel["ivf_probed"] = {f"Q{nq}": scale["scan"][nq]["select"] for nq in (1, 64)}
     sel["bench_point"] = sixth["twin_split"]["select"]
-    em = sel_sweep["routes"]["extract_min_Q1"]
-    sel["extract_min_route"] = {
-        "source": SOURCE_SELECT_EXTRACT_MIN, "from_t": T.SELECT_RADIX_MAX_T + 1,
-        "launches": scale["extract_min_launches"],
-        **{k: em[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "shape")},
-        "Q64": sel_sweep["routes"]["extract_min_Q64"]}
+    sel["beyond_256"] = {"ivfpq_launches": scale["beyond_256_launches"], **sel_sweep["big_t"]}
+    sel["extract_min_comparison"] = {"source": SOURCE_SELECT_EXTRACT_MIN,
+                                     "main_path_launches": sum(MAIN_PATH_EXTRACT_MIN.values()),
+                                     "main_path_runs": MAIN_PATH_EXTRACT_MIN,
+                                     "shapes_bit_equal": sel_sweep["extract_min_compared"]}
     sel["sweep"] = {"shapes": sel_sweep["shapes"], "launches": sel_sweep["launches"],
                     "radix_Q1_W7813_t24": sel_sweep["routes"]["radix_Q1"],
                     "radix_Q4096_W7813_t24": sel_sweep["routes"]["radix_Q4096"]}
@@ -2714,13 +3025,29 @@ def main() -> int:
             bf16[c] = {k: v for k, v in r[name].items() if k != "max_abs_err"}
         entry["bf16"] = bf16
     scan, asg = scale["scan"], scale["assign"]
+    scan1 = scan[1]
     kernels.append({
         "name": "probed_scan", "route": "cuda", "source": SOURCES["probed_scan"],
         "replaces": REPLACES["probed_scan"], "launches": pq_served["launches"]["probed_scan"],
-        "max_abs_err": scan["max_abs_err"], "ms": scan[1]["ms"], "plain_ms": scan[1]["plain_ms"],
-        "bound_ms": scan[1]["bound"][0], "bound_by": scan[1]["bound"][1], "library_ms": None,
+        "launches_by_route": {
+            "serving": {r: pq_served["launches"][f"probed_scan_{r}"] for r in ("slot", "bucket")},
+            "batched_search_batched": {f"{dt}_Q{nq}": b["Q"][nq]["search_launches"]
+                                       for dt, b in batched.items() for nq in BATCHED_Q}},
+        "max_abs_err": max(scan["max_abs_err"], *(r["max_abs_err"] for b in batched.values()
+                                                  for r in b["Q"].values())),
+        **{k: scan1[k] for k in ("ms", "device_ms", "device_clean_l2_ms", "slot_ms",
+                                 "slot_device_ms", "bucket_ms", "bucket_device_ms", "plain_ms",
+                                 "bound_ms", "bound_by")},
+        "library_ms": None,
         "shape": f"Q=1 nprobe={scale['nprobe']} cap={scale['cap']} d={SCALE_D} bf16 "
                  f"reconstruction table, N={SCALE_N:,}",
+        "Q64": {k: v for k, v in scan[64].items() if k not in ("select", "max_abs_err")},
+        "Q128": {k: v for k, v in scan[128].items() if k != "max_abs_err"},
+        "ivf_probed_topk_Q1": scan["breakdown_Q1"],
+        "batched_point": {dt: {**{k: b[k] for k in ("build_s", "nbuckets", "cap", "nprobe")},
+                               **{f"Q{nq}": {k: v for k, v in r.items() if k != "max_abs_err"}
+                                  for nq, r in b["Q"].items()}}
+                          for dt, b in batched.items()},
     })
     kernels.append({
         "name": "kmeans_assign", "route": "cuda", "source": SOURCES["kmeans_assign"],

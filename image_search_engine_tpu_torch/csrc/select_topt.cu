@@ -4,12 +4,12 @@
 //
 //   select_radix_kernel  per row of a contiguous f32 (Q, W) array, the t
 //                        smallest entries in ascending (value, position)
-//                        order, ties to the lowest position. Replaces
-//                        image_search_engine_tpu/ops/topk_pallas.py
-//                        _select_topt_kernel for t <= SEL_MAX_T; larger t
-//                        take the extract-min kernel (topk_twophase.cu
-//                        select_kernel, t passes), a route the wrapper
-//                        chooses on t.
+//                        order, ties to the lowest position, for every
+//                        t <= W. Replaces image_search_engine_tpu/ops/
+//                        topk_pallas.py _select_topt_kernel. (The TPU
+//                        kernel's t extract-min passes are ported as
+//                        topk_twophase.cu select_kernel, which no search
+//                        path launches: chip_smoke.py times it beside this.)
 //
 // Bound: the row is read once, Q * W * 4 bytes (128 MB at the bench point,
 // 0.038 ms at 3.35 TB/s), and the output written once. The extract-min
@@ -25,19 +25,24 @@
 // the key is resolved and the t-th key is tied, it goes on over the bits of
 // the positions among the tied entries, so ties go to the lowest position.
 // The entries at or below the found pair (exactly t of them) are compacted,
-// and only those are sorted, each by counting the pairs below it. The
-// number of barriers is bounded by the digits of the key and the position,
-// not by t.
+// and only those are sorted: up to SEL_MAX_T of them each by counting the
+// pairs below it; up to SEL_BIG_T_MAX by a bitonic sort of their (key,
+// position) pairs in shared memory, padded to a power of two (log t (log t +
+// 1) / 2 barriers); beyond, compacted in position order into a global
+// scratch and sorted there by a stable LSD radix sort over the key's four
+// 8-bit digits (two barriers per 256 entries a digit). The number of
+// barriers of the threshold is bounded by the digits of the key and the
+// position, not by t.
 //
 // A digit pass costs a few dozen instructions an entry (the key, votes,
-// shared-memory atomics), so the passes run over few entries: first over a
-// sample, every stride-th entry of the row, whose t-th pair is at or above
-// the row's (a subset's t-th smallest is no smaller); one pass over the row
-// compacts the entries at or below it, about stride * t of them; up to
-// SEL_RANK_MAX of them are then ranked directly by counting, more go
-// through the digit passes first. Should they overflow the scratch (rows
-// whose smallest entries avoid the sampled positions), the select runs over
-// the whole row.
+// shared-memory atomics), so for t up to SEL_MAX_T the passes run over few
+// entries: first over a sample, every stride-th entry of the row, whose t-th
+// pair is at or above the row's (a subset's t-th smallest is no smaller);
+// one pass over the row compacts the entries at or below it, about stride *
+// t of them; up to SEL_RANK_MAX of them are then ranked directly by
+// counting, more go through the digit passes first. Should they overflow
+// the scratch (rows whose smallest entries avoid the sampled positions), the
+// select runs over the whole row, as it does for larger t.
 //
 // The key: the float's bits, sign-flipped so that unsigned order is float
 // order, with -0.0 folded onto +0.0 (they compare equal, so they order by
@@ -46,27 +51,30 @@
 //
 // Rows of a few queries are split over `split` blocks (ops/topk.py
 // select_plan), so that more SMs read them: each block selects the t best
-// of its slice, unsorted, into scratch, and the last block of the row to
-// finish (a ticket counter per row, reset by that block) selects the t best
-// of those candidates with their positions. The lexicographic key makes
-// that merge exact.
+// of its slice into scratch, and the last block of the row to finish (a
+// ticket counter per row, reset by that block) selects the t best of those
+// candidates with their positions. The lexicographic key makes that merge
+// exact.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int SEL_THREADS = 256;
 constexpr int SEL_WARPS = SEL_THREADS / 32;
 constexpr int SEL_BINS = 256;  // one 8-bit digit per pass, one bin per thread
-constexpr int SEL_MAX_T = 256;  // ops/topk.py SELECT_RADIX_MAX_T
+constexpr int SEL_MAX_T = 256;  // t ranked by counting (ops/topk.py SELECT_RANK_MAX_T)
+constexpr int SEL_BIG_T_MAX = 4096;  // t sorted in shared memory (SELECT_SHARED_SORT_MAX_T)
 constexpr int SEL_STAGE_MAX = 12288;  // row entries staged in shared memory (48 KB)
 constexpr int SEL_CAND_MAX = 1024;  // entries the sample's threshold may let through
 constexpr int SEL_MERGE_MAX = SEL_CAND_MAX;  // candidates the merging block stages (split * t)
 constexpr int SEL_SAMPLE_MAX_STRIDE = 8;  // ops/topk.py _SELECT_SAMPLE_MAX_STRIDE
 constexpr int SEL_RANK_MAX = 512;  // candidates ranked directly, without a radix threshold
+constexpr int SEL_PASS_UNROLL = 4;  // entries a thread loads before it counts them in a pass
 // the scratch's (pair, value) entries, after the staged slice rounded up to 16 bytes
 constexpr size_t SEL_CAND_BYTES = (size_t)SEL_CAND_MAX * (sizeof(uint64_t) + sizeof(float)) + 16;
 constexpr unsigned FULL = 0xffffffffu;
@@ -232,15 +240,18 @@ __device__ uint64_t radix_threshold(const View& e, int t, SelectShared& s) {
     const uint32_t above = ~low_ones(hi);
     const uint32_t dmask = low_ones(hi - lo);
     uint32_t* h = s.hist[buf];
-    for (int i0 = 0; i0 < n; i0 += SEL_THREADS) {
-      const int i = i0 + tid;
-      uint32_t k = 0u;
-      bool m = false;
-      if (i < n) {
-        k = e.key(i);
-        m = (k & above) == prefix;
+    for (int i0 = 0; i0 < n; i0 += SEL_THREADS * SEL_PASS_UNROLL) {
+      uint32_t k[SEL_PASS_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SEL_PASS_UNROLL; ++u) {  // the loads first, then the counts
+        const int i = i0 + u * SEL_THREADS + tid;
+        k[u] = i < n ? e.key(i) : 0u;
       }
-      hist_add(h, m, (k >> lo) & dmask, lane);
+#pragma unroll
+      for (int u = 0; u < SEL_PASS_UNROLL; ++u) {
+        const bool m = i0 + u * SEL_THREADS + tid < n && (k[u] & above) == prefix;
+        hist_add(h, m, (k[u] >> lo) & dmask, lane);
+      }
     }
     prefix |= pick_bin(s, h, s.hist[buf ^ 1], cnt, rem) << lo;
     hi = lo - 1;
@@ -339,31 +350,245 @@ __device__ void rank_select(const uint64_t* kp, const float* v, int c, int t, fl
   __syncthreads();
 }
 
+// The smallest power of two at or above t (t >= 1).
+__device__ __forceinline__ int pow2_at_least(int t) { return t <= 1 ? 1 : 1 << (32 - __clz(t - 1)); }
+
+// Where the sort of t > SEL_MAX_T selected entries works: for t up to
+// SEL_BIG_T_MAX, pow2_at_least(t) (pair, value) entries of dynamic shared
+// memory (kp, v); beyond, SEL_WARPS x SEL_BINS digit counts of it (wcnt) and
+// 2t pairs of a global scratch for this row (g).
+struct SortScratch {
+  uint64_t* kp;
+  float* v;
+  int* wcnt;
+  uint64_t* g;
+};
+
+// Sorts p (a power of two, >= 64) (pair, value) entries of shared memory
+// by pair, ascending: a bitonic network, each stage's p / 2
+// compare-exchanges spread over the block, log p (log p + 1) / 2 stages.
+// Thread i of the block takes pairs i, i + SEL_THREADS, ..., so a stage of
+// stride j <= 32 keeps each warp within its own 64 entries: between two such
+// stages a warp waits only for itself, and a block-wide barrier separates
+// the others.
+__device__ void bitonic_sort(uint64_t* kp, float* v, int p) {
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < p / 2; i += SEL_THREADS) {
+        const int lo = 2 * i - (i & (j - 1));  // (i / j) * 2j + i % j
+        const int hi = lo + j;
+        const uint64_t a = kp[lo];
+        const uint64_t c = kp[hi];
+        if ((a > c) == ((lo & k) == 0)) {
+          kp[lo] = c;
+          kp[hi] = a;
+          const float tv = v[lo];
+          v[lo] = v[hi];
+          v[hi] = tv;
+        }
+      }
+      const int next = j > 1 ? j >> 1 : k;  // the next stage's stride (k: the next k's first)
+      if (j <= 32 && next <= 32 && !(j == 1 && k == p)) {
+        __syncwarp();
+      } else {
+        __syncthreads();
+      }
+    }
+  }
+}
+
+// Exclusive scan of the SEL_BINS counts hist[tid] into base[tid]; returns to
+// every thread whether one bin holds all `total` counts. Three barriers.
+__device__ __forceinline__ bool scan_bins(SelectShared& s, const uint32_t* hist, uint32_t* base,
+                                          int total) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  __syncthreads();  // the counts are complete
+  const uint32_t h = hist[tid];
+  uint32_t x = h;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t y = __shfl_up_sync(FULL, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) s.wsum[warp] = x;
+  __syncthreads();
+  uint32_t pre = 0;
+  for (int w = 0; w < warp; ++w) pre += s.wsum[w];
+  base[tid] = pre + x - h;
+  return __syncthreads_or(h == (uint32_t)total) != 0;
+}
+
+// The t entries of the row view e (stride 1) at or below the pair thr, in
+// ascending (key, position) order to out_v / out_i, for t beyond
+// SEL_BIG_T_MAX. The entries are compacted in position order (a block-wide
+// scan of each 256 entries' votes) into ss.g, then sorted by a stable LSD
+// radix sort over the key's 8-bit digits between ss.g and ss.g + t (a pass
+// is skipped where every key has the same digit): a histogram, its scan,
+// then each 256 entries in order, each going to its digit's next place
+// after the entries before it (its rank among its warp's lanes of that
+// digit, __match_any_sync, plus the counts of the warps before it). Equal
+// keys keep position order. Values are read back from the row by position.
+// Every thread of the block calls it; ends with a barrier.
+__device__ void global_sort(const RowView& e, uint64_t thr, int t, float* out_v, int* out_i,
+                            SelectShared& s, const SortScratch& ss) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  uint64_t* src = ss.g;
+  uint64_t* dst = ss.g + t;
+  int filled = 0;
+  for (int i0 = 0; i0 < e.n; i0 += SEL_THREADS) {
+    const int i = i0 + tid;
+    uint64_t kp = 0u;
+    bool sel = false;
+    if (i < e.n) {
+      kp = pair_of(e.key(i), e.pos(i));
+      sel = kp <= thr;
+    }
+    const unsigned vote = __ballot_sync(FULL, sel);
+    if (lane == 0) s.wsum[warp] = (uint32_t)__popc(vote);
+    __syncthreads();
+    int before = 0, all = 0;
+#pragma unroll
+    for (int w = 0; w < SEL_WARPS; ++w) {
+      const int c = (int)s.wsum[w];
+      before += w < warp ? c : 0;
+      all += c;
+    }
+    if (sel) src[filled + before + __popc(vote & below)] = kp;
+    filled += all;
+    __syncthreads();  // every thread has read the votes before the next tile's
+  }
+  for (int j = tid; j < SEL_WARPS * SEL_BINS; j += SEL_THREADS) ss.wcnt[j] = 0;
+  uint32_t* hist = s.hist[0];
+  uint32_t* base = s.hist[1];
+  for (int shift = 32; shift < 64; shift += 8) {
+    hist[tid] = 0u;
+    __syncthreads();
+    for (int i = tid; i < t; i += SEL_THREADS) atomicAdd(hist + ((src[i] >> shift) & 0xffu), 1u);
+    if (scan_bins(s, hist, base, t)) continue;  // one digit: the order stays
+    for (int i0 = 0; i0 < t; i0 += SEL_THREADS) {
+      const int i = i0 + tid;
+      const bool valid = i < t;
+      const uint64_t kp = valid ? src[i] : 0u;
+      const int dig = valid ? (int)((kp >> shift) & 0xffu) : SEL_BINS;
+      const unsigned peers = __match_any_sync(FULL, dig);
+      const bool leader = (peers & below) == 0u;
+      if (valid && leader) ss.wcnt[warp * SEL_BINS + dig] = __popc(peers);
+      __syncthreads();  // the tile's counts, and the bases after the tiles before it
+      if (valid) {
+        int at = (int)base[dig] + __popc(peers & below);
+        for (int w = 0; w < warp; ++w) at += ss.wcnt[w * SEL_BINS + dig];
+        dst[at] = kp;
+      }
+      __syncthreads();  // every thread has read the counts and bases
+      if (valid && leader) {
+        atomicAdd(base + dig, (uint32_t)__popc(peers));
+        ss.wcnt[warp * SEL_BINS + dig] = 0;
+      }
+      __syncwarp();  // this warp's counts are cleared before its next tile sets them
+    }
+    uint64_t* tmp = src;
+    src = dst;
+    dst = tmp;
+    __syncthreads();  // the pass's writes are visible to the next pass
+  }
+  for (int i = tid; i < t; i += SEL_THREADS) {
+    const uint32_t pos = (uint32_t)src[i];
+    out_i[i] = (int)pos;
+    out_v[i] = e.v[pos - (uint32_t)e.pos0];
+  }
+  __syncthreads();
+}
+
+// The entries of the view e at or below the pair thr (exactly t of them) to
+// out_v / out_i, in no particular order (a split row's slice: the merge
+// selects from all slices' candidates). Ends with a barrier.
+template <class View>
+__device__ void emit_unsorted(const View& e, uint64_t thr, float* out_v, int* out_i,
+                              SelectShared& s) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid == 0) s.ncand = 0;
+  __syncthreads();
+  for (int i0 = 0; i0 < e.n; i0 += SEL_THREADS) {
+    const int i = i0 + tid;
+    bool sel = false;
+    if (i < e.n) sel = pair_of(e.key(i), e.pos(i)) <= thr;
+    const unsigned b = __ballot_sync(FULL, sel);
+    if (b == 0u) continue;  // warp-uniform
+    int base = 0;
+    if (lane == 0) base = atomicAdd(&s.ncand, __popc(b));
+    base = __shfl_sync(FULL, base, 0);
+    if (sel) {
+      const int slot = base + __popc(b & ((1u << lane) - 1u));
+      out_v[slot] = e.val(i);
+      out_i[slot] = (int)e.pos(i);
+    }
+  }
+  __syncthreads();
+}
+
+// The t entries of the view e at or below the pair thr (exactly t of them)
+// in ascending (key, position) order to out_v / out_i: up to SEL_MAX_T
+// compacted into SelectShared and ranked by counting; up to SEL_BIG_T_MAX
+// compacted into ss.kp / ss.v, padded with the largest pair to a power of
+// two and sorted by a bitonic network; beyond (a whole row's view only: the
+// merges take t <= SEL_MERGE_MAX), global_sort. Ends with a barrier.
+template <class View>
+__device__ void sort_selected(const View& e, uint64_t thr, int t, float* out_v, int* out_i,
+                              SelectShared& s, const SortScratch& ss) {
+  if (t <= SEL_MAX_T) {
+    compact(e, thr, s.cv, s.ckp, SEL_MAX_T, s);
+    rank_select(s.ckp, s.cv, t, t, out_v, out_i);
+    return;
+  }
+  if (t <= SEL_BIG_T_MAX) {
+    const int p = pow2_at_least(t);
+    compact(e, thr, ss.v, ss.kp, t, s);
+    for (int i = t + threadIdx.x; i < p; i += SEL_THREADS) ss.kp[i] = ~0ull;
+    __syncthreads();
+    bitonic_sort(ss.kp, ss.v, p);
+    for (int i = threadIdx.x; i < t; i += SEL_THREADS) {
+      out_v[i] = ss.v[i];
+      out_i[i] = (int)(uint32_t)ss.kp[i];
+    }
+    __syncthreads();
+    return;
+  }
+  if constexpr (std::is_same<View, RowView>::value) global_sort(e, thr, t, out_v, out_i, s, ss);
+}
+
 // The t smallest of c staged candidates to out_v / out_i in ascending
 // order: ranked directly up to SEL_RANK_MAX of them, else the radix
-// threshold first and the t at or below it ranked.
+// threshold first and the t at or below it sorted.
 __device__ void select_candidates(const float* cv, const uint64_t* ckp, int c, int t,
-                                  float* out_v, int* out_i, SelectShared& s) {
+                                  float* out_v, int* out_i, SelectShared& s,
+                                  const SortScratch& ss) {
   if (c <= SEL_RANK_MAX) {
     rank_select(ckp, cv, c, t, out_v, out_i);
     return;
   }
   const CandView cands{cv, ckp, c};
-  compact(cands, radix_threshold(cands, t, s), s.cv, s.ckp, SEL_MAX_T, s);
-  rank_select(s.ckp, s.cv, t, t, out_v, out_i);
+  sort_selected(cands, radix_threshold(cands, t, s), t, out_v, out_i, s, ss);
 }
 
 // The t smallest (key, position) entries of a row's n entries (the view
-// e) to out_v / out_i in ascending order. 0 < t <= min(n, SEL_MAX_T);
-// cand_v / cand_kp: SEL_CAND_MAX entries of shared scratch. Up to
-// SEL_RANK_MAX entries are ranked directly. Beyond, the t-th pair of a
-// sample of every stride-th entry is at or above the row's t-th pair (a
-// subset's t-th smallest is no smaller), so the entries at or below it,
-// about stride * t of them, hold the t wanted: the select runs over those
-// alone, or over the whole row if they overflow the scratch or the row is
-// too small to sample. Ends with a barrier.
+// e, stride 1) to out_v / out_i in ascending order, 0 < t <= n; cand_v /
+// cand_kp: SEL_CAND_MAX entries of shared scratch. Up to SEL_RANK_MAX
+// entries are ranked directly. Beyond, for t small enough to sample (t <=
+// SEL_CAND_MAX / 4), the t-th pair of a sample of every stride-th entry is
+// at or above the row's t-th pair (a subset's t-th smallest is no smaller),
+// so the entries at or below it, about stride * t of them, hold the t
+// wanted: the select runs over those alone, or over the whole row if they
+// overflow the scratch or the row is too small to sample, as it does for
+// every larger t. Ends with a barrier.
 __device__ void block_select(const RowView& e, int t, float* cand_v, uint64_t* cand_kp,
-                             float* out_v, int* out_i, SelectShared& s) {
+                             float* out_v, int* out_i, SelectShared& s, const SortScratch& ss,
+                             bool sorted = true) {
   const int st = sample_stride(e.n, t);
   if (e.n <= SEL_RANK_MAX || st > 1) {
     const uint64_t cut =
@@ -372,12 +597,28 @@ __device__ void block_select(const RowView& e, int t, float* cand_v, uint64_t* c
             : radix_threshold(RowView{e.v, e.pos0, st, (e.n + st - 1) / st}, t, s);
     const int c = compact(e, cut, cand_v, cand_kp, SEL_CAND_MAX, s);
     if (c <= SEL_CAND_MAX) {
-      select_candidates(cand_v, cand_kp, c, t, out_v, out_i, s);
+      select_candidates(cand_v, cand_kp, c, t, out_v, out_i, s, ss);
       return;
     }
   }
-  compact(e, radix_threshold(e, t, s), s.cv, s.ckp, SEL_MAX_T, s);
-  rank_select(s.ckp, s.cv, t, t, out_v, out_i);
+  const uint64_t thr = radix_threshold(e, t, s);
+  if (sorted || t <= SEL_MAX_T) {
+    sort_selected(e, thr, t, out_v, out_i, s, ss);
+  } else {
+    emit_unsorted(e, thr, out_v, out_i, s);
+  }
+}
+
+// Bytes of dynamic shared memory the sort of t selected entries takes
+// after the scratch (SortScratch): none up to SEL_MAX_T.
+__host__ __device__ __forceinline__ size_t sort_bytes(int t) {
+  if (t <= SEL_MAX_T) return 0;
+  if (t <= SEL_BIG_T_MAX) {
+    size_t p = 1;
+    while (p < (size_t)t) p <<= 1;
+    return p * (sizeof(uint64_t) + sizeof(float));
+  }
+  return (size_t)SEL_WARPS * SEL_BINS * sizeof(int);
 }
 
 // Block b takes slice b % split of row b / split: entries [part * slice,
@@ -387,12 +628,14 @@ __device__ void block_select(const RowView& e, int t, float* cand_v, uint64_t* c
 // candidates ((split - 1) * t + min(t, last slice), contiguous) into vals /
 // ids and resets the row's ticket counter. Dynamic shared memory: the
 // staged slice (kStaged), then SEL_CAND_MAX (value, pair) entries of
-// scratch.
+// scratch, then sort_bytes(t). For t beyond SEL_BIG_T_MAX (split == 1),
+// sort_g holds 2t pairs of global scratch per row.
 template <bool kStaged>
 __global__ void __launch_bounds__(SEL_THREADS)
     select_radix_kernel(const float* __restrict__ mins, float* __restrict__ vals,
                         int* __restrict__ ids, float* part_v, int* part_i,
-                        unsigned* counters, int w, int t, int split, int slice) {
+                        unsigned* counters, uint64_t* sort_g, int w, int t, int split,
+                        int slice) {
   __shared__ SelectShared s;
   extern __shared__ __align__(16) unsigned char dyn[];
   const int b = blockIdx.x;
@@ -425,15 +668,21 @@ __global__ void __launch_bounds__(SEL_THREADS)
   }
   uint64_t* cand_kp = reinterpret_cast<uint64_t*>(scratch);
   float* cand_v = reinterpret_cast<float*>(cand_kp + SEL_CAND_MAX);
+  uint64_t* sort_kp = reinterpret_cast<uint64_t*>(cand_v + SEL_CAND_MAX);
+  const SortScratch ss{sort_kp,
+                       reinterpret_cast<float*>(sort_kp + (t <= SEL_BIG_T_MAX ? pow2_at_least(t)
+                                                                              : 0)),
+                       reinterpret_cast<int*>(sort_kp),
+                       sort_g != nullptr ? sort_g + (size_t)q * 2 * t : nullptr};
   float* out_v = vals + (size_t)q * t;
   int* out_i = ids + (size_t)q * t;
   const RowView rowv{src, lo, 1, n};
   if (split == 1) {
-    block_select(rowv, t, cand_v, cand_kp, out_v, out_i, s);
+    block_select(rowv, t, cand_v, cand_kp, out_v, out_i, s, ss);
     return;
   }
   block_select(rowv, min(t, n), cand_v, cand_kp, part_v + (size_t)b * t, part_i + (size_t)b * t,
-               s);
+               s, ss, false);
   __threadfence();  // this block's candidates reach L2 before its ticket
   __syncthreads();
   if (threadIdx.x == 0) s.last = atomicAdd(counters + q, 1u) == (unsigned)(split - 1);
@@ -447,7 +696,7 @@ __global__ void __launch_bounds__(SEL_THREADS)
     cand_kp[i] = pair_of(sel_key(v), (uint32_t)__ldcg(part_i + base + i));
   }
   __syncthreads();
-  select_candidates(cand_v, cand_kp, c, t, out_v, out_i, s);
+  select_candidates(cand_v, cand_kp, c, t, out_v, out_i, s, ss);
   if (threadIdx.x == 0) counters[q] = 0u;
 }
 
@@ -455,26 +704,29 @@ __global__ void __launch_bounds__(SEL_THREADS)
 
 extern "C" {
 
-// mins (nq, w) f32 -> vals (nq, t) f32, ids (nq, t) int32, on the plan of
-// ops/topk.py select_plan: split blocks per row of slice entries each
-// (split * slice >= w, no empty slice), each staging its slice in shared
-// memory when staged is 1 (slice <= SEL_STAGE_MAX); with split > 1, part_v
-// / part_i hold nq * split * t entries and counters nq zeros (left zero).
-// Returns the cudaError_t of the launch (0 = success).
+// mins (nq, w) f32 -> vals (nq, t) f32, ids (nq, t) int32, 0 < t <= w, on
+// the plan of ops/topk.py select_plan: split blocks per row of slice
+// entries each (split * slice >= w, no empty slice), each staging its slice
+// in shared memory when staged is 1 (slice <= SEL_STAGE_MAX); with split >
+// 1, part_v / part_i hold nq * split * t entries and counters nq zeros
+// (left zero); for t > SEL_BIG_T_MAX, sort_g holds nq * 2 * t 64-bit
+// entries of scratch. Returns the cudaError_t of the launch (0 = success).
 int ise_select_radix(const void* mins, void* vals, void* ids, void* part_v, void* part_i,
-                     void* counters, int nq, int w, int t, int split, int slice, int staged,
-                     void* stream) {
-  if (nq < 1 || t < 1 || t > SEL_MAX_T || t > w || split < 1 || slice < 1 ||
+                     void* counters, void* sort_g, int nq, int w, int t, int split, int slice,
+                     int staged, void* stream) {
+  if (nq < 1 || t < 1 || t > w || split < 1 || slice < 1 ||
       (long long)split * slice < w || (long long)(split - 1) * slice >= w ||
       (staged != 0 && slice > SEL_STAGE_MAX))
     return cudaErrorInvalidValue;
   if (split > 1 && (slice < t || split * t > SEL_MERGE_MAX)) return cudaErrorInvalidValue;
+  if (t > SEL_BIG_T_MAX && sort_g == nullptr) return cudaErrorInvalidValue;
   const long long grid = (long long)nq * split;
   if (grid > INT_MAX) return cudaErrorInvalidConfiguration;
   staged = staged != 0 ? 1 : 0;
   // the staged slice, then the scratch, where the merge also stages its
-  // split * t <= SEL_MERGE_MAX candidates
-  const size_t smem = (staged ? (size_t)slice * sizeof(float) : 0) + SEL_CAND_BYTES;
+  // split * t <= SEL_MERGE_MAX candidates, then the sort's
+  const size_t smem =
+      (staged ? (size_t)slice * sizeof(float) : 0) + SEL_CAND_BYTES + sort_bytes(t);
   auto kernel = staged ? select_radix_kernel<true> : select_radix_kernel<false>;
   // the shared-memory limit, raised once per device and instantiation
   static bool configured[SEL_MAX_DEVICES][2] = {};
@@ -483,7 +735,8 @@ int ise_select_radix(const void* mins, void* vals, void* ids, void* part_v, void
   if (err != cudaSuccess) return err;
   if (dev >= SEL_MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!configured[dev][staged]) {
-    const size_t most = (staged ? (size_t)SEL_STAGE_MAX * sizeof(float) : 0) + SEL_CAND_BYTES;
+    const size_t most = (staged ? (size_t)SEL_STAGE_MAX * sizeof(float) : 0) + SEL_CAND_BYTES +
+                        sort_bytes(SEL_BIG_T_MAX);
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
     if (err != cudaSuccess) return err;
     configured[dev][staged] = true;
@@ -491,7 +744,7 @@ int ise_select_radix(const void* mins, void* vals, void* ids, void* part_v, void
   kernel<<<(unsigned)grid, SEL_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(mins), static_cast<float*>(vals), static_cast<int*>(ids),
       static_cast<float*>(part_v), static_cast<int*>(part_i), static_cast<unsigned*>(counters),
-      w, t, split, slice);
+      static_cast<uint64_t*>(sort_g), w, t, split, slice);
   return cudaGetLastError();
 }
 

@@ -13,11 +13,11 @@
 //                        image_search_engine_tpu/ops/topk_pallas.py
 //                        _groupmin_kernel.
 //   select_kernel        per query, the t smallest group mins in ascending
-//                        (value, group id) order by t extract-min passes:
-//                        the select's route for t beyond select_topt.cu's
-//                        one-pass radix select (ops/topk.py
-//                        SELECT_RADIX_MAX_T). Both replace
-//                        _select_topt_kernel.
+//                        (value, group id) order by t extract-min passes,
+//                        the TPU kernel's algorithm. No search path
+//                        launches it: select_topt.cu's radix select, which
+//                        replaced it for every t, is timed beside it by
+//                        chip_smoke.py. Both replace _select_topt_kernel.
 //   rescore_kernel       phase 2, f32 store (as groupmin_kernel): for each
 //                        (query, candidate group) the 128 scores norms[r] -
 //                        2 q.x[r], read in place from the store (no gather
@@ -103,7 +103,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Select, the extract-min route (large t). One block per query
+// Select, the extract-min route (chip_smoke.py's comparison). One block per query
 // (block_select_topt, select.cuh): t passes, each a block-wide argmin over
 // the entries after the previous winner in (value, id) order, so ties go to
 // the lowest group id.

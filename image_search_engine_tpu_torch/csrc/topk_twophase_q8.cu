@@ -187,10 +187,12 @@ __global__ void __launch_bounds__(RESCORE_Q8_WARPS * 32)
 // groups ascending (ids below 0 first, ids of ng or more last), by a
 // counting sort in one block. bins (ng + 2 ints of device scratch, read and
 // written past L1) count each group's slots; an exclusive scan turns the
-// counts into offsets; each slot then takes the next place of its group
-// (atomically, so the order within a group varies, which the rescore's
-// scores do not depend on). Three barriers; a few microseconds for a
-// batch's few thousand slots.
+// counts into offsets and lists the bins that have slots (live[0] their
+// number, live[1 ..] their ids ascending); each slot then takes the next
+// place of its group (atomically, so the order within a group varies, which
+// the rescore's scores do not depend on), which leaves each bin's end in
+// bins. Three barriers; a few microseconds for a batch's few thousand
+// slots.
 constexpr int ORDER_THREADS = 1024;
 
 __device__ __forceinline__ int order_bin(int g, int ng) {
@@ -198,9 +200,9 @@ __device__ __forceinline__ int order_bin(int g, int ng) {
 }
 
 __global__ void __launch_bounds__(ORDER_THREADS)
-    group_order_kernel(const int* __restrict__ cand, int* __restrict__ order, int* bins, int slots,
-                       int ng) {
-  __shared__ int wsum[ORDER_THREADS / 32];
+    group_order_kernel(const int* __restrict__ cand, int* __restrict__ order, int* bins,
+                       int* __restrict__ live, int slots, int ng) {
+  __shared__ int wsum[ORDER_THREADS / 32], wlive[ORDER_THREADS / 32];
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -214,23 +216,39 @@ __global__ void __launch_bounds__(ORDER_THREADS)
   const int per = (nb + ORDER_THREADS - 1) / ORDER_THREADS;
   const int b0 = min(nb, tid * per);
   const int b1 = min(nb, b0 + per);
-  int sum = 0;
-  for (int b = b0; b < b1; ++b) sum += __ldcg(bins + b);
-  int x = sum;
+  int sum = 0, nlive = 0;  // the thread's slots and bins that have any
+  for (int b = b0; b < b1; ++b) {
+    const int c = __ldcg(bins + b);
+    sum += c;
+    nlive += c > 0;
+  }
+  int x = sum, xl = nlive;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const int y = __shfl_up_sync(0xffffffffu, x, off);
-    if (lane >= off) x += y;
+    const int yl = __shfl_up_sync(0xffffffffu, xl, off);
+    if (lane >= off) {
+      x += y;
+      xl += yl;
+    }
   }
-  if (lane == 31) wsum[warp] = x;
+  if (lane == 31) {
+    wsum[warp] = x;
+    wlive[warp] = xl;
+  }
   __syncthreads();
-  int run = x - sum;
-  for (int w = 0; w < warp; ++w) run += wsum[w];
+  int run = x - sum, lrun = xl - nlive;
+  for (int w = 0; w < warp; ++w) {
+    run += wsum[w];
+    lrun += wlive[w];
+  }
   for (int b = b0; b < b1; ++b) {
     const int c = __ldcg(bins + b);
     __stcg(bins + b, run);
     run += c;
+    if (c > 0) live[1 + lrun++] = b;
   }
+  if (tid == ORDER_THREADS - 1) live[0] = lrun;  // the last range's running count: all of them
   __syncthreads();
   for (int i = tid; i < slots; i += ORDER_THREADS)
     order[atomicAdd(bins + order_bin(__ldg(cand + i), ng), 1)] = i;
@@ -312,11 +330,14 @@ int ise_groupmin_q8_mma(const void* q, const void* qscale, const void* norms, co
 }
 
 // The nq * t candidate slots of cand grouped by group id into order (int32,
-// a permutation); bins: ng + 2 ints of scratch.
-int ise_group_order(const void* cand, void* order, void* bins, int slots, int ng, void* stream) {
-  if (slots < 1 || ng < 0 || ng > INT_MAX - 2) return cudaErrorInvalidValue;
+// a permutation); bins (ng + 2 int32) ends as each bin's end in order, live
+// (ng + 3 int32) as the number of bins that have slots, then their ids.
+int ise_group_order(const void* cand, void* order, void* bins, void* live, int slots, int ng,
+                    void* stream) {
+  if (slots < 1 || ng < 0 || ng > INT_MAX - 3) return cudaErrorInvalidValue;
   group_order_kernel<<<1, ORDER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cand), static_cast<int*>(order), static_cast<int*>(bins), slots, ng);
+      static_cast<const int*>(cand), static_cast<int*>(order), static_cast<int*>(bins),
+      static_cast<int*>(live), slots, ng);
   return cudaGetLastError();
 }
 

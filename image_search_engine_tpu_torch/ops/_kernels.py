@@ -114,7 +114,7 @@ def library() -> ctypes.CDLL:
             lib.ise_groupmin_tf32.restype = i
             lib.ise_select_topt.argtypes = [p, p, p, i, i, i, p]
             lib.ise_select_topt.restype = i
-            lib.ise_select_radix.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.ise_select_radix.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.ise_select_radix.restype = i
             lib.ise_rescore.argtypes = [p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_rescore.restype = i
@@ -128,10 +128,13 @@ def library() -> ctypes.CDLL:
             lib.ise_groupmin_q8_mma.restype = i
             lib.ise_rescore_q8.argtypes = [p, p, p, p, p, p, p, p, i, ll, i, i, i, p]
             lib.ise_rescore_q8.restype = i
-            lib.ise_group_order.argtypes = [p, p, p, i, i, p]
+            lib.ise_group_order.argtypes = [p, p, p, p, i, i, p]
             lib.ise_group_order.restype = i
-            lib.ise_probed_scan.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.ise_probed_scan.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
             lib.ise_probed_scan.restype = i
+            lib.ise_probed_scan_bucket.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                                   i, i, i, p]
+            lib.ise_probed_scan_bucket.restype = i
             lib.ise_kmeans_assign.argtypes = [p, p, p, p, p, p, i, ll, i, i, ll, ll, p]
             lib.ise_kmeans_assign.restype = i
             lib.ise_topk_running.argtypes = [i, p, p, p, p, p, p, p, i, ll, i, i, i, i, i, p]

@@ -22,7 +22,7 @@ scales fold into an f32 epilogue.
 
 Each step is a hand-written CUDA kernel (``csrc/topk_twophase.cu``,
 ``csrc/topk_twophase_q8.cu``; step 2 ``csrc/select_topt.cu``, a radix
-select, up to ``SELECT_RADIX_MAX_T``) with a plain PyTorch version beside it; a
+select for every t) with a plain PyTorch version beside it; a
 bf16 store's steps 1 and 3 and an int8 store's step 1 beyond
 ``DP4A_MAX_Q`` queries run on tensor cores (``csrc/mma.cuh``,
 ``csrc/groupmin_mma.cuh``), an f32 store's steps 1 and 3 beyond
@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -574,11 +574,15 @@ def groupmin_q8_ref(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-#: the one-pass (radix) select takes t up to this; larger t take the
-#: extract-min kernel (t passes over the row): a route chosen on t, as the
-#: radix select keeps its t selected entries in shared memory and sorts them
-#: by counting (SEL_MAX_T in csrc/select_topt.cu)
-SELECT_RADIX_MAX_T = 256
+#: the radix select (``csrc/select_topt.cu``) takes every t <= W: up to this
+#: many selected entries it ranks each by counting the others (SEL_MAX_T,
+#: entries in ``SelectShared``), ...
+SELECT_RANK_MAX_T = 256
+#: ... up to this many it sorts them by a bitonic network in shared memory
+#: (SEL_BIG_T_MAX; pow2(t) 12-byte entries), larger t by a stable radix sort
+#: in a global scratch of 2t 8-byte entries a row (t > _SELECT_MERGE_MAX, so
+#: such rows are never split)
+SELECT_SHARED_SORT_MAX_T = 4096
 #: a row of a batch of at most a quarter as many queries as the card has
 #: SMs is split over blocks of at least this many entries, ...
 _SELECT_SPLIT_MIN_SLICE = 1024
@@ -608,14 +612,19 @@ def select_sample_stride(n: int, t: int) -> int:
 @dataclass(frozen=True)
 class SelectPlan:
     """How :func:`select_topt` runs over (Q, W) mins: ``route`` "radix" (the
-    one-pass select, ``csrc/select_topt.cu``) or "extract_min" (t passes,
-    ``csrc/topk_twophase.cu`` ``select_kernel``); for "radix", each row split
-    over ``split`` blocks of ``slice`` entries (the last may be shorter),
-    whose candidates the row's last block to finish merges."""
+    one-pass select, ``csrc/select_topt.cu``, every plan of
+    :func:`select_plan`) or "extract_min" (t passes, ``csrc/topk_twophase.cu``
+    ``select_kernel``, a plan only ``chip_smoke.py`` builds, to time the
+    kernel the radix select replaced); for "radix", each row split over
+    ``split`` blocks of ``slice`` entries (the last may be shorter), whose
+    candidates the row's last block to finish merges, and the t selected
+    entries sorted by ``sort``: "rank" (counting), "bitonic" (shared
+    memory) or "global" (a radix sort in a global scratch)."""
 
     route: str
     split: int
     slice: int
+    sort: str = "rank"
 
     @property
     def staged(self) -> bool:
@@ -623,23 +632,30 @@ class SelectPlan:
         return self.slice <= SELECT_STAGE_MAX
 
 
+def select_sort(t: int) -> str:
+    """How the radix select sorts the t entries it selected: "rank" up to
+    ``SELECT_RANK_MAX_T``, "bitonic" up to ``SELECT_SHARED_SORT_MAX_T``,
+    else "global"."""
+    if t <= SELECT_RANK_MAX_T:
+        return "rank"
+    return "bitonic" if t <= SELECT_SHARED_SORT_MAX_T else "global"
+
+
 def select_plan(nq: int, w: int, t: int, sms: int) -> SelectPlan:
     """:func:`select_topt`'s plan for Q = nq rows of w entries and t on a card
-    of ``sms`` SMs: the extract-min route beyond ``SELECT_RADIX_MAX_T``, else
-    the radix select, with each row split over as many blocks as put about
-    one block on each SM (at most ``_SELECT_SPLIT_MAX``, slices of at least
-    ``_SELECT_SPLIT_MIN_SLICE`` entries, the merge's ``split * t`` candidates
-    within ``_SELECT_MERGE_MAX``) when the batch has at most sms / 4 rows."""
+    of ``sms`` SMs: the radix select for every t, with each row split over
+    as many blocks as put about one block on each SM (at most
+    ``_SELECT_SPLIT_MAX``, slices of at least ``_SELECT_SPLIT_MIN_SLICE``
+    entries, the merge's ``split * t`` candidates within
+    ``_SELECT_MERGE_MAX``) when the batch has at most sms / 4 rows."""
     if nq < 1 or sms < 1 or not 0 < t <= w:
         raise ValueError(f"no select plan for Q={nq}, W={w}, t={t} on {sms} SMs")
-    if t > SELECT_RADIX_MAX_T:
-        return SelectPlan("extract_min", 1, w)
     split = 1
     if 4 * nq <= sms:
         split = max(1, min(_SELECT_SPLIT_MAX, w // _SELECT_SPLIT_MIN_SLICE, sms // nq,
                            _SELECT_MERGE_MAX // t))
     slice_ = -(-w // split)
-    return SelectPlan("radix", -(-w // slice_), slice_)
+    return SelectPlan("radix", -(-w // slice_), slice_, select_sort(t))
 
 
 #: per (device, stream): the split select's ticket counters, zero between
@@ -667,18 +683,19 @@ def select_topt(mins: torch.Tensor, t: int) -> Tuple[torch.Tensor, torch.Tensor]
     ``_select_topt`` :392). What bounds it on the card: it reads the (Q, W)
     mins once, 1/(128*d) of the store (the bench point: 128 MB, 0.038 ms).
     The TPU kernel's t extract-min passes are serial, each a block-wide
-    reduction: the route kept for t beyond ``SELECT_RADIX_MAX_T``
-    (``select_kernel``, whose time is t passes' latency). Up to it, a radix
-    select (``csrc/select_topt.cu``) reads the row once into shared memory,
-    finds the t-th (value, position) pair digit by digit (a bounded number of
-    barriers, whatever t), then compacts the t entries at or below it and
-    sorts only those (the t-th pair of a sample of the row bounds the
-    entries the digit passes must see); 256-thread blocks let several
-    queries share an SM, and a batch of a few rows splits each row over
-    several blocks whose candidates the row's last block merges
-    (:func:`select_plan`). Counts
-    its launches in ``launches`` and per route in ``radix_launches`` and
-    ``extract_min_launches``.
+    reduction (ported as ``select_kernel``, whose time is t passes' latency;
+    no search path takes it). Instead a radix select (``csrc/select_topt.cu``)
+    reads the row once into shared memory, finds the t-th (value, position)
+    pair digit by digit (a bounded number of barriers, whatever t), then
+    compacts the t entries at or below it and sorts only those: by counting
+    up to ``SELECT_RANK_MAX_T`` (the t-th pair of a sample of the row bounds
+    the entries the digit passes must see), by a bitonic network in shared
+    memory up to ``SELECT_SHARED_SORT_MAX_T``, beyond by a stable radix sort
+    in a global scratch that this wrapper allocates. 256-thread blocks let
+    several queries share an SM, and a batch of a few rows splits each row
+    over several blocks whose candidates the row's last block merges
+    (:func:`select_plan`). Counts its launches in ``launches`` and per route
+    in ``radix_launches`` and ``extract_min_launches``.
     """
     nq, ng = mins.shape
     if not 0 < t <= ng:
@@ -699,15 +716,18 @@ def select_topt(mins: torch.Tensor, t: int) -> Tuple[torch.Tensor, torch.Tensor]
             err = lib.ise_select_topt(mins.data_ptr(), vals.data_ptr(), ids.data_ptr(), nq, ng,
                                       t, _stream(mins))
         else:
-            part_v = part_i = counters = 0
+            part_v = part_i = counters = sort_g = 0
             if plan.split > 1:  # the slices' candidates: values, then positions
                 part = torch.empty(2 * nq * plan.split * t, dtype=torch.int32,
                                    device=mins.device)
                 part_v, part_i = part.data_ptr(), part.data_ptr() + 4 * nq * plan.split * t
                 counters = _counters(mins).data_ptr()
+            if plan.sort == "global":  # the radix sort's two buffers of t pairs a row
+                sort_scratch = torch.empty(2 * nq * t, dtype=torch.int64, device=mins.device)
+                sort_g = sort_scratch.data_ptr()
             err = lib.ise_select_radix(mins.data_ptr(), vals.data_ptr(), ids.data_ptr(), part_v,
-                                       part_i, counters, nq, ng, t, plan.split, plan.slice,
-                                       int(plan.staged), _stream(mins))
+                                       part_i, counters, sort_g, nq, ng, t, plan.split,
+                                       plan.slice, int(plan.staged), _stream(mins))
     _kernels.check(err, "select_topt")
     select_topt.launches += 1
     if plan.route == "extract_min":
@@ -718,8 +738,8 @@ def select_topt(mins: torch.Tensor, t: int) -> Tuple[torch.Tensor, torch.Tensor]
 
 
 select_topt.launches = 0
-select_topt.radix_launches = 0  # of those, the radix select's (t <= SELECT_RADIX_MAX_T)
-select_topt.extract_min_launches = 0  # and the extract-min kernel's (larger t)
+select_topt.radix_launches = 0  # of those, the radix select's (every plan of select_plan)
+select_topt.extract_min_launches = 0  # and the extract-min kernel's (chip_smoke.py's comparison)
 
 
 def select_topt_ref(mins: torch.Tensor, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -845,39 +865,63 @@ def rescore_q8_order(cand: torch.Tensor, ngroups: int) -> torch.Tensor | None:
     order)."""
     if cand.numel() < max(RESCORE_Q8_GROUP_ORDER_MIN_SLOTS, ngroups / 2):
         return None
-    return group_order(cand, ngroups)
+    return group_order(cand, ngroups).order
 
 
-def group_order(cand: torch.Tensor, ngroups: int) -> torch.Tensor:
+class GroupOrder(NamedTuple):
+    """:func:`group_order`'s result over ngroups groups, in bins: bin 0 ids
+    below 0, bin g + 1 group g, bin ngroups + 1 ids of ngroups or more.
+    ``order``: an int32 permutation of the flat slots, bins ascending;
+    ``ends``: int32 (ngroups + 2,), each bin's end in ``order``; ``live``:
+    int32 (ngroups + 3,), the number of bins that have slots, then their
+    ids ascending (``ops/ivf.probed_scan``'s bucket route runs a block per
+    such bin), the rest unset."""
+
+    order: torch.Tensor
+    ends: torch.Tensor
+    live: torch.Tensor
+
+
+def group_order(cand: torch.Tensor, ngroups: int) -> GroupOrder:
     """The flat (Q, t) candidate slots grouped by group id, groups ascending
-    (ids below 0 first, ids of ``ngroups`` or more last): an int32
-    permutation of range(Q * t). On the card a one-block counting sort
-    (``group_order_kernel``, ``csrc/topk_twophase_q8.cu``), which orders a
-    group's slots in any way; on the CPU its plain version, a stable
-    argsort. Counts its launches in ``group_order.launches``."""
+    (ids below 0 first, ids of ``ngroups`` or more last), with each bin's
+    end and the bins that have slots (:class:`GroupOrder`). On the card a
+    one-block counting sort (``group_order_kernel``,
+    ``csrc/topk_twophase_q8.cu``, whose offsets end as the bins' ends),
+    which orders a group's slots in any way; on the CPU its plain version,
+    a stable argsort. Counts its launches in ``group_order.launches``."""
     _check_cand(cand, cand.shape[0])
     if not _on_cuda(cand):
         return group_order_ref(cand, ngroups)
     order = torch.empty(cand.numel(), dtype=torch.int32, device=cand.device)
+    ends = torch.empty(ngroups + 2, dtype=torch.int32, device=cand.device)
+    live = torch.empty(ngroups + 3, dtype=torch.int32, device=cand.device)
     if cand.numel() == 0:
-        return order
-    bins = torch.empty(ngroups + 2, dtype=torch.int32, device=cand.device)
+        return GroupOrder(order, ends.zero_(), live.zero_())
     with torch.cuda.device(cand.device):
         err = _kernels.library().ise_group_order(cand.data_ptr(), order.data_ptr(),
-                                                 bins.data_ptr(), cand.numel(), ngroups,
-                                                 _stream(cand))
+                                                 ends.data_ptr(), live.data_ptr(), cand.numel(),
+                                                 ngroups, _stream(cand))
     _kernels.check(err, "group_order")
     group_order.launches += 1
-    return order
+    return GroupOrder(order, ends, live)
 
 
 group_order.launches = 0
 
 
-def group_order_ref(cand: torch.Tensor, ngroups: int) -> torch.Tensor:
+def group_order_ref(cand: torch.Tensor, ngroups: int) -> GroupOrder:
     """Plain version of :func:`group_order`: a stable argsort of the ids
-    clamped to [-1, ngroups] (ties keep slot order)."""
-    return torch.argsort(cand.view(-1).clamp(-1, ngroups), stable=True).to(torch.int32)
+    clamped to [-1, ngroups] (ties keep slot order); the bins' ends are the
+    running sum of their counts; the live bins those of nonzero count (the
+    unset rest of ``live`` is 0)."""
+    bins = cand.reshape(-1).clamp(-1, ngroups).long() + 1
+    order = torch.argsort(bins, stable=True).to(torch.int32)
+    counts = torch.bincount(bins, minlength=ngroups + 2)
+    nonzero = torch.nonzero(counts)[:, 0]
+    live = torch.zeros(ngroups + 3, dtype=torch.int32)
+    live[0], live[1:1 + nonzero.numel()] = nonzero.numel(), nonzero
+    return GroupOrder(order, torch.cumsum(counts, 0).to(torch.int32), live.to(cand.device))
 
 
 def rescore_q8(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,

@@ -309,7 +309,10 @@ def test_rescore_q8_groups_the_slots_of_batches_that_share_groups(nq, t, ngroups
 
 def test_group_order_keeps_out_of_range_ids_at_the_ends():
     """group_order's plain version: ids below 0 first, ids past ngroups last,
-    a stable permutation of the slots."""
+    a stable permutation of the slots; each bin's end in it, and the bins
+    that have slots."""
     cand = torch.tensor([[5, -1, 9, 2], [2, 12, 0, -1]], dtype=torch.int32)
-    order = T.group_order(cand, 10)
+    order, ends, live = T.group_order(cand, 10)
     assert order.tolist() == [1, 7, 6, 3, 4, 0, 2, 5]
+    assert ends.tolist() == [2, 3, 3, 5, 5, 5, 6, 6, 6, 6, 7, 8]
+    assert live.tolist()[:7] == [6, 0, 1, 3, 6, 10, 11]

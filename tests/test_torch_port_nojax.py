@@ -22,7 +22,7 @@ def test_port_and_chip_smoke_import_no_jax():
     mods = port_modules()
     assert "image_search_engine_tpu_torch.ops.topk" in mods and len(mods) >= 20
     code = ("import importlib, sys\n"
-            f"for m in {mods + ['chip_smoke']!r}:\n"
+            f"for m in {mods + ['chip_smoke', 'probed_scan_sweep']!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
             "assert not bad, bad\n")
@@ -41,7 +41,7 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
                 "serving.http", "frontend"):
         assert f"image_search_engine_tpu_torch.{own}" in mods
     code = ("import importlib, sys\n"
-            f"for m in {mods + ['chip_smoke']!r}:\n"
+            f"for m in {mods + ['chip_smoke', 'probed_scan_sweep']!r}:\n"
             "    importlib.import_module(m)\n"
             "from image_search_engine_tpu_torch.serving.http import _UI_FALLBACK_HTML, _ui_html\n"
             "page = _ui_html()\n"
@@ -110,3 +110,9 @@ def test_chip_smoke_refuses_to_run_without_cuda():
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, env={"CUDA_VISIBLE_DEVICES": "", "PATH": ""})
     assert out.returncode != 0 and out.stdout == ""
+
+
+def test_probed_scan_sweep_refuses_to_run_without_cuda():
+    out = subprocess.run([sys.executable, "probed_scan_sweep.py"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env={"CUDA_VISIBLE_DEVICES": "", "PATH": ""})
+    assert out.returncode != 0 and out.stdout == "" and "no CUDA device" in out.stderr

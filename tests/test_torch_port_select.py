@@ -4,30 +4,39 @@
 The radix-select kernel runs only on the card, where ``chip_smoke.py`` holds
 it to ``select_topt_ref`` bit for bit over a sweep of shapes and rows. Here:
 
-  (a) the host-side plan as pure functions: the extract-min route beyond
-      ``SELECT_RADIX_MAX_T`` and the radix select up to it; a row split
-      over blocks only for batches of fewer rows than SMs, into non-empty
-      slices that cover the row, each at least t entries, whose candidates
-      fit the merge; the staging threshold;
-  (b) the routing, with a fake kernel library: each route reaches its
-      entry point with the plan's arguments and its own launch counter; a
-      failed launch raises;
+  (a) the host-side plan as pure functions: the radix select for every t,
+      its sort of the selected entries chosen on t (counting up to
+      ``SELECT_RANK_MAX_T``, a bitonic network in shared memory up to
+      ``SELECT_SHARED_SORT_MAX_T``, a radix sort in a global scratch
+      beyond); a row split over blocks only for batches of fewer rows than
+      SMs, into non-empty slices that cover the row, each at least t
+      entries, whose candidates fit the merge; the staging threshold;
+  (b) the routing, with a fake kernel library: the radix select reaches its
+      entry point with the plan's arguments (scratch for split rows and for
+      the global sort) for every t, and the extract-min kernel only
+      through ``chip_smoke.select_route``, each with its own launch counter;
+      a failed launch raises;
   (c) the kernel's algorithm, step for step in numpy (the key transform,
       the digit passes from the first bit the entries' keys do not share,
       the stop when a bin holds exactly the entries still wanted, the
-      position digits among tied keys, the compaction and the sort by
-      counting; first over a sample of every stride-th entry, then over the
-      entries at or below the sample's t-th pair, or over the whole row when
-      they overflow the scratch; a split row's slices selected unsorted in
-      any order and merged by their positions): equal to a numpy lexsort bit
-      for bit, -0.0 kept, on random, tie-heavy, +-0.0, +inf and NaN rows,
-      with t = 1, W - 1 and W, and a number of digit passes that does not
-      grow with t;
+      position digits among tied keys, the compaction and the sort: by
+      counting, by the bitonic network over the pairs padded to a power of
+      two, or compacted in position order and radix-sorted by key digits
+      with the kernel's per-warp offsets; first over a sample of every
+      stride-th entry, then over the entries at or below the sample's t-th
+      pair, or over the whole row when they overflow the scratch or t is
+      too large to sample; a split row's slices selected in any order and
+      merged by their positions): equal to a numpy lexsort bit for bit,
+      -0.0 kept, on random, tie-heavy, +-0.0, +inf and NaN rows, with t =
+      1, W - 1 and W and t beyond 256 (257, 300, 1000, 4096, W - 1 at W up
+      to 65,536), and a number of digit passes that does not grow with t;
   (d) ``select_topt_ref`` against the JAX ``_select_topt`` (interpret mode,
       W = 16) on tie-heavy and +inf rows, t = 1 and t = W - 1 (ids at
       +inf values excepted: there the JAX kernel repeats id 0), and against
       a float64 numpy lexsort, also on rows that mix -0.0 and +0.0 (against
-      the lexsort only: XLA's ``min`` may return either zero's sign).
+      the lexsort only: XLA's ``min`` may return either zero's sign); the
+      port's ``ivf_probed_topk`` at k = 300 against the JAX one (its Pallas
+      select in interpret mode) on a tiny IVF.
 """
 
 import jax.numpy as jnp
@@ -35,7 +44,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from image_search_engine_tpu.ops.ivf_pallas import ivf_probed_topk as jax_probed_topk
 from image_search_engine_tpu.ops.topk_pallas import _select_topt as jax_select_topt
+from image_search_engine_tpu_torch.ops import ivf as IV
 from image_search_engine_tpu_torch.ops import topk as T
 from test_torch_port_groupmin_tf32 import fake_cuda  # noqa: F401  (a fixture)
 
@@ -93,10 +105,12 @@ def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
     (1, 7813, 24), (1, 7813, 160), (2, 7813, 12), (64, 7813, 24), (131, 7813, 24),
     (4096, 7813, 12), (1, 65536, 256), (1, 7632, 20), (64, 7632, 64), (1, 1, 1),
     (1, 31, 30), (2, 33, 33), (1, 2047, 256), (1, 1024, 24), (4096, 65536, 160),
+    (1, 7813, 257), (1, 7813, 300), (64, 7813, 300), (1, 7813, 1000), (1, 65536, 4096),
+    (1, 65536, 65535), (4096, 7813, 4096),
 ])
 def test_radix_plan_covers_each_row_once(nq, w, t):
     plan = T.select_plan(nq, w, t, SMS)
-    assert plan.route == "radix"
+    assert plan.route == "radix" and plan.sort == T.select_sort(t)
     assert plan.split * plan.slice >= w > (plan.split - 1) * plan.slice  # no empty slice
     if 4 * nq > SMS or w < 2 * T._SELECT_SPLIT_MIN_SLICE:
         assert plan.split == 1
@@ -114,6 +128,8 @@ def test_small_batches_split_their_rows():
     assert T.select_plan(34, 7813, 24, SMS).split == 1
     assert T.select_plan(1, 65536, 24, SMS).split == T._SELECT_SPLIT_MAX
     assert T.select_plan(1, 65536, 256, SMS).split == 4  # the merge's 1,024 candidates
+    assert T.select_plan(1, 7813, 300, SMS).split == 3
+    assert T.select_plan(1, 7813, 513, SMS).split == 1
     assert not T.select_plan(4096, 65536, 24, SMS).staged
 
 
@@ -129,13 +145,17 @@ def test_the_sample_stride(n, t, stride):
         assert n // stride >= 2 * t and stride * t <= T._SELECT_CAND_MAX // 2
 
 
-@pytest.mark.parametrize("t,route", [(1, "radix"), (T.SELECT_RADIX_MAX_T, "radix"),
-                                     (T.SELECT_RADIX_MAX_T + 1, "extract_min"),
-                                     (7812, "extract_min")])
-def test_the_route_is_chosen_on_t(t, route):
+@pytest.mark.parametrize("t,sort", [(1, "rank"), (T.SELECT_RANK_MAX_T, "rank"),
+                                    (T.SELECT_RANK_MAX_T + 1, "bitonic"),
+                                    (T.SELECT_SHARED_SORT_MAX_T, "bitonic"),
+                                    (T.SELECT_SHARED_SORT_MAX_T + 1, "global"),
+                                    (7812, "global")])
+def test_the_route_is_chosen_on_t(t, sort):
+    """Every t takes the radix select; t chooses how it sorts the t entries
+    it selected. A row with a global sort is never split."""
     plan = T.select_plan(1, 7813, t, SMS)
-    assert plan.route == route
-    if route == "extract_min":
+    assert (plan.route, plan.sort) == ("radix", sort)
+    if sort == "global":
         assert (plan.split, plan.slice) == (1, 7813)
 
 
@@ -153,22 +173,28 @@ def test_the_plan_raises_on_shapes_it_cannot_take(nq, w, t, sms):
 
 @pytest.mark.parametrize("nq,w,t,entry", [
     (1, 7813, 24, "ise_select_radix"), (4096, 64, 12, "ise_select_radix"),
-    (1, 7813, T.SELECT_RADIX_MAX_T + 1, "ise_select_topt"),
+    (1, 7813, T.SELECT_RANK_MAX_T + 1, "ise_select_radix"),
+    (64, 7813, T.SELECT_SHARED_SORT_MAX_T + 1, "ise_select_radix"),
+    (1, 7813, T.SELECT_RANK_MAX_T + 1, "ise_select_topt"),
 ])
 def test_each_route_reaches_its_entry_point(fake_cuda, nq, w, t, entry):  # noqa: F811
+    """The radix select for every t; the extract-min kernel only where
+    chip_smoke.py asks for it, to time it beside the radix select."""
     lib = fake_cuda()
     T.reset_launch_counts()
-    vals, ids = T.select_topt(torch.zeros(nq, w), t)
+    radix = entry == "ise_select_radix"
+    with chip_smoke.select_route("radix" if radix else "extract_min"):
+        vals, ids = T.select_topt(torch.zeros(nq, w), t)
     assert vals.shape == ids.shape == (nq, t) and ids.dtype == torch.int32
     assert [c[0] for c in lib.calls] == [entry]
     args = lib.calls[0][1]
     plan = T.select_plan(nq, w, t, SMS)
-    if entry == "ise_select_radix":
-        assert args[6:12] == (nq, w, t, plan.split, plan.slice, int(plan.staged))
+    if radix:
+        assert args[7:13] == (nq, w, t, plan.split, plan.slice, int(plan.staged))
         assert all(a != 0 for a in args[3:6]) == (plan.split > 1)  # scratch and counters
+        assert (args[6] != 0) == (plan.sort == "global")  # the global sort's scratch
     else:
         assert args[3:6] == (nq, w, t)
-    radix = entry == "ise_select_radix"
     assert (T.select_topt.launches, T.select_topt.radix_launches,
             T.select_topt.extract_min_launches) == (1, int(radix), int(not radix))
     T.reset_launch_counts()
@@ -253,6 +279,81 @@ def rank_model(v, keys, pos, t):
     return out_v, out_p
 
 
+def pairs_of(keys, pos) -> np.ndarray:
+    return (keys.astype(np.uint64) << np.uint64(32)) | pos.astype(np.uint64)
+
+
+def bitonic_model(v, keys, pos):
+    """sort_selected's bitonic network in numpy: the (key, position) pairs
+    padded with the largest pair to a power of two, each stage's
+    compare-exchanges at once, the values moved with their pairs."""
+    t = v.size
+    p = 1 << (t - 1).bit_length()
+    kp = np.full(p, np.iinfo(np.uint64).max, np.uint64)
+    vv = np.zeros(p, np.float32)
+    kp[:t], vv[:t] = pairs_of(keys, pos), v
+    i = np.arange(p // 2)
+    k = 2
+    while k <= p:
+        j = k >> 1
+        while j > 0:
+            lo = 2 * i - (i & (j - 1))
+            hi = lo + j
+            a, c = kp[lo], kp[hi]
+            swap = (a > c) == ((lo & k) == 0)
+            kp[lo[swap]], kp[hi[swap]] = c[swap], a[swap]
+            vv[lo[swap]], vv[hi[swap]] = vv[hi[swap]], vv[lo[swap]]
+            j >>= 1
+        k <<= 1
+    return vv[:t], (kp[:t] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
+def global_sort_model(row_v, pos0, keys, pos):
+    """global_sort in numpy: the pairs in position order (the compaction's
+    scan), then per 8-bit key digit, low first, unless one digit holds them
+    all: the histogram's exclusive scan as bases, and each 256 entries in
+    order to base + rank among its warp's lanes of that digit + the counts
+    of that digit in the warps before it. Values read back from the row by
+    position."""
+    order = np.argsort(pos, kind="stable")
+    src = pairs_of(keys[order], pos[order])
+    t = src.size
+    for shift in (32, 40, 48, 56):
+        dig = ((src >> np.uint64(shift)) & np.uint64(0xFF)).astype(np.int64)
+        hist = np.bincount(dig, minlength=256)
+        if hist.max() == t:
+            continue
+        base = np.cumsum(hist) - hist
+        dst = np.empty_like(src)
+        for i0 in range(0, t, 256):
+            d = dig[i0:i0 + 256]
+            warp = np.arange(d.size) // 32
+            wd = warp * 256 + d
+            by = np.argsort(wd, kind="stable")
+            first = np.r_[0, np.flatnonzero(np.diff(wd[by])) + 1]
+            rank = np.empty(d.size, np.int64)
+            rank[by] = np.arange(d.size) - np.repeat(first, np.diff(np.r_[first, d.size]))
+            wcnt = np.zeros((8, 256), np.int64)
+            np.add.at(wcnt, (warp, d), 1)
+            before = np.cumsum(wcnt, axis=0) - wcnt  # the warps before each
+            dst[base[d] + rank + before[warp, d]] = src[i0:i0 + 256]
+            base += np.bincount(d, minlength=256)
+        src = dst
+    out_p = (src & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return row_v[out_p - pos0], out_p
+
+
+def sort_model(v, keys, pos, t, row=None):
+    """sort_selected's sort of the t selected entries (given in any order):
+    counting, the bitonic network, or (a whole row's view, ``row`` = its
+    values and first position) the global radix sort."""
+    if t <= T.SELECT_RANK_MAX_T:
+        return rank_model(v, keys, pos, t)
+    if t <= T.SELECT_SHARED_SORT_MAX_T:
+        return bitonic_model(v, keys, pos)
+    return global_sort_model(*row, keys, pos)
+
+
 def candidates_model(v, keys, pos, t):
     """select_candidates in numpy: (values, positions, digit passes)."""
     if v.size <= RANK_MAX:
@@ -260,7 +361,7 @@ def candidates_model(v, keys, pos, t):
     thr, passes = threshold_model(keys, pos, t)
     sel = np.random.default_rng(t).permutation(np.nonzero(covers(keys, pos, thr))[0])
     assert sel.size == t  # the slots' order is arbitrary
-    return (*rank_model(v[sel], keys[sel], pos[sel], t), passes)
+    return (*sort_model(v[sel], keys[sel], pos[sel], t), passes)
 
 
 def radix_select_model(v: np.ndarray, pos: np.ndarray, t: int, sample: bool = True):
@@ -282,7 +383,7 @@ def radix_select_model(v: np.ndarray, pos: np.ndarray, t: int, sample: bool = Tr
     thr, passes = threshold_model(keys, pos, t)
     sel = np.random.default_rng(t).permutation(np.nonzero(covers(keys, pos, thr))[0])
     assert sel.size == t
-    return (*rank_model(v[sel], keys[sel], pos[sel], t), passes, False)
+    return (*sort_model(v[sel], keys[sel], pos[sel], t, row=(v, int(pos[0]))), passes, False)
 
 
 def select_model(row: np.ndarray, t: int, nq: int = 1):
@@ -297,6 +398,9 @@ def select_model(row: np.ndarray, t: int, nq: int = 1):
     for s in range(plan.split):
         lo, hi = s * plan.slice, min(w, (s + 1) * plan.slice)
         v, p, n, _ = radix_select_model(row[lo:hi], np.arange(lo, hi), min(t, hi - lo))
+        if t > T.SELECT_RANK_MAX_T:  # emit_unsorted: a slice's candidates in any order
+            perm = np.random.default_rng(s).permutation(v.size)
+            v, p = v[perm], p[perm]
         cv.append(v)
         cp.append(p)
         passes = max(passes, n)
@@ -314,7 +418,7 @@ def max_passes(w: int) -> int:
 def test_the_radix_select_equals_a_lexsort(kind, w):
     rng = np.random.default_rng(w)
     rows = rows_of(kind, 2, w, rng)
-    for t in sorted({1, 12, 24, 160, w - 1, w} & set(range(1, min(w, T.SELECT_RADIX_MAX_T) + 1))):
+    for t in sorted({1, 12, 24, 160, w - 1, w} & set(range(1, min(w, T.SELECT_RANK_MAX_T) + 1))):
         for nq in (1, 4096):  # a split row and a whole one
             for row in rows:
                 v, p, passes = select_model(row, t, nq)
@@ -322,6 +426,42 @@ def test_the_radix_select_equals_a_lexsort(kind, w):
                 assert same_bits(v, rv) and np.array_equal(p, rp), (kind, w, t, nq)
                 # a sample's threshold, the candidates', and a split row's merge
                 assert passes <= 3 * max_passes(w), passes
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros", "inf", "nan"])
+@pytest.mark.parametrize("w", [1000, 5088, 7813, 65536])
+def test_the_radix_select_beyond_256_equals_a_lexsort(kind, w):
+    """t beyond SELECT_RANK_MAX_T: the whole row's threshold (never a
+    sample), then the bitonic network (t <= SELECT_SHARED_SORT_MAX_T, also
+    in the merges of split rows) or the global radix sort; a split row and a
+    whole one."""
+    rng = np.random.default_rng(w + 1)
+    row = rows_of(kind, 1, w, rng)[0]
+    for t in sorted({257, 300, 1000, 4096, w - 1} & set(range(1, w + 1))):
+        for nq in ((1, 4096) if t <= T._SELECT_MERGE_MAX // 2 else (1,)):
+            v, p, passes = select_model(row, t, nq)
+            rv, rp = lexsort_ref(row, t)
+            assert same_bits(v, rv) and np.array_equal(p, rp), (kind, w, t, nq)
+            assert passes <= 2 * max_passes(w), passes
+
+
+def test_the_sorts_order_pairs_given_in_any_order():
+    """The bitonic network over a non-power-of-two t and the global radix
+    sort over keys that share their high digits (skipped passes) and keys
+    tied across tiles (position order kept)."""
+    rng = np.random.default_rng(11)
+    for t in (257, 300, 511, 512, 4096):
+        keys = rng.integers(0, 1 << 32, t).astype(np.int64)
+        pos = rng.permutation(1 << 16)[:t].astype(np.int64)
+        v, p = bitonic_model(rng.standard_normal(t).astype(np.float32), keys, pos)
+        want = np.lexsort((pos, keys))
+        assert np.array_equal(p, pos[want])
+    row = np.repeat(rng.standard_normal(40).astype(np.float32), 250)  # ties of 250 entries
+    row[::7] += np.float32(1e-3)
+    keys, pos = sel_key(row), np.arange(row.size)
+    v, p = global_sort_model(row, 0, keys[::-1].copy(), pos[::-1].copy())
+    rv, rp = lexsort_ref(row, row.size)
+    assert same_bits(v, rv) and np.array_equal(p, rp)
 
 
 def test_random_rows_select_from_the_sample_s_candidates():
@@ -379,3 +519,40 @@ def test_the_plain_select_equals_a_lexsort(kind):
         for r in range(mins.shape[0]):
             rv, rp = lexsort_ref(mins[r], t)
             assert same_bits(pv[r].numpy(), rv) and np.array_equal(pi[r].numpy(), rp)
+
+
+def test_the_probed_topk_beyond_256_equals_the_jax_kernel():
+    """ops/ivf.ivf_probed_topk at k = 300 (the select beyond
+    SELECT_RANK_MAX_T) against the JAX package's (its Pallas probed scan in
+    interpret mode, its ``select_impl="xla"`` select, ``lax.top_k``, which
+    orders ties as its Pallas select does: the Pallas select unrolls its t
+    passes, ~12 s of interpret-mode compile at t = 300) on a tiny IVF: 8
+    buckets of cap 128, d = 16, 5 probed (W = 640), pad slots with +inf
+    norms and id -1, some queries short of k finite entries. ok flags and
+    ids equal; distances within 16 f32 ulps of the magnitudes that cancel in
+    ||q||^2 - 2 q.x + ||x||^2 (both sum 16 f32 products, in other orders)."""
+    rng = np.random.default_rng(300)
+    nb, cap, d, nprobe, k = 8, 128, 16, 5, 300
+    packed = rng.standard_normal((nb, cap, d)).astype(np.float32)
+    fill = rng.integers(30, 90, nb)
+    lists = np.full((nb, cap), -1, np.int32)
+    norms = np.full((nb, cap), np.inf, np.float32)
+    for b in range(nb):
+        lists[b, :fill[b]] = b * cap + np.arange(fill[b])
+        norms[b, :fill[b]] = (packed[b, :fill[b]].astype(np.float64) ** 2).sum(1)
+    bc = packed.mean(1) + rng.standard_normal((nb, d)).astype(np.float32)
+    q = rng.standard_normal((4, d)).astype(np.float32)
+    pd, pi, pok = IV.ivf_probed_topk(torch.from_numpy(q), torch.from_numpy(bc),
+                                     torch.from_numpy(packed), torch.from_numpy(norms),
+                                     torch.from_numpy(lists), k, nprobe)
+    jd, ji, jok = jax_probed_topk(jnp.asarray(q), jnp.asarray(bc), jnp.asarray(packed),
+                                  jnp.asarray(norms), jnp.asarray(lists), k, nprobe,
+                                  interpret=True, select_impl="xla")
+    pok, jok = pok.numpy(), np.asarray(jok)
+    assert tuple(pi.shape) == (4, k) and not pok.all()  # some queries probe fewer than k rows
+    np.testing.assert_array_equal(pok, jok)
+    np.testing.assert_array_equal(pi.numpy()[pok], np.asarray(ji)[jok])
+    xm = float(np.sqrt(norms[np.isfinite(norms)].max()))
+    qm = float(np.linalg.norm(q, axis=1).max())
+    np.testing.assert_allclose(pd.numpy()[pok], np.asarray(jd)[jok], rtol=1e-5,
+                               atol=16 * float(np.finfo(np.float32).eps) * (xm + qm) ** 2)
