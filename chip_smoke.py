@@ -77,15 +77,19 @@ Phases (each raises on failure; the script then exits non-zero):
   6. bench.py's operating point (1M x 128 bf16, k = 10): the bench twin
      (``image_search_engine_tpu_torch.bench``) at Q = 4096 over 100
      dispatches, each ported benchmark script's searches once with their
-     recall@10 beside the production search's, the bf16 tensor-core
+     recall@10 beside the production search's (the prototypes' launches by
+     route: none on CUDA cores), then timed in ms per dispatch beside the
+     shipped search; the bf16 tensor-core
      kernels against their plain versions at Q = 2048 and 4096, the twin's
      dispatch split into groupmin, select_topt, rescore and the finish,
      the four phase-1 prototype kernels (group width, chunked columns,
      two-level mins in three layouts) against their plain versions at Q =
-     2048 (and 4096) plus an edge sweep, with timings beside ``groupmin``
-     (their 128-row mins equal to the row_dot sweep's, ``groupmin_width(...,
-     128)``, bit for bit, production's within tolerance of them); then the
-     tie order of the
+     2048 and 4096 plus a 46-shape edge sweep, with timings beside
+     ``groupmin`` and the bf16 product alone: the width and two-level
+     kernels on the tensor-core sweep (width 128 and every layout's group
+     mins equal to ``groupmin``'s bit for bit) and on the CUDA-core route
+     they replaced, forced (its 128-row mins equal to each other's bit for
+     bit, production's within tolerance of them); then the tie order of the
      flat paths over a store whose second half repeats its first, and the
      cost of the k > 128 full scan's stable sort at 1M rows;
   7. the same store: each ported phase-2 prototype script's searches once
@@ -138,10 +142,10 @@ SOURCES = {
     "rescore_q8": CSRC + "topk_twophase_q8.cu",
     "topk_running": CSRC + "topk_running.cu",
     "topk_merged": CSRC + "topk_merged.cu",
-    "groupmin_width": CSRC + "groupmin_variants.cu",
+    "groupmin_width": CSRC + "groupmin_width_mma.cu",
     "groupmin_chunked": CSRC + "groupmin_variants.cu",
-    "groupmin_two_level": CSRC + "groupmin_variants.cu",
-    "groupmin_two_level_layouts": CSRC + "groupmin_variants.cu",
+    "groupmin_two_level": CSRC + "groupmin_two_level_mma.cu",
+    "groupmin_two_level_layouts": CSRC + "groupmin_two_level_mma.cu",
     "rescore_gather": CSRC + "rescore_variants.cu",
     "rescore_gather_sweep2": CSRC + "rescore_variants.cu",
     "rescore_cross": CSRC + "rescore_variants.cu",
@@ -150,6 +154,8 @@ SOURCES = {
 SOURCES_F32_TC = {"groupmin": CSRC + "groupmin_tf32.cu", "rescore": CSRC + "groupmin_tf32.cu"}
 # the extract-min kernel (t passes), timed beside the radix select that replaced it
 SOURCE_SELECT_EXTRACT_MIN = CSRC + "topk_twophase.cu"
+# the CUDA-core width and two-level kernels, timed beside the tensor-core ones that replaced them
+SOURCE_VARIANTS_CUDA_CORE = CSRC + "groupmin_variants.cu"
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
     "select_topt": "image_search_engine_tpu/ops/topk_pallas.py:361",
@@ -371,6 +377,22 @@ def select_route(route: str):
         yield
     finally:
         T.select_plan = keep
+
+
+@contextlib.contextmanager
+def variants_route(route: str):
+    """groupmin_width and groupmin_two_level on one of their routes: "mma"
+    (epilogues of the bf16 tensor-core sweep, every caller's) or
+    "cuda_core" (the row_dot kernels they replaced, which no script path
+    takes); this sets ``groupmin_variants.ROUTE`` for the duration."""
+    from image_search_engine_tpu_torch.ops import groupmin_variants as GV
+
+    keep = GV.ROUTE
+    GV.ROUTE = route
+    try:
+        yield
+    finally:
+        GV.ROUTE = keep
 
 
 #: the extract-min kernel's launches in each main-path run (counts set to 0
@@ -640,8 +662,9 @@ def check_shape(name, x, nq, metric, dtype, gen, flush, *, pad_rows=None, q_scal
     res["groupmin"]["product_alone_ms"] = median_ms(lambda: torch.matmul(qf, store.T), flush)
     extra += f"; {dtype} product alone {res['groupmin']['product_alone_ms']:.4f} ms"
     if isz == 2:
-        res["groupmin"]["row_dot_sweep_ms"] = median_ms(
-            lambda: GV.groupmin_width(qf, store, knorms, T.GROUP), flush, reps=3)
+        with variants_route("cuda_core"):
+            res["groupmin"]["row_dot_sweep_ms"] = median_ms(
+                lambda: GV.groupmin_width(qf, store, knorms, T.GROUP), flush, reps=3)
         extra += f", row_dot sweep {res['groupmin']['row_dot_sweep_ms']:.4f} ms"
     smetric = "l2" if metric == "l2" else "ip"
     search_ms = median_ms(lambda: T.topk_twophase(qs, store, K, smetric, x_norms=norms), flush)
@@ -2235,7 +2258,9 @@ def phase5() -> dict:
 # ---------------------------------------------------------------------------
 
 BENCH_Q, BENCH_ITERS, PROTO_Q = 4096, 100, 2048
-PROTO_REPS = 3  # the CUDA-core sweeps take ~0.2 s a call at Q = 2048
+PROTO_REPS = 20  # the tensor-core prototypes and groupmin: a few ms a call at Q = 2048
+CUDA_CORE_REPS = 3  # the CUDA-core prototypes they replaced: ~0.2 s a call
+SEARCH_REPS = 10  # each prototype script's search, and the shipped one
 # the tie check: a store whose second half repeats its first, from a group
 # boundary, so the two-phase search's tie order is the full scan's
 TIE_HALF, TIE_D, TIE_Q = 65_536, 256, 16
@@ -2257,18 +2282,47 @@ def bf16_ulps(a, b) -> float:
     return float(((a[fin] - b[fin]).abs() / ulp).max().item())
 
 
-def check_variants(name, qf, x, norms, nf32, want, *, layouts=None, width=True, chunked=True):
-    """The four prototype kernels on (qf, x): each f32 output within
-    score_tol of its plain version; width 128 and the two-level group mins
-    equal to ``want`` bit for bit: ``groupmin_width(..., 128)``, the row_dot
-    sweep the prototypes share (production ``groupmin`` ran it before its
-    bf16 kernel moved to tensor cores, and is held within score_tol of it
-    here); the bf16 subgroup mins within one bf16 ulp of the plain
-    version's, and each group min's bf16 rounding equal to the min of its
-    subgroup mins. ``norms`` score the chunked kernel, ``nf32`` the others
-    (the scripts' norms); ``width`` and ``chunked`` include those kernels.
-    Returns {kernel: max_abs_err} (the two-level's in bf16 ulps too;
-    ``groupmin_vs_row_dot`` the production sweep's distance from ``want``)."""
+def bench_point_registers() -> dict:
+    """Registers a thread of the bf16 sweep's instantiations that bench.py's
+    point launches (128-query tiles, 16-byte copies, the tile resident), by
+    output policy, from the build's ptxas log; raises where one would leave
+    room for one 256-thread block an SM, where the plan's shared memory
+    gives two."""
+    from image_search_engine_tpu_torch.ops import _kernels
+
+    log = _kernels.library_path().with_suffix(".log").read_text()
+    names = {"QueryMajorMins": "groupmin", "WidthMinsILi128E": "width128",
+             "WidthMinsILi64E": "width64", "WidthMinsILi32E": "width32",
+             "TwoLevelMinsILi0E": "two_level_v1", "TwoLevelMinsILi1E": "two_level_v2",
+             "TwoLevelMinsILi2E": "two_level_v3"}
+    regs = {}
+    for fn, r in re.findall(r"Compiling entry function '(\S+)'.*?Used (\d+) registers", log,
+                            re.S):
+        if "groupmin_mma_kernel" in fn and "Li128ELi8ELb1E" in fn:
+            regs.update({v: int(r) for k, v in names.items() if k in fn})
+    if sorted(regs) != sorted(names.values()):
+        raise AssertionError(f"bench point sweep instantiations not all in the ptxas log: {regs}")
+    over = {k: r for k, r in regs.items() if r > 65536 // (2 * 256)}
+    if over:
+        raise AssertionError(f"bench point sweeps over 128 registers (one block an SM): {over}")
+    return regs
+
+
+def check_variants(name, qf, x, norms, nf32, *, route="mma", layouts=None, widths=None,
+                   chunked=True):
+    """The four prototype kernels on (qf, x), width and two-level on
+    ``route``: each f32 output within score_tol of its plain version; width
+    128 and every layout's two-level group mins equal to ``want`` bit for
+    bit, which on the "mma" route is production ``groupmin(...).T`` (the
+    prototypes are its sweep with another epilogue) and on the "cuda_core"
+    route that route's own width-128 run (its row_dot kernels share one
+    summation order; production is held within score_tol of it); the bf16
+    subgroup mins within one bf16 ulp of the plain version's, and each group
+    min's bf16 rounding equal to the min of its subgroup mins. ``norms``
+    score the chunked kernel, ``nf32`` the others (the scripts' norms);
+    ``widths`` (default all) and ``chunked`` pick kernels. Returns {kernel:
+    max_abs_err} (the two-level's in bf16 ulps too; on the CUDA-core route
+    ``groupmin_vs_row_dot``, production's distance from ``want``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2277,63 +2331,74 @@ def check_variants(name, qf, x, norms, nf32, want, *, layouts=None, width=True, 
 
     errs = {}
     tol = score_tol(qf, torch.cat([norms, nf32]))
-    errs["groupmin_vs_row_dot"] = max_abs_err(T.groupmin(qf, x, nf32).T, want)
-    for g in GV.WIDTHS if width else ():
-        got = GV.groupmin_width(qf, x, nf32, g)
-        errs[f"width{g}"] = max_abs_err(got, GV.groupmin_width_ref(qf, x, nf32, g))
-        if g == 128 and not torch.equal(got, want):
-            raise AssertionError(f"{name}: groupmin_width(128) differs from its own run")
+    production = T.groupmin(qf, x, nf32).T.contiguous()
+    with variants_route(route):
+        want = production if route == "mma" else GV.groupmin_width(qf, x, nf32, T.GROUP)
+        if route == "cuda_core":
+            errs["groupmin_vs_row_dot"] = max_abs_err(production, want)
+        for g in GV.WIDTHS if widths is None else widths:
+            got = GV.groupmin_width(qf, x, nf32, g)
+            errs[f"width{g}"] = max_abs_err(got, GV.groupmin_width_ref(qf, x, nf32, g))
+            if g == 128 and not torch.equal(got, want):
+                raise AssertionError(f"{name}: groupmin_width(128) ({route}) differs from "
+                                     + ("groupmin" if route == "mma" else "its own run"))
+        rg, rs = GV.groupmin_two_level_ref(qf, x, nf32)
+        for lay in layouts or GV.LAYOUTS:
+            gm, sm = GV.groupmin_two_level(qf, x, nf32, lay)
+            if not torch.equal(gm, want):
+                raise AssertionError(f"{name}: two-level {lay} ({route}) group mins differ from "
+                                     + ("groupmin's" if route == "mma" else "the row_dot sweep's"))
+            errs[f"two_level_{lay}"] = max_abs_err(gm, rg)
+            ulps = bf16_ulps(sm, rs)
+            if ulps > 1.0:
+                raise AssertionError(f"{name}: two-level {lay} ({route}) subgroup mins {ulps} "
+                                     "bf16 ulps off")
+            errs[f"two_level_{lay}_ulps"] = ulps
+            per = 4
+            pad = -sm.shape[1] % per
+            smin4 = F.pad(sm.float(), (0, pad), value=float("inf")).view(sm.shape[0], -1,
+                                                                          per).amin(2)
+            if not torch.equal(gm.T.to(torch.bfloat16).float(), smin4):
+                raise AssertionError(f"{name}: two-level {lay} ({route}) group mins are not "
+                                     "their subgroups' min")
     for c in GV.CHUNKS if chunked else ():
         got = GV.groupmin_chunked(qf, x, norms, c)
         errs[f"chunk{c}"] = max_abs_err(got, GV.groupmin_chunked_ref(qf, x, norms))
-    rg, rs = GV.groupmin_two_level_ref(qf, x, nf32)
-    for lay in layouts or GV.LAYOUTS:
-        gm, sm = GV.groupmin_two_level(qf, x, nf32, lay)
-        if not torch.equal(gm, want):
-            raise AssertionError(f"{name}: two-level {lay} group mins differ from the row_dot "
-                                 "sweep's")
-        errs[f"two_level_{lay}"] = max_abs_err(gm, rg)
-        ulps = bf16_ulps(sm, rs)
-        if ulps > 1.0:
-            raise AssertionError(f"{name}: two-level {lay} subgroup mins {ulps} bf16 ulps off")
-        errs[f"two_level_{lay}_ulps"] = ulps
-        per = 4
-        pad = -sm.shape[1] % per
-        smin4 = F.pad(sm.float(), (0, pad), value=float("inf")).view(sm.shape[0], -1, per).amin(2)
-        if not torch.equal(gm.T.to(torch.bfloat16).float(), smin4):
-            raise AssertionError(f"{name}: two-level {lay} group mins are not their subgroups' min")
     worst = max(v for k, v in errs.items() if not k.endswith("_ulps"))
     if worst > tol:
         raise AssertionError(f"{name}: prototype kernel error {worst} > tolerance {tol}")
     return errs
 
 
-def edge_sweep_variants(gen) -> float:
+def edge_sweep_variants(gen) -> dict:
     """Every width, chunk and layout at N in {1, 31, 32, 33, 127, 129, 5000}
     x Q in {1, 7, 64}, d = 128 (and d = 130, rows of no 16-byte multiple,
-    for the width and two-level kernels: scalar row loads), untimed. Returns the largest
-    error."""
+    for the width and two-level kernels: 4-byte copies on tensor cores,
+    scalar row loads on CUDA cores), and Q = 129 (a second, partial
+    128-query tile) at N in {129, 5000}: query tiles of 16 (8 warps along a
+    group's rows), 64 and 128 (4), and v2's staging. The width and
+    two-level kernels on both routes (the chunked one once), untimed.
+    Returns {"shapes", "mma", "cuda_core"}: the largest error per route."""
     import torch
 
-    from image_search_engine_tpu_torch.ops import groupmin_variants as GV
-    from image_search_engine_tpu_torch.ops import topk as T
-
-    worst, cases = 0.0, 0
-    for n in (1, 31, 32, 33, 127, 129, 5000):
-        for nq in (1, 7, 64):
-            for d in (128, 130):
-                x = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
-                q = torch.randn(nq, d, device="cuda", generator=gen).to(torch.bfloat16)
-                nf32 = (torch.randn(n, d, device="cuda", generator=gen) ** 2).sum(1)
-                norms = (x.float() ** 2).sum(1)
-                want = GV.groupmin_width(q, x, nf32, T.GROUP)
-                errs = check_variants(f"variants edge N={n} Q={nq} d={d}", q, x, norms, nf32, want,
-                                      chunked=d % 8 == 0)
-                worst = max(worst, *(v for k, v in errs.items() if not k.endswith("_ulps")))
-                cases += 1
-    log(f"  prototype edge sweep: {cases} shapes, every width, chunk and layout; largest error "
-        f"{worst:.3g}")
-    return worst
+    shapes = [(n, nq, d) for n in (1, 31, 32, 33, 127, 129, 5000) for nq in (1, 7, 64)
+              for d in (128, 130)]
+    shapes += [(n, 129, d) for n in (129, 5000) for d in (128, 130)]
+    worst = {"mma": 0.0, "cuda_core": 0.0}
+    for n, nq, d in shapes:
+        x = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
+        q = torch.randn(nq, d, device="cuda", generator=gen).to(torch.bfloat16)
+        nf32 = (torch.randn(n, d, device="cuda", generator=gen) ** 2).sum(1)
+        norms = (x.float() ** 2).sum(1)
+        for route in worst:
+            errs = check_variants(f"variants edge N={n} Q={nq} d={d}", q, x, norms, nf32,
+                                  route=route, chunked=route == "mma" and d % 8 == 0)
+            worst[route] = max(worst[route], *(v for k, v in errs.items()
+                                               if not k.endswith("_ulps")))
+    log(f"  prototype edge sweep: {len(shapes)} shapes, every width, chunk and layout, both "
+        f"routes; largest error {worst['mma']:.3g} (tensor cores; width 128 and two-level "
+        f"group mins = groupmin bit for bit), {worst['cuda_core']:.3g} (CUDA cores)")
+    return {"shapes": len(shapes), **worst}
 
 
 def assert_ties_ascending(name, d, i) -> int:
@@ -2504,10 +2569,13 @@ def twin_breakdown(q, x, norms, flush) -> dict:
 def phase6(store) -> dict:
     """bench.py's operating point: the main path (bench twin, then each
     ported script's searches once; launch counts set to 0 just before, read
-    just after), then the bf16 tensor-core kernels against their plain
-    versions at Q = 2048 and 4096, the twin's dispatch split into its steps,
-    the four prototype kernels checked and timed beside them, the edge
-    sweep, the tie check and the full scan's sort."""
+    just after, the prototypes' by route, none on CUDA cores), each script's
+    searches timed beside the shipped one, then the bf16 tensor-core
+    kernels against their plain versions at Q = 2048 and 4096, the twin's
+    dispatch split into its steps, the four prototype kernels checked (the
+    width and two-level ones on both routes) and timed beside ``groupmin``
+    and the product alone, the edge sweep, the tie check and the full
+    scan's sort."""
     import torch
 
     from image_search_engine_tpu_torch import bench
@@ -2526,32 +2594,38 @@ def phase6(store) -> dict:
     def recall_of(fn, q):
         return common.recall(fn(q)[1][:8], common.float64_topk_ids(q[:8], store.x32, BENCH_K))
 
+    q2048 = common.queries(store, 1, PROTO_Q)[0]
+    q4096 = common.queries(store, 1, BENCH_Q)[0]
+    # each script's searches: (name, fn, queries)
+    runs = {"rescore_variants2": [(name, fn, q2048) for name, fn in RV2.searches(store.x, nf32)],
+            "subgroup_proto": [(f"{name} Q={q.shape[0]}", fn, q) for q in (q2048, q4096)
+                               for name, fn in SP.searches(store.x, nf32)],
+            "subgroup_variants": [(name, fn, q2048) for name, fn in SV.searches(store.x, nf32)]}
+    torch.cuda.synchronize()
     T.reset_launch_counts()
-    GV.reset_launch_counts()
     out = bench.run(store, BENCH_Q, BENCH_ITERS)
     print(json.dumps(out), flush=True)
-    q2048 = common.queries(store, 1, PROTO_Q)[0]
-    recalls = {"rescore_variants2": {name: recall_of(fn, q2048)
-                                     for name, fn in RV2.searches(store.x, nf32)}}
+    GV.reset_launch_counts()  # the prototypes' counts, by route, over the scripts' searches
     sums = {name: float(fn(q2048)) for name, fn in SC.sweeps(store.x, nbf)}
-    torch.cuda.synchronize()
-    two_level_before = GV.groupmin_two_level.launches
-    q4096 = common.queries(store, 1, BENCH_Q)[0]
-    recalls["subgroup_proto"] = {f"{name} Q={q.shape[0]}": recall_of(fn, q)
-                                 for q in (q2048, q4096) for name, fn in SP.searches(store.x, nf32)}
-    proto_launches = GV.groupmin_two_level.launches - two_level_before
-    recalls["subgroup_variants"] = {name: recall_of(fn, q2048)
-                                    for name, fn in SV.searches(store.x, nf32)}
-    torch.cuda.synchronize()
-    launches = {"groupmin_width": GV.groupmin_width.launches,
+    recalls, two_level_mma = {}, {}
+    for script, rs in runs.items():
+        before = GV.groupmin_two_level.mma_launches
+        recalls[script] = {name: recall_of(fn, q) for name, fn, q in rs}
+        torch.cuda.synchronize()
+        two_level_mma[script] = GV.groupmin_two_level.mma_launches - before
+    launches = {"groupmin_width": GV.groupmin_width.mma_launches,
                 "groupmin_chunked": GV.groupmin_chunked.launches,
-                "groupmin_two_level": proto_launches,
-                "groupmin_two_level_layouts": GV.groupmin_two_level.launches - proto_launches,
+                "groupmin_two_level": two_level_mma["subgroup_proto"],
+                "groupmin_two_level_layouts": two_level_mma["subgroup_variants"],
                 "groupmin": T.groupmin.launches, "select_topt": T.select_topt.launches,
                 "rescore": T.rescore.launches}
+    by_route = {fn.__name__: {r: getattr(fn, f"{r}_launches") for r in GV.ROUTES}
+                for fn in (GV.groupmin_width, GV.groupmin_two_level)}
     note_extract_min("bench twin and scripts")
     if not all(launches.values()):
         raise AssertionError(f"phase 6 main path: a kernel did not launch: {launches}")
+    if any(r["cuda_core"] for r in by_route.values()):
+        raise AssertionError(f"phase 6 main path: the CUDA-core prototype route ran: {by_route}")
     ref_sum = sums["current"]
     for name, v in sums.items():
         if not abs(v - ref_sum) < abs(ref_sum) * 1e-6 + 1.0:
@@ -2565,7 +2639,15 @@ def phase6(store) -> dict:
             f"{k} {v:.3f}" for k, v in r.items()))
     log(f"  main path: bench twin {out['value']} QPS (Q={BENCH_Q}, {BENCH_ITERS} dispatches), "
         f"recall@10 {out['recall_at_10_vs_float64']:.5f}, certified "
-        f"{out['exactness_certified_frac']}; sweep_chunked sums agree; launches {launches}")
+        f"{out['exactness_certified_frac']}; sweep_chunked sums agree; launches {launches}; "
+        f"prototype launches by route {by_route}")
+    # each script's searches timed (ms per dispatch), the shipped search among them
+    search_ms = {}
+    for script, rs in runs.items():
+        search_ms[script] = {name: median_ms(lambda: fn(q), flush, reps=SEARCH_REPS)
+                             for name, fn, q in rs}
+        log(f"  {script} ms per dispatch: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in search_ms[script].items()))
 
     # the bf16 tensor-core kernels against their plain versions, the twin's dispatch in steps
     qf = q2048.to(torch.bfloat16).contiguous()
@@ -2584,13 +2666,18 @@ def phase6(store) -> dict:
         f"recall@10 {out['recall_at_10_vs_float64']:.5f}, certified "
         f"{out['exactness_certified_frac']}")
 
-    # the four prototype kernels against their plain versions, then timed
-    want = GV.groupmin_width(qf, store.x, nf32, T.GROUP)
-    errs = check_variants("Q=2048", qf, store.x, nbf, nf32, want)
-    errs4 = check_variants("Q=4096", qf4, store.x, nbf, nf32,
-                           GV.groupmin_width(qf4, store.x, nf32, T.GROUP),
-                           layouts=("v1",), width=False, chunked=False)
-    worst_edge = edge_sweep_variants(gen)
+    # the four prototype kernels against their plain versions (width and
+    # two-level on both routes), then timed
+    regs = bench_point_registers()
+    log(f"  registers a thread at the bench point's tiles (two 256-thread blocks an SM take at "
+        f"most 128): {regs}")
+    errs = check_variants("Q=2048", qf, store.x, nbf, nf32)
+    errs4 = check_variants("Q=4096", qf4, store.x, nbf, nf32, chunked=False)
+    cc_errs = check_variants("Q=2048 CUDA cores", qf, store.x, nbf, nf32, route="cuda_core",
+                             chunked=False)
+    cc_errs4 = check_variants("Q=4096 CUDA cores", qf4, store.x, nbf, nf32, route="cuda_core",
+                              layouts=("v1",), widths=(), chunked=False)
+    edge = edge_sweep_variants(gen)
     n, d = BENCH_N, BENCH_D
     ng, nsub = T.num_groups(n), -(-n // GV.SUB)
 
@@ -2598,49 +2685,75 @@ def phase6(store) -> dict:
         return bound(n * d * 2 + n * 4 + nq * d * 2 + out_bytes, 2 * nq * n * d, BF16_FLOPS)
 
     x = store.x
+
+    def proto_times(route: str, reps: int) -> dict:
+        """The width and two-level kernels on ``route`` at Q = 2048 (v1 also
+        at 4096), CUDA-event medians after an L2 flush."""
+        res = {}
+        with variants_route(route):
+            for g in GV.WIDTHS:
+                res[f"width{g}"] = median_ms(lambda: GV.groupmin_width(qf, x, nf32, g), flush,
+                                             reps=reps)
+            for lay in GV.LAYOUTS:
+                res[f"two_level_{lay}"] = median_ms(
+                    lambda: GV.groupmin_two_level(qf, x, nf32, lay), flush, reps=reps)
+            res["two_level_v1_Q4096"] = median_ms(
+                lambda: GV.groupmin_two_level(qf4, x, nf32, "v1"), flush, reps=reps)
+        return res
+
     ms = lambda fn: median_ms(fn, flush, reps=PROTO_REPS)  # noqa: E731
     times = {"groupmin": ms(lambda: T.groupmin(qf, x, nf32)),
-             "product": ms(lambda: torch.matmul(qf, x.T))}
-    for g in GV.WIDTHS:
-        times[f"width{g}"] = ms(lambda: GV.groupmin_width(qf, x, nf32, g))
+             "product": ms(lambda: torch.matmul(qf, x.T)),
+             "groupmin_Q4096": ms(lambda: T.groupmin(qf4, x, nf32)),
+             "product_Q4096": ms(lambda: torch.matmul(qf4, x.T)),
+             **proto_times("mma", PROTO_REPS)}
+    sub_major = torch.empty((nsub, PROTO_Q), dtype=torch.bfloat16, device="cuda")
+    times["v3_transpose"] = ms(lambda: sub_major.T.contiguous())  # v3's wrapper, alone
     for c in GV.CHUNKS:
         times[f"chunk{c}"] = ms(lambda: GV.groupmin_chunked(qf, x, nbf, c))
-    for lay in GV.LAYOUTS:
-        times[f"two_level_{lay}"] = ms(lambda: GV.groupmin_two_level(qf, x, nf32, lay))
-    times["two_level_v1_Q4096"] = ms(lambda: GV.groupmin_two_level(qf4, x, nf32, "v1"))
-    times["groupmin_Q4096"] = ms(lambda: T.groupmin(qf4, x, nf32))
-    times["product_Q4096"] = ms(lambda: torch.matmul(qf4, x.T))
+    cuda_core = proto_times("cuda_core", CUDA_CORE_REPS)
     plain = {"groupmin": median_ms(lambda: T.groupmin_ref(qf, x, nf32), flush, reps=2),
              "width": median_ms(lambda: GV.groupmin_width_ref(qf, x, nf32, 128), flush, reps=2),
              "two_level": median_ms(lambda: GV.groupmin_two_level_ref(qf, x, nf32), flush, reps=2),
              "chunked": median_ms(lambda: GV.groupmin_chunked_ref(qf, x, nbf), flush, reps=2)}
     log(f"  groupmin (tensor cores) at Q={PROTO_Q}: {times['groupmin']:.4f} ms (Q={BENCH_Q} "
         f"{times['groupmin_Q4096']:.4f}; plain {plain['groupmin']:.4f}), the bf16 product alone "
-        f"{times['product']:.4f} ms (Q={BENCH_Q} {times['product_Q4096']:.4f}), the row_dot sweep "
-        f"(groupmin_width 128) {times['width128']:.4f} ms; distance from the row_dot sweep's mins "
-        f"{errs['groupmin_vs_row_dot']:.3g}")
-    log(f"  prototype kernels at Q={PROTO_Q} (N={n:,} d={d} bf16): " + "; ".join(
-        f"{k} {v:.4f} ms" for k, v in times.items()) + "; plain " + "; ".join(
+        f"{times['product']:.4f} ms "
+        f"(Q={BENCH_Q} {times['product_Q4096']:.4f}), the row_dot sweep (groupmin_width 128 on "
+        f"CUDA cores) {cuda_core['width128']:.4f} ms; distance from the row_dot sweep's mins "
+        f"{cc_errs['groupmin_vs_row_dot']:.3g}")
+    log(f"  prototype kernels at Q={PROTO_Q} (N={n:,} d={d} bf16), tensor cores: " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()) + "; CUDA cores (replaced): " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in cuda_core.items()) + "; plain " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in plain.items()) + "; errors " + "; ".join(
-        f"{k} {v:.3g}"
-        for k, v in {**errs, **{f"{k} Q=4096": v for k, v in errs4.items()}}.items()))
+        f"{k} {v:.3g}" for k, v in {**errs, **{f"{k} Q=4096": v for k, v in errs4.items()},
+                                    **{f"{k} CUDA cores": v for k, v in cc_errs.items()},
+                                    **{f"{k} CUDA cores Q=4096": v
+                                       for k, v in cc_errs4.items()}}.items()))
     tie = check_ties(gen)
-    del store, nbf, nf32, x, want, qf, qf4
+    del store, nbf, nf32, x, qf, qf4, sub_major
     torch.cuda.empty_cache()
     sort = full_scan_sort_cost(gen, flush)
 
     def worst(prefix):
-        return max(worst_edge, *(v for e in (errs, errs4) for k, v in e.items()
-                                 if k.startswith(prefix) and not k.endswith("_ulps")))
+        return max(edge["mma"], *(v for e in (errs, errs4) for k, v in e.items()
+                                  if k.startswith(prefix) and not k.endswith("_ulps")))
+
+    def worst_cuda_core(prefix):
+        return max(edge["cuda_core"], *(v for e in (cc_errs, cc_errs4) for k, v in e.items()
+                                        if k.startswith(prefix) and not k.endswith("_ulps")))
 
     b2048 = {"groupmin_width": bnd(PROTO_Q, -(-n // 32) * PROTO_Q * 4),
              "groupmin_chunked": bnd(PROTO_Q, ng * PROTO_Q * 4),
              "groupmin_two_level": bnd(PROTO_Q, ng * PROTO_Q * 4 + nsub * PROTO_Q * 2)}
+    width_ms = {f"G={g}_ms": times[f"width{g}"] for g in GV.WIDTHS}
+    layout_ms = {f"{lay}_ms": times[f"two_level_{lay}"] for lay in GV.LAYOUTS}
     entries = [
         ("groupmin_width", times["width32"], plain["width"], b2048["groupmin_width"],
-         worst("width"),
-         "Q=2048 N=1,000,000 d=128 bf16 G=32 (f32-row norms)",
-         {f"G={g}_ms": times[f"width{g}"] for g in GV.WIDTHS}),
+         worst("width"), "Q=2048 N=1,000,000 d=128 bf16 G=32 (f32-row norms)",
+         {**width_ms, "cuda_core": {
+             "source": SOURCE_VARIANTS_CUDA_CORE, "max_abs_err": worst_cuda_core("width"),
+             **{f"G={g}_ms": cuda_core[f"width{g}"] for g in GV.WIDTHS}}}),
         ("groupmin_chunked", times["chunk512"], plain["chunked"], b2048["groupmin_chunked"],
          worst("chunk"), "Q=2048 N=1,000,000 d=128 bf16 chunk=512 (bf16-row norms)",
          {f"chunk={c}_ms": times[f"chunk{c}"] for c in GV.CHUNKS}),
@@ -2648,16 +2761,30 @@ def phase6(store) -> dict:
          b2048["groupmin_two_level"], worst("two_level_v1"),
          "Q=2048 N=1,000,000 d=128 bf16 v1 (f32-row norms)",
          {"Q=4096_ms": times["two_level_v1_Q4096"],
-          "Q=4096_bound_ms": bnd(BENCH_Q, ng * BENCH_Q * 4 + nsub * BENCH_Q * 2)[0]}),
+          "Q=4096_bound_ms": bnd(BENCH_Q, ng * BENCH_Q * 4 + nsub * BENCH_Q * 2)[0],
+          "cuda_core": {"source": SOURCE_VARIANTS_CUDA_CORE,
+                        "max_abs_err": worst_cuda_core("two_level_v1"),
+                        "v1_ms": cuda_core["two_level_v1"],
+                        "Q=4096_ms": cuda_core["two_level_v1_Q4096"]}}),
         ("groupmin_two_level_layouts", times["two_level_v3"], plain["two_level"],
          b2048["groupmin_two_level"], worst("two_level"),
          "Q=2048 N=1,000,000 d=128 bf16 v3 (f32-row norms)",
-         {f"{lay}_ms": times[f"two_level_{lay}"] for lay in GV.LAYOUTS}),
+         {**layout_ms, "v3_transpose_ms": times["v3_transpose"], "cuda_core": {
+             "source": SOURCE_VARIANTS_CUDA_CORE, "max_abs_err": worst_cuda_core("two_level"),
+             **{f"{lay}_ms": cuda_core[f"two_level_{lay}"] for lay in GV.LAYOUTS}}}),
     ]
+    # the kernels line's names of the tensor-core prototypes: (wrapper, registers' key prefix)
+    on_sweep = {"groupmin_width": ("groupmin_width", "width"),
+                "groupmin_two_level": ("groupmin_two_level", "two_level"),
+                "groupmin_two_level_layouts": ("groupmin_two_level", "two_level")}
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
         "launches": launches[name], "max_abs_err": err, "ms": tk, "plain_ms": p, "bound_ms": b[0],
         "bound_by": b[1], "library_ms": None, "shape": shape,
+        **({"launches_by_route": by_route[on_sweep[name][0]],
+            "registers_bench_point": {k: v for k, v in regs.items()
+                                      if k.startswith(on_sweep[name][1])}}
+           if name in on_sweep else {}),
         "product_alone_ms": times["product"], "groupmin_ms": times["groupmin"], "variants": extra,
     } for name, tk, p, b, err, shape, extra in entries]
     b2048, b4096 = bnd(PROTO_Q, ng * PROTO_Q * 4), bnd(BENCH_Q, ng * BENCH_Q * 4)
@@ -2669,13 +2796,14 @@ def phase6(store) -> dict:
             "bound_by": b2048[1], "shape": f"Q={PROTO_Q} N={n:,} d={d} bf16 (bench.py's point)",
             "Q4096_ms": times["groupmin_Q4096"], "Q4096_bound_ms": b4096[0],
             "product_alone_ms": times["product"], "product_alone_Q4096_ms": times["product_Q4096"],
-            "row_dot_sweep_ms": times["width128"]},
+            "row_dot_sweep_ms": cuda_core["width128"]},
         "rescore": {"launches": launches["rescore"],
                     "max_abs_err": max(v for k, v in mma_errs.items() if k.startswith("rescore")),
                     "Q4096_t12_ms": split["rescore_ms"]},
     }
-    return {"bench": out, "kernels": kernels, "times": times, "ties": tie, "sort": sort,
-            "bf16": bf16, "twin_split": split}
+    return {"bench": out, "kernels": kernels, "times": times, "cuda_core_times": cuda_core,
+            "search_ms": search_ms, "ties": tie, "sort": sort, "bf16": bf16,
+            "twin_split": split}
 
 
 # ---------------------------------------------------------------------------

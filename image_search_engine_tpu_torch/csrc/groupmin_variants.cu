@@ -3,40 +3,49 @@
 // groupmin_variants.py holds the wrappers and the plain PyTorch versions).
 // Each scores norms[r] - 2 q.x[r] for a bf16 query against a bf16 store (f32
 // sums, f32 norms) and keeps per-group minima, as the production groupmin
-// kernel (topk_twophase.cu) does, in the layouts the TPU prototypes tried:
+// kernel does, in the layouts the TPU prototypes tried:
 //
-//   groupmin_width_kernel      the mins of G-row groups, G in {128, 64, 32},
-//                              group-major (ceil(N/G), Q). Replaces
-//                              benchmarks/rescore_variants2.py:61
-//                              groupmin_kernel (launched :86).
-//   groupmin_two_level_kernel  one sweep, two outputs: the f32 mins of the
-//                              128-row groups, group-major (ngroups, Q), and
-//                              the mins of the 32-row subgroups rounded to
-//                              bf16, in one of three layouts (v1 query-major
-//                              from registers, v2 query-major staged in shared
-//                              memory, v3 subgroup-major). Replaces
-//                              benchmarks/subgroup_proto.py:39
-//                              _kernel_two_level (launched :77) and
-//                              benchmarks/subgroup_variants.py:36 _kernel
-//                              (launched :85).
-//   groupmin_chunked_kernel    the 128-row group mins, group-major, with each
-//                              4096-row tile's product done C rows at a time
-//                              (C in {512, 1024}): a (query tile x chunk)
-//                              score tile in shared memory from register-
-//                              blocked f32 FMAs, then a min pass over its
-//                              groups, then the next chunk. Replaces
-//                              benchmarks/sweep_chunked.py:53 chunked_kernel
-//                              (launched :74).
+//   groupmin_width        the mins of G-row groups, G in {128, 64, 32},
+//                         group-major (ceil(N/G), Q). Replaces
+//                         benchmarks/rescore_variants2.py:61 groupmin_kernel
+//                         (launched :86). groupmin_width_mma.cu.
+//   groupmin_two_level    one sweep, two outputs: the f32 mins of the 128-row
+//                         groups, group-major (ngroups, Q), and the mins of
+//                         the 32-row subgroups rounded to bf16, in one of
+//                         three layouts (v1 query-major as each group ends,
+//                         v2 query-major staged in shared memory for runs of
+//                         8 groups, v3 subgroup-major). Replaces
+//                         benchmarks/subgroup_proto.py:39 _kernel_two_level
+//                         (launched :77) and benchmarks/subgroup_variants.py:36
+//                         _kernel (launched :85). groupmin_two_level_mma.cu.
+//   groupmin_chunked      the 128-row group mins, group-major, with each
+//                         4096-row tile's product done C rows at a time (C in
+//                         {512, 1024}): a (query tile x chunk) score tile in
+//                         shared memory from register-blocked f32 FMAs, then a
+//                         min pass over its groups, then the next chunk.
+//                         Replaces benchmarks/sweep_chunked.py:53
+//                         chunked_kernel (launched :74). This file.
 //
 // What bounds them on the H100: at the prototypes' point (N = 1M, d = 128, Q =
 // 2048) the 2*Q*N*d = 5.2e11 operations (0.53 ms at the bf16 tensor-core
 // peak, 7.8 ms at the f32 CUDA-core peak); the store (256 MB) and the mins
-// written (32-256 MB) are a fraction of that. None uses tensor cores: the
-// width and two-level kernels keep the production kernel's design (one warp
-// per row, row_dot from scoring.cuh, up to 8 queries staged per block), so a
-// 128-row group min of either is bit for bit the production kernel's; the
-// chunked kernel is a register-blocked CUDA-core product whose sums run in
-// another order (the same function within a few ulps).
+// written (32-256 MB) are a fraction of that. The width and two-level
+// kernels are the production bf16 sweep itself (groupmin_mma.cuh: mma.sync
+// m16n8k16 over a query tile in shared memory, the store streamed by
+// double-buffered cp.async on ops/topk.py mma_plan's tiles) with another
+// output policy (WidthMins<G>, TwoLevelMins<L>), so they cost what it costs
+// plus their writes, and a 128-row min of either is bit for bit production
+// groupmin's. Each has its own file so that nvcc builds their 72 kernels
+// each beside the other sources, not after them.
+//
+// This file keeps the CUDA-core kernels they replaced, as chip_smoke.py's
+// comparison only (ops/groupmin_variants.py routes to them when ROUTE says
+// so): groupmin_width_kernel and groupmin_two_level_kernel keep the design
+// production ran for bf16 before its tensor cores (one warp per row, row_dot
+// from scoring.cuh, up to 8 queries staged per block), so their 128-row mins
+// equal each other's bit for bit and the tensor cores' within f32 rounding.
+// The chunked kernel is a register-blocked CUDA-core product whose sums run
+// in another order (the same function within a few ulps).
 //
 // Rows at or past n score +inf (never padded or copied); groups or subgroups
 // with no row below n are not written.
@@ -48,20 +57,19 @@
 #include <cmath>
 #include <cstdint>
 
+#include "groupmin_mma.cuh"
 #include "scoring.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int GROUP = 128;  // group width of the two-level and chunked kernels
-constexpr int SUB = 32;     // subgroup width of the two-level kernel
-constexpr int SUBS = GROUP / SUB;
+// GROUP (128), SUB (32) and SUBS: groupmin_mma.cuh's, shared by every kernel here
 constexpr int TWO_LEVEL_GROUPS = 8;  // groups per two-level block: 32 subgroups
 constexpr int TILE_N = 4096;         // rows per chunked block (the TPU tile)
 constexpr int KS = 8;                // depth of one staged slice (one 16-byte load)
 
-// ---- row 10: G-row group mins ----
+// ---- row 10: G-row group mins on CUDA cores (chip_smoke.py's comparison) ----
 //
 // Block b handles query tile b % nqt (QT queries) of group b / nqt, so the
 // nqt blocks that read one group run back to back and share it in L2.
@@ -106,7 +114,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ---- rows 12 and 13: 128-row group mins and 32-row subgroup mins ----
+// ---- rows 12 and 13: group and subgroup mins on CUDA cores (chip_smoke.py's comparison) ----
 //
 // Block b handles query tile b % nqt of the run of TWO_LEVEL_GROUPS groups b
 // / nqt. In each group warp w scores rows w + WARPS*j, j < 16, so row j's
@@ -214,10 +222,10 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int NT_Q = THREADS / NT_R;
   constexpr int TQ = NT_Q * MQ;
   static_assert(NT_R % 32 == 0 && TQ * C == THREADS * MQ * MR, "tile shape");
-  extern __shared__ float smem[];
-  float* qs = smem;               // [KS][TQ]
-  float* xs = qs + KS * TQ;       // [KS][C]
-  float* sc = xs + KS * C;        // [TQ][C]
+  extern __shared__ float chunk_smem[];  // not smem: groupmin_mma.cuh declares that as bytes
+  float* qs = chunk_smem;                // [KS][TQ]
+  float* xs = qs + KS * TQ;              // [KS][C]
+  float* sc = xs + KS * C;               // [TQ][C]
   const int qt = blockIdx.x % nqt;
   const long long tile0 = (blockIdx.x / nqt) * (long long)TILE_N;
   const int q0 = qt * TQ;
@@ -395,8 +403,10 @@ cudaError_t launch_chunked(const void* q, const void* norms, const void* x, void
 extern "C" {
 
 // Every function takes a bf16 query (Q, d), f32 norms (N,) and a bf16 store
-// (N, d), and returns the cudaError_t of its launch (0 = success). qt: queries
-// per block (1, 2, 4 or 8); vec: 8 when rows are 16-byte aligned, else 1.
+// (N, d), and returns the cudaError_t of its launch (0 = success).
+
+// The CUDA-core kernels (chip_smoke.py's comparison). qt: queries per block
+// (1, 2, 4 or 8); vec: 8 when rows are 16-byte aligned, else 1.
 
 int ise_groupmin_width(const void* q, const void* norms, const void* x, void* out, int nq,
                        long long n, int d, int group, int qt, int vec, void* stream) {

@@ -27,6 +27,7 @@ _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
            _CSRC / "ivf_probed_scan.cu", _CSRC / "kmeans_assign.cu",
            _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu", _CSRC / "groupmin_variants.cu",
+           _CSRC / "groupmin_width_mma.cu", _CSRC / "groupmin_two_level_mma.cu",
            _CSRC / "rescore_variants.cu", _CSRC / "groupmin_tf32.cu",
            _CSRC / "select_topt.cu")
 HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh", _CSRC / "mma.cuh",
@@ -143,8 +144,14 @@ def library() -> ctypes.CDLL:
             lib.ise_topk_merged.restype = i
             lib.ise_groupmin_width.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]
             lib.ise_groupmin_width.restype = i
+            lib.ise_groupmin_width_mma.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i,
+                                                   p]
+            lib.ise_groupmin_width_mma.restype = i
             lib.ise_groupmin_two_level.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, p]
             lib.ise_groupmin_two_level.restype = i
+            lib.ise_groupmin_two_level_mma.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, i, i, i,
+                                                       i, i, p]
+            lib.ise_groupmin_two_level_mma.restype = i
             lib.ise_groupmin_chunked.argtypes = [p, p, p, p, i, ll, i, i, p]
             lib.ise_groupmin_chunked.restype = i
             lib.ise_rescore_gather.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]

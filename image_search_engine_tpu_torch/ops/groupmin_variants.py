@@ -1,11 +1,9 @@
-"""The phase-1 group-min sweep's prototype variants (``csrc/groupmin_variants.cu``).
+"""The phase-1 group-min sweep's prototype variants (``csrc/groupmin_width_mma.cu``,
+``csrc/groupmin_two_level_mma.cu``, ``csrc/groupmin_variants.cu``).
 
 Ports of the TPU prototypes under the JAX repo's ``benchmarks/``, each the
 production sweep (:func:`~image_search_engine_tpu_torch.ops.topk.groupmin`:
-the min of norms - 2 q.x over groups of store rows) with one thing changed.
-They keep the sweep's CUDA-core design, a warp per row scored by
-``row_dot``, which production ``groupmin`` ran for bf16 stores before that
-moved to tensor cores; ``groupmin_width(..., 128)`` is that sweep:
+the min of norms - 2 q.x over groups of store rows) with one thing changed:
 
   * :func:`groupmin_width`: the group width G in {128, 64, 32}
     (``rescore_variants2.py``);
@@ -15,12 +13,22 @@ moved to tensor cores; ``groupmin_width(..., 128)`` is that sweep:
   * :func:`groupmin_chunked`: each 4096-row tile's product done 512 or 1024
     rows at a time, each chunk's mins before the next (``sweep_chunked.py``).
 
+The width and two-level kernels are production's bf16 tensor-core sweep
+(``csrc/groupmin_mma.cuh``, on :func:`~image_search_engine_tpu_torch.ops.
+topk.mma_plan`'s tiles) with another output policy in its epilogue, so
+what each changes is all that separates its time from ``groupmin``'s, and
+their 128-row mins are ``groupmin``'s bit for bit. The CUDA-core kernels
+they replaced (a warp per row scored by ``row_dot``, the design production
+``groupmin`` ran for bf16 before its tensor cores) stay as the ``cuda_core``
+route, which only ``chip_smoke.py`` takes, through :data:`ROUTE`.
+
 As in the prototypes, the query and the store are bf16 (f32 sums) and the
 mins are group-major, (groups, Q). Rows of a ragged last group past N count
 as +inf; nothing is padded. Each wrapper launches its CUDA kernel for CUDA
 tensors (or raises) and runs its plain PyTorch version (``*_ref``: one f32
 product, then mins over slices) for CPU tensors, and counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches`` (the width and two-level ones also per route, in
+``mma_launches`` and ``cuda_core_launches``).
 """
 
 from __future__ import annotations
@@ -31,12 +39,23 @@ import torch
 import torch.nn.functional as F
 
 from image_search_engine_tpu_torch.ops import _kernels
-from image_search_engine_tpu_torch.ops.topk import GROUP, _on_cuda, _query_tile, _stream
+from image_search_engine_tpu_torch.ops.topk import (GROUP, MmaPlan, _on_cuda, _query_tile,
+                                                    _stream, _vec_mma, mma_plan)
 
 SUB = 32  # subgroup width of the two-level sweep
 WIDTHS = (128, 64, 32)
 LAYOUTS = ("v1", "v2", "v3")
 CHUNKS = (512, 1024)
+#: the width and two-level kernels' routes: "mma", the tensor-core sweep
+#: (every caller), and "cuda_core", the row_dot kernels it replaced
+#: (``chip_smoke.py``'s comparison only)
+ROUTES = ("mma", "cuda_core")
+#: the route the wrappers launch on CUDA tensors; ``chip_smoke.py`` alone
+#: sets it to "cuda_core", for the length of a comparison
+ROUTE = "mma"
+#: bytes per query that v2 stages in shared memory: a run of 8 groups'
+#: bf16 subgroup mins (TwoLevelMins::RUN in csrc/groupmin_mma.cuh)
+V2_STAGED = 8 * (GROUP // SUB) * 2
 #: store rows per product in the plain versions (a multiple of every width;
 #: bounds the (Q, rows) f32 score block)
 _REF_ROWS = 1 << 16
@@ -56,10 +75,28 @@ def _check(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> None:
 
 def _aligned(*ts: torch.Tensor) -> bool:
     """Rows of 16-byte multiples at 16-byte aligned addresses (8 bf16 a
-    load). The width and two-level kernels load only store rows this way
-    (queries are staged one element at a time), so they pick the same row
-    routine as each other for the same store."""
+    load). The CUDA-core width and two-level kernels load only store rows
+    this way (queries are staged one element at a time), so they pick the
+    same row routine as each other for the same store."""
     return all(t.shape[1] % 8 == 0 and t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _route() -> str:
+    if ROUTE not in ROUTES:
+        raise ValueError(f"ROUTE={ROUTE!r} not in {ROUTES}")
+    return ROUTE
+
+
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
+
+
+def two_level_plan(nq: int, n: int, d: int, layout: str) -> MmaPlan:
+    """The tile plan :func:`groupmin_two_level` launches with: the sweep's
+    (:func:`~image_search_engine_tpu_torch.ops.topk.mma_plan`), with v2's
+    staging counted in its shared memory."""
+    return mma_plan(nq, n, d, staged=V2_STAGED if layout == "v2" else 0)
 
 
 def _group_mins(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
@@ -92,12 +129,13 @@ def groupmin_width(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
 
     Replaces ``groupmin_kernel`` (benchmarks/rescore_variants2.py:61,
     launched :86). What bounds it on the card: at large Q the 2*Q*N*d
-    products; its design is the f32 production kernel's (a warp per row, up
-    to 8 queries staged per block, blocks of one group back to back), with
-    ``group`` rows per block. At 128 it is the row_dot sweep that the
-    two-level kernels equal bit for bit, and the yardstick of the bf16
-    tensor-core ``groupmin``, which agrees with it within the f32
-    summation-order tolerance.
+    products. The kernel is ``groupmin``'s bf16 tensor-core sweep on the
+    same tile plan, whose epilogue takes the min over the warps that hold a
+    ``group``-row group (a warp holds 16 or 32 contiguous rows) and writes
+    it group-major; at 128 the mins are ``groupmin(...).T`` bit for bit.
+    On the ``cuda_core`` route (:data:`ROUTE`), the row_dot kernel it
+    replaced: a warp per row, up to 8 queries staged per block, blocks of
+    one group back to back.
     """
     _check(q, x, norms)
     if group not in WIDTHS:
@@ -109,16 +147,26 @@ def groupmin_width(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
     out = torch.empty((-(-n // group), nq), dtype=torch.float32, device=x.device)
     if nq == 0 or n == 0:
         return out
+    route = _route()
     with torch.cuda.device(x.device):
-        err = _kernels.library().ise_groupmin_width(
-            q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, d, group,
-            _query_tile(nq, d * 4), 8 if _aligned(x) else 1, _stream(x))
+        lib = _kernels.library()
+        if route == "mma":
+            p = mma_plan(nq, n, d)
+            err = lib.ise_groupmin_width_mma(
+                q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, d, group,
+                p.bq, p.dp, p.kc, p.gps, int(p.resident), p.smem, _vec_mma(q, x), _stream(x))
+        else:
+            err = lib.ise_groupmin_width(
+                q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, d, group,
+                _query_tile(nq, d * 4), 8 if _aligned(x) else 1, _stream(x))
     _kernels.check(err, "groupmin_width")
-    groupmin_width.launches += 1
+    _count(groupmin_width, route)
     return out
 
 
 groupmin_width.launches = 0
+groupmin_width.mma_launches = 0  # of those, the tensor-core sweep's
+groupmin_width.cuda_core_launches = 0  # and the row_dot kernel's (chip_smoke.py's comparison)
 
 
 def groupmin_width_ref(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
@@ -141,16 +189,20 @@ def groupmin_two_level(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
     mins in f32.
 
     ``layout`` is how the subgroup mins leave the kernel, the TPU
-    prototypes' three: "v1" query-major, written from registers; "v2"
-    query-major, staged in shared memory and written 32 subgroups a query
-    at a time; "v3" subgroup-major (nsub, Q), then transposed here.
+    prototypes' three: "v1" query-major, written as each group ends; "v2"
+    query-major, staged in shared memory for a run of 8 groups and written
+    as each query's run of 32; "v3" subgroup-major (nsub, Q), then
+    transposed here.
 
     Replaces ``_kernel_two_level`` (benchmarks/subgroup_proto.py:39,
     launched :77; "v1") and ``_kernel`` (benchmarks/subgroup_variants.py:36,
     launched :85; all three). What bounds it on the card: the 2*Q*N*d
-    products at large Q. The design is the f32 production kernel's, with
-    each warp keeping four subgroup mins per query in registers; the group mins
-    equal ``groupmin_width(..., 128)``'s bit for bit.
+    products at large Q. The kernel is ``groupmin``'s bf16 tensor-core
+    sweep (:func:`two_level_plan`), whose epilogue writes the group mins
+    and each subgroup's, the min over the one or two warps that hold it;
+    the group mins are ``groupmin(...).T`` bit for bit. On the
+    ``cuda_core`` route (:data:`ROUTE`), the row_dot kernel it replaced,
+    each warp keeping four subgroup mins per query in registers.
     """
     _check(q, x, norms)
     if layout not in LAYOUTS:
@@ -164,17 +216,28 @@ def groupmin_two_level(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
     sshape = (nsub, nq) if layout == "v3" else (nq, nsub)
     smin = torch.empty(sshape, dtype=torch.bfloat16, device=x.device)
     if nq and n:
+        route = _route()
         with torch.cuda.device(x.device):
-            err = _kernels.library().ise_groupmin_two_level(
-                q.data_ptr(), norms.data_ptr(), x.data_ptr(), gmin.data_ptr(), smin.data_ptr(),
-                nq, n, d, LAYOUTS.index(layout), _query_tile(nq, d * 4),
-                8 if _aligned(x) else 1, _stream(x))
+            lib = _kernels.library()
+            if route == "mma":
+                p = two_level_plan(nq, n, d, layout)
+                err = lib.ise_groupmin_two_level_mma(
+                    q.data_ptr(), norms.data_ptr(), x.data_ptr(), gmin.data_ptr(),
+                    smin.data_ptr(), nq, n, d, LAYOUTS.index(layout), p.bq, p.dp, p.kc, p.gps,
+                    int(p.resident), p.smem, _vec_mma(q, x), _stream(x))
+            else:
+                err = lib.ise_groupmin_two_level(
+                    q.data_ptr(), norms.data_ptr(), x.data_ptr(), gmin.data_ptr(),
+                    smin.data_ptr(), nq, n, d, LAYOUTS.index(layout), _query_tile(nq, d * 4),
+                    8 if _aligned(x) else 1, _stream(x))
         _kernels.check(err, "groupmin_two_level")
-        groupmin_two_level.launches += 1
+        _count(groupmin_two_level, route)
     return gmin, (smin.T.contiguous() if layout == "v3" else smin)
 
 
 groupmin_two_level.launches = 0
+groupmin_two_level.mma_launches = 0  # of those, the tensor-core sweep's
+groupmin_two_level.cuda_core_launches = 0  # and the row_dot kernel's (chip_smoke.py's comparison)
 
 
 def groupmin_two_level_ref(q: torch.Tensor, x: torch.Tensor,
@@ -243,3 +306,6 @@ KERNELS = (groupmin_width, groupmin_two_level, groupmin_chunked)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in (groupmin_width, groupmin_two_level):
+        for route in ROUTES:
+            setattr(fn, f"{route}_launches", 0)

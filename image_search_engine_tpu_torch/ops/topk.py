@@ -230,7 +230,9 @@ class MmaPlan(SweepGrid):
     runs a block per (query, group) pair, whose warps stream ``rescore_kc``
     columns of their 32 rows at a time. Both double-buffer their copies.
     ``dp`` is d zero-padded to whole 32-byte k-steps (16 bf16 values, 32
-    int8 codes)."""
+    int8 codes). ``staged``: bytes per query of the tile that the sweep's
+    output policy keeps in shared memory for the whole block (0 but for the
+    two-level prototype's v2 layout), counted in ``smem``."""
 
     d: int
     dp: int
@@ -238,11 +240,12 @@ class MmaPlan(SweepGrid):
     resident: bool
     rescore_kc: int
     itemsize: int = 2
+    staged: int = 0
 
     @property
     def smem(self) -> int:
-        return _groupmin_mma_smem(self.bq, self.nq, self.dp, self.kc, self.resident,
-                                  self.itemsize)
+        return (_groupmin_mma_smem(self.bq, self.nq, self.dp, self.kc, self.resident,
+                                   self.itemsize) + self.bq * self.staged)
 
     @property
     def rescore_smem(self) -> int:
@@ -255,7 +258,7 @@ class MmaPlan(SweepGrid):
         return self.nq * t
 
 
-def mma_plan(nq: int, n: int, d: int, itemsize: int = 2) -> MmaPlan:
+def mma_plan(nq: int, n: int, d: int, itemsize: int = 2, staged: int = 0) -> MmaPlan:
     """The tile plan of the tensor-core sweep for Q = nq queries over an (n,
     d) store of ``itemsize``-byte elements (2: bf16, also the plan of the
     bf16 rescore; 1: int8), the one the wrappers launch with. bq is the
@@ -264,8 +267,9 @@ def mma_plan(nq: int, n: int, d: int, itemsize: int = 2) -> MmaPlan:
     else it streams with the store if they then do (one block an SM only
     when neither does), with the widest k-chunk that allows it. The slice
     has as many groups as keep the grid near ``_MMA_TARGET_BLOCKS`` blocks,
-    between 4 (and bq / 32) and 16. Raises on shapes the kernels cannot
-    take."""
+    between 4 (and bq / 32) and 16. ``staged`` bytes per query that an
+    output policy keeps for the block count with the rest before the k-chunk
+    is chosen. Raises on shapes the kernels cannot take."""
     if nq < 1 or n < 1 or d < 1 or itemsize not in (1, 2):
         raise ValueError(f"no tile plan for Q={nq}, N={n}, d={d}, itemsize={itemsize}")
     step = _MMA_K_BYTES // itemsize
@@ -275,13 +279,14 @@ def mma_plan(nq: int, n: int, d: int, itemsize: int = 2) -> MmaPlan:
     nqt, ng = -(-nq // bq), num_groups(n)
     gps = min(ng, max(_MMA_MIN_SLICE, bq // 32,
                       min(_MMA_MAX_SLICE, ng * nqt // _MMA_TARGET_BLOCKS)))
+    stage = bq * staged
     # a streamed tile's narrowest chunk fits at any d, so there is always one
     resident, kc = next((r, k) for limit in (_MMA_SMEM_TWO_BLOCKS, _SMEM_BYTES)
                         for r in (True, False)
                         for k in kcs
-                        if _groupmin_mma_smem(bq, nq, dp, k, r, itemsize) <= limit)
+                        if _groupmin_mma_smem(bq, nq, dp, k, r, itemsize) + stage <= limit)
     plan = MmaPlan(nq=nq, n=n, bq=bq, gps=gps, d=d, dp=dp, kc=kc, resident=resident,
-                   rescore_kc=min(dp, _RESCORE_MMA_KC), itemsize=itemsize)
+                   rescore_kc=min(dp, _RESCORE_MMA_KC), itemsize=itemsize, staged=staged)
     # the int8 phase 2 runs on CUDA cores (rescore_q8) and takes no plan
     if itemsize == 2 and plan.rescore_smem > _SMEM_BYTES:
         raise ValueError(f"d={d} exceeds the bf16 rescore's shared-memory query row")
