@@ -67,13 +67,15 @@ Phases (each raises on failure; the script then exits non-zero):
   5. the last two package kernels through their entry points:
      ``topk_running`` (running top-k accumulators) at Q = 1 and 8 over 1M x
      2048 f32 and Q = 1 over bf16, ids equal to its plain version's, and
-     ``topk_merged`` (the two-phase search in one cooperative launch) at Q =
-     1 and 64 over 1M x 2048 f32 and bf16 and at Q = 2048 and 4096 over 1M x
-     128 bf16, equal to ``topk_twophase(t_margin=2)`` (bit for bit where
-     both score f32 on CUDA cores; where the two-phase search runs on
-     tensor cores, bf16 and f32 beyond a few queries, within tolerance, ids
-     equal but at near-ties); edge sweeps for both; timings beside the
-     two-phase search;
+     ``topk_merged`` (the two-phase search in one persistent launch, on the
+     two-phase search's route) at Q = 1 and 64 over 1M x 2048 f32 and bf16
+     and at Q = 2048 and 4096 over 1M x 128 bf16, equal to
+     ``topk_twophase(t_margin=2)`` bit for bit and its kernel's outputs to
+     the three kernels' (mins, candidates, thresholds, scores), one launch a
+     call, the tensor-core ones counted; edge sweeps for both (the merged
+     search's with more than one unit: Q = 600 and 1,100); timings beside
+     the three kernels' events and the two-phase search, and on one unit
+     where the plan has more;
   6. bench.py's operating point (1M x 128 bf16, k = 10): the bench twin
      (``image_search_engine_tpu_torch.bench``) at Q = 4096 over 100
      dispatches, each ported benchmark script's searches once with their
@@ -2042,17 +2044,44 @@ def check_running(name, q, x, k, metric, *, x_norms=None, got=None):
     return err, assert_ids_equal(name, got[1], ri, rd, tol)
 
 
+def merged_three(qf, x, norms, t):
+    """topk_twophase's three kernels on the inputs merged_candidates takes:
+    (scores, cand, threshold, mins), as merged_candidates returns them."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    mins = T.groupmin(qf, x, norms)
+    nq, ng = mins.shape
+    if t < ng:
+        vals, cand = T.select_topt(mins, t)
+        threshold = vals[:, t - 1].contiguous()
+    else:
+        cand = torch.arange(ng, dtype=torch.int32, device=x.device).expand(nq, ng).contiguous()
+        threshold = torch.full((nq,), float("inf"), device=x.device)
+    return T.rescore(qf, x, norms, cand), cand, threshold, mins
+
+
+def merged_inputs(q, x, metric, x_norms=None):
+    """(query in the store dtype, store, norms, the store's own squared
+    norms) as topk_merged hands them to merged_candidates."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    qs, xs, sn = search_inputs(q, x, metric)
+    smetric = "l2" if metric == "l2" else "ip"
+    qf = qs.to(xs.dtype).contiguous() * (1.0 if smetric == "l2" else 0.5)
+    return qf, xs, T._search_norms(xs, smetric, x_norms), sn
+
+
 def check_merged(name, q, x, k, metric, *, x_norms=None, got=None, plain=True):
     """topk_merged (``got``, or run now) against topk_twophase at the same
-    margin: where both score on CUDA cores (f32, up to F32_CUDA_CORE_MAX_Q
-    queries) equal bit for bit (distances, ids, certificate); where the
-    two-phase search scores on tensor cores (bf16; f32 beyond that) while
-    topk_merged keeps row_dot, distances within 2 score_tol, ids equal but
-    at near-ties, and both certificates all True.
-    Every certificate True; then its kernel wrapper: each candidate group's
-    stage-1 min equal to the min of its stage-3 rows, and (``plain``) mins
-    and scores against the plain version. Returns the largest kernel error
-    (0.0 unchecked)."""
+    margin, bit for bit on every route (distances, ids, certificates), every
+    certificate True; then its kernel's four outputs against the three
+    kernels' on the same inputs, bit for bit (scores = rescore's, candidates
+    = select_topt's, thresholds, mins = groupmin's), with the plan's units
+    and, where the plan has more than one, with one; each candidate group's
+    min equal to its rows' min; and (``plain``) mins and scores against the
+    plain versions within score_tol. Returns that error (0.0 unchecked)."""
     import torch
 
     from image_search_engine_tpu_torch.ops import topk as T
@@ -2062,28 +2091,22 @@ def check_merged(name, q, x, k, metric, *, x_norms=None, got=None, plain=True):
         got = TM.topk_merged(q, x, k, metric, x_norms=x_norms, with_certificate=True)
     want = T.topk_twophase(q, x, k, metric, x_norms=x_norms, t_margin=MERGED_MARGIN,
                            with_certificate=True)
-    qs, xs, sn = search_inputs(q, x, metric)
-    smetric = "l2" if metric == "l2" else "ip"
-    qf = qs.to(xs.dtype).contiguous() * (1.0 if smetric == "l2" else 0.5)
-    if x.dtype == torch.bfloat16 or f32_route(x, q.shape[0]) == "mma":
-        tol = 2 * score_tol(qf, sn)
-        derr = max_abs_err(got[0], want[0])
-        if derr > tol:
-            raise AssertionError(f"{name}: topk_merged distances differ from topk_twophase's by "
-                                 f"{derr} > {tol}")
-        assert_ids_equal(f"{name} topk_merged vs topk_twophase", got[1], want[1], want[0], tol)
-        if not bool(want[2].all()):
-            raise AssertionError(f"{name}: {int((~want[2]).sum())} topk_twophase certificates "
-                                 "failed")
-    else:
-        for what, a, b in zip(("distances", "ids", "certificates"), got, want):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{name}: topk_merged {what} differ from topk_twophase's")
+    for what, a, b in zip(("distances", "ids", "certificates"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: topk_merged {what} differ from topk_twophase's")
     if not bool(got[2].all()):
         raise AssertionError(f"{name}: {int((~got[2]).sum())} certificates failed")
-    norms = T._search_norms(xs, smetric, x_norms)
+    qf, xs, norms, sn = merged_inputs(q, x, metric, x_norms)
     t = min(k + MERGED_MARGIN, T.num_groups(xs.shape[0]))
-    scores, cand, _, mins = TM.merged_candidates(qf, xs, norms, t)
+    ref = merged_three(qf, xs, norms, t)
+    plan = merged_plan_of(qf, xs, t)
+    for units in (None, 1) if plan.units > 1 else (None,):
+        out = TM.merged_candidates(qf, xs, norms, t, units=units)
+        for what, a, b in zip(("scores", "candidates", "thresholds", "mins"), out, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: merged {what} (units={units}) differ from the "
+                                     "three kernels'")
+    scores, cand, _, mins = ref
     if not torch.equal(scores.view(qf.shape[0], t, -1).amin(2), mins.gather(1, cand.long())):
         raise AssertionError(f"{name}: stage-1 group mins differ from the stage-3 rows' mins")
     if not plain:
@@ -2094,6 +2117,60 @@ def check_merged(name, q, x, k, metric, *, x_norms=None, got=None, plain=True):
     if err > tol:
         raise AssertionError(f"{name}: merged kernel error {err} > tolerance {tol}")
     return err
+
+
+def merged_plan_of(qf, x, t, units=None):
+    """merged_plan for merged_candidates(qf, x, norms, t) on this card."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk_merged as TM
+
+    return TM.merged_plan(qf.shape[0], x.shape[0], x.shape[1], x.dtype,
+                          torch.cuda.get_device_properties(0).multi_processor_count, t,
+                          units=units, aligned=x.data_ptr() % 16 == 0)
+
+
+def three_kernels_ms(qf, x, norms, t, flush, reps: int) -> dict:
+    """The three kernels of merged_three back to back, CUDA events before
+    each and after the last, the L2 cache flushed before each run: medians
+    of each kernel's time and of the sum (first event to last)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    merged_three(qf, x, norms, t)
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(reps)]
+    for ev in evs:
+        flush.zero_()
+        ev[0].record()
+        mins = T.groupmin(qf, x, norms)
+        ev[1].record()
+        _, cand = T.select_topt(mins, t)
+        ev[2].record()
+        T.rescore(qf, x, norms, cand)
+        ev[3].record()
+    torch.cuda.synchronize()
+    med = lambda a, b: float(np.median([ev[a].elapsed_time(ev[b]) for ev in evs]))  # noqa: E731
+    return {"groupmin": med(0, 1), "select_topt": med(1, 2), "rescore": med(2, 3),
+            "sum": med(0, 3)}
+
+
+def merged_registers() -> dict:
+    """Registers and spill stores (bytes) of each merged-kernel
+    instantiation, from the build's ptxas log, by its mangled name's
+    template part."""
+    from image_search_engine_tpu_torch.ops import _kernels
+
+    text = _kernels.library_path().with_suffix(".log").read_text()
+    out = {}
+    for fn, body in re.findall(r"Compiling entry function '(\S+)' for \S+\n(.*?Used \d+ "
+                               r"registers[^\n]*)", text, re.S):
+        m = re.search(r"(merged_(?:cuda|mma|tf32)_kernel)I(\w+?)EEv", fn)
+        if m:
+            out[f"{m.group(1)}<{m.group(2)}>"] = {
+                "registers": int(re.search(r"Used (\d+) registers", body).group(1)),
+                "spill_stores": int(re.search(r"(\d+) bytes spill stores", body).group(1))}
+    return out
 
 
 def edge_sweep_phase5(gen) -> dict:
@@ -2136,20 +2213,26 @@ def edge_sweep_phase5(gen) -> dict:
     e, c = check_running("running edge tie-heavy", q, x, 128, "l2")
     worst, near, cases = max(worst, e), near + c, cases + 2
 
-    mworst, mcases = 0.0, 0
+    mworst, mcases, routes = 0.0, 0, {}
     for dtype in (torch.float32, torch.bfloat16):
         for metric in ("l2", "ip"):
-            for n, d, nq, k in ((300, 16, 4, 10), (5003, 130, 9, 20), (20_000, 64, 17, 128)):
+            # every group a candidate; ragged groups; Q > 8; then more than
+            # one unit (Q = 600 and 1,100; d = 130: f32 on CUDA cores)
+            for n, d, nq, k in ((300, 16, 4, 10), (5003, 130, 9, 20), (20_000, 64, 17, 128),
+                                (20_003, 64, 600, 20), (20_003, 130, 1100, 20)):
                 x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
                 q = torch.randn(nq, d, device="cuda", generator=gen)
-                mworst = max(mworst, check_merged(f"merged edge N={n} d={d} Q={nq} k={k} {dtype} "
-                                                  f"{metric}", q, x, k, metric))
+                name = f"merged edge N={n} d={d} Q={nq} k={k} {dtype} {metric}"
+                mworst = max(mworst, check_merged(name, q, x, k, metric))
+                plan = merged_plan_of(q, x, min(k + MERGED_MARGIN, T.num_groups(n)))
+                key = f"{plan.route}, {plan.units} unit{'s' if plan.units > 1 else ''}"
+                routes[key] = routes.get(key, 0) + 1
                 mcases += 1
     log(f"  edge sweeps: topk_running {cases} shapes, ids equal to the plain version's "
         f"({near} near-tie positions), largest error {worst:.3g}; topk_merged {mcases} shapes "
-        f"equal to topk_twophase (bit for bit where both score f32 on CUDA cores, else within "
-        f"tolerance), largest kernel error {mworst:.3g}")
-    return {"topk_running": worst, "topk_merged": mworst}
+        f"({routes}) equal to topk_twophase bit for bit and its kernel's outputs to the three "
+        f"kernels', largest kernel error {mworst:.3g}")
+    return {"topk_running": worst, "topk_merged": mworst, "topk_merged_routes": routes}
 
 
 def phase5() -> dict:
@@ -2181,7 +2264,7 @@ def phase5() -> dict:
     torch.cuda.synchronize()
 
     T.reset_launch_counts()
-    TM.merged_candidates.launches = 0
+    TM.merged_candidates.launches = TM.merged_candidates.tensor_core_launches = 0
     running_out = {c: T.topk_running(q, stores[s][0], K, "l2", x_norms=stores[s][1])
                    for c, (s, q) in running_cases.items()}
     merged_out = {c: TM.topk_merged(q, stores[s][0], k, "l2", x_norms=stores[s][1],
@@ -2189,12 +2272,25 @@ def phase5() -> dict:
                   for c, (s, q, k) in merged_cases.items()}
     torch.cuda.synchronize()
     launches = {"topk_running": T.topk_running.launches,
-                "topk_merged": TM.merged_candidates.launches}
-    if launches != {"topk_running": len(running_cases), "topk_merged": len(merged_cases)}:
-        raise AssertionError(f"phase 5 entry-point calls launched {launches}")
-    log(f"  entry-point calls: launches {launches} (one per call)")
+                "topk_merged": TM.merged_candidates.launches,
+                "topk_merged_tensor_cores": TM.merged_candidates.tensor_core_launches}
+    # each merged call on the two-phase search's route: f32 at Q = 1 on CUDA
+    # cores, the rest on tensor cores
+    plans = {c: merged_plan_of(q.to(stores[s][0].dtype), stores[s][0],
+                               min(k + MERGED_MARGIN, T.num_groups(stores[s][0].shape[0])))
+             for c, (s, q, k) in merged_cases.items()}
+    want = {"topk_running": len(running_cases), "topk_merged": len(merged_cases),
+            "topk_merged_tensor_cores": sum(p.route != "cuda" for p in plans.values())}
+    if launches != want:
+        raise AssertionError(f"phase 5 entry-point calls launched {launches}, want {want}")
+    regs = merged_registers()
+    log(f"  entry-point calls: launches {launches} (one per call; merged routes "
+        f"{ {c: p.route for c, p in plans.items()} }); merged kernels' ptxas: "
+        f"{len(regs)} instantiations, registers {min(r['registers'] for r in regs.values())}-"
+        f"{max(r['registers'] for r in regs.values())}, spill stores up to "
+        f"{max(r['spill_stores'] for r in regs.values())} bytes")
 
-    res = {"launches": launches, "running": {}, "merged": {}}
+    res = {"launches": launches, "running": {}, "merged": {}, "merged_ptxas": regs}
     for c, (s, q) in running_cases.items():
         x, norms = stores[s]
         err, near = check_running(f"running {c}", q, x, K, "l2", x_norms=norms,
@@ -2223,13 +2319,17 @@ def phase5() -> dict:
                            plain=fits)
         qf = q.to(x.dtype).contiguous()
         t = min(k + MERGED_MARGIN, T.num_groups(n))
-        isz = x.element_size()
+        plan, isz = plans[c], x.element_size()
+        mult, peak = ((1, BF16_FLOPS) if isz == 2 else (3, TF32_FLOPS) if plan.route == "tf32"
+                      else (1, F32_FLOPS))
         b = bound(n * d * isz + n * 4 + nq * d * isz
                   + nq * (t * T.GROUP * 4 + t * 4 + 4 + T.num_groups(n) * 4),
-                  2 * nq * n * d + 2 * nq * t * T.GROUP * d, F32_FLOPS if isz == 4 else BF16_FLOPS)
+                  mult * (2 * nq * n * d + 2 * nq * t * T.GROUP * d), peak)
         reps = TIMING_REPS if nq <= 8 else 5
         r = {"max_abs_err": err, "bound_ms": b[0], "bound_by": b[1], "t": t,
+             "route": plan.route, "units": plan.units, "grid": plan.grid,
              "ms": median_ms(lambda: TM.merged_candidates(qf, x, norms, t), flush, reps=reps),
+             "three_kernels_ms": three_kernels_ms(qf, x, norms, t, flush, reps),
              "search_ms": median_ms(lambda: TM.topk_merged(q, x, k, "l2", x_norms=norms), flush,
                                     reps=reps),
              "twophase_ms": median_ms(lambda: T.topk_twophase(q, x, k, "l2", x_norms=norms,
@@ -2237,15 +2337,22 @@ def phase5() -> dict:
                                       reps=reps),
              "plain_ms": (median_ms(lambda: TM.merged_candidates_ref(qf, x, norms, t), flush,
                                     reps=3) if fits else None)}
+        if plan.units > 1:  # what the pipelining buys: the same call on one unit
+            r["units1_ms"] = median_ms(lambda: TM.merged_candidates(qf, x, norms, t, units=1),
+                                       flush, reps=reps)
+        r["vs_three_kernels"] = r["ms"] / r["three_kernels_ms"]["sum"]
         res["merged"][c] = r
         plain = "not timed: (Q, N) f32 too large" if r["plain_ms"] is None else \
             f"{r['plain_ms']:.4f} ms"
-        same = ("bit for bit" if x.dtype == torch.float32 and f32_route(x, nq) == "cuda"
-                else "within 2 score_tol, ids at near-ties")
-        log(f"  topk_merged {c} (N={n:,} d={d} {str(x.dtype)[6:]} k={k}, t={t}): = "
-            f"topk_twophase {same}, certificates all True, kernel err {err:.3g}; kernel "
-            f"{r['ms']:.4f} ms (plain "
-            f"{plain}, bound {b[0]:.4f} ms by {b[1]}); search {r['search_ms']:.4f} ms vs "
+        three = r["three_kernels_ms"]
+        one = f", units=1 {r['units1_ms']:.4f} ms" if "units1_ms" in r else ""
+        log(f"  topk_merged {c} (N={n:,} d={d} {str(x.dtype)[6:]} k={k}, t={t}; {plan.route}, "
+            f"{plan.units} unit(s), {plan.grid} blocks): = topk_twophase bit for bit, outputs = "
+            f"the three kernels', certificates all True, kernel err {err:.3g}; kernel "
+            f"{r['ms']:.4f} ms{one} against the three kernels' {three['sum']:.4f} ms (groupmin "
+            f"{three['groupmin']:.4f}, select_topt {three['select_topt']:.4f}, rescore "
+            f"{three['rescore']:.4f}): {r['vs_three_kernels']:.3f}x; plain {plain}, bound "
+            f"{b[0]:.4f} ms by {b[1]}; search {r['search_ms']:.4f} ms vs "
             f"topk_twophase(t_margin={MERGED_MARGIN}) {r['twophase_ms']:.4f} ms")
     del merged_out, stores, x32, xb, bench
     torch.cuda.empty_cache()
@@ -2417,9 +2524,8 @@ def check_ties(gen) -> dict:
     """The flat paths over a store whose second half repeats its first (a
     corpus holding each image twice): ids equal to the plain full scan's
     (which sorts stably) except at near-ties of distinct rows, ties in
-    ascending id order, and topk_merged equal to topk_twophase (check_merged:
-    bit for bit where both score on CUDA cores, within tolerance where the
-    two-phase search's Q = 16 f32 batch runs on tensor cores). FlatIndex f32
+    ascending id order, and topk_merged equal to topk_twophase bit for bit
+    (check_merged, on the Q = 16 f32 batch's tensor-core route). FlatIndex f32
     and int8 (l2, ip), topk_twophase_safe, topk_merged, and k = 200 (the
     full-scan path)."""
     import torch
@@ -2451,10 +2557,9 @@ def check_ties(gen) -> dict:
     ties += assert_ties_ascending("ties topk_twophase_safe", d.cpu().numpy(), i.cpu().numpy())
     check_merged("ties topk_merged", q, xs, K, "l2", x_norms=norms, plain=False)
     checks += 2
-    same = "bit for bit" if f32_route(xs, TIE_Q) == "cuda" else "within tolerance"
     log(f"  ties: {checks} searches over {2 * TIE_HALF:,} x {TIE_D} rows (second half = first "
         f"half), ids equal to the stable plain scan's, {ties} tied neighbours all in ascending "
-        f"id order; topk_merged = topk_twophase {same}")
+        f"id order; topk_merged = topk_twophase bit for bit")
     return {"checks": checks, "tied_neighbours": ties}
 
 
@@ -3233,6 +3338,10 @@ def main() -> int:
             "shapes": {c: {k: v for k, v in r.items() if k != "max_abs_err"}
                        for c, r in cases.items()},
         })
+    merged = kernels[-1]
+    merged["tensor_core_launches"] = last["launches"]["topk_merged_tensor_cores"]
+    merged["edge_routes"] = last["edge"]["topk_merged_routes"]
+    merged["ptxas"] = last["merged_ptxas"]
     kernels.extend(sixth["kernels"])
     kernels.extend(seventh["kernels"])
     log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "

@@ -212,13 +212,18 @@ inline bool mma_plan_ok(int d, int dp, int kc, int kstep, size_t smem, size_t ne
          smem >= need;
 }
 
-template <typename T, int BQ, int VEC, bool RESIDENT, class Epi>
-__global__ void __launch_bounds__(THREADS)
-    groupmin_mma_kernel(const T* __restrict__ q, const float* __restrict__ qscale,
-                        const float* __restrict__ norms, const float* __restrict__ scales,
-                        const T* __restrict__ x, float* __restrict__ out, int nq, long long n,
-                        int d, int dp, int kc, int ngroups, int nqt, int gps,
-                        __nv_bfloat16* __restrict__ sub) {
+// One sweep block's work: work item b = item_of() takes query tile b % nqt
+// and the slice of gps groups b / nqt, in the block's dynamic shared
+// memory; every thread of the block calls it, and it ends with a barrier.
+// item_of is read where the kernel reads blockIdx.x (the kernel passes
+// that; a persistent kernel its work item, topk_merged.cu), so the kernel
+// compiles as it did before the body moved here.
+template <typename T, int BQ, int VEC, bool RESIDENT, class Epi, class ItemOf>
+__device__ __forceinline__ void groupmin_mma_block(const T* q, const float* qscale,
+                                                   const float* norms, const float* scales,
+                                                   const T* x, float* out, int nq, long long n,
+                                                   int d, int dp, int kc, int ngroups, int nqt,
+                                                   int gps, __nv_bfloat16* sub, ItemOf item_of) {
   using Op = MmaOf<T>;
   using Tile = MmaTile<BQ>;
   constexpr bool Q8 = std::is_same<T, int8_t>::value;
@@ -238,10 +243,10 @@ __global__ void __launch_bounds__(THREADS)
   // the policy's own Epi::STAGED bytes per query of the tile
   __nv_bfloat16* kept = reinterpret_cast<__nv_bfloat16*>(red + WN * BQ);
 
-  const int qt = blockIdx.x % nqt;
+  const int qt = item_of() % nqt;
   const int q0 = qt * BQ;
   const int qrows = min(BQ, nq - q0);  // this tile's queries
-  const int g0 = (int)(blockIdx.x / nqt) * gps;
+  const int g0 = (int)(item_of() / nqt) * gps;
   const int g1 = min(g0 + gps, ngroups);
   const int nchunks = (dp + kc - 1) / kc;
   const int ntiles = (g1 - g0) * nchunks;
@@ -355,6 +360,18 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();  // every warp is done with stage i & 1 (and red) before it is refilled
   }
+}
+
+template <typename T, int BQ, int VEC, bool RESIDENT, class Epi>
+__global__ void __launch_bounds__(THREADS)
+    groupmin_mma_kernel(const T* __restrict__ q, const float* __restrict__ qscale,
+                        const float* __restrict__ norms, const float* __restrict__ scales,
+                        const T* __restrict__ x, float* __restrict__ out, int nq, long long n,
+                        int d, int dp, int kc, int ngroups, int nqt, int gps,
+                        __nv_bfloat16* __restrict__ sub) {
+  groupmin_mma_block<T, BQ, VEC, RESIDENT, Epi>(q, qscale, norms, scales, x, out, nq, n, d, dp,
+                                                kc, ngroups, nqt, gps, sub,
+                                                [] { return blockIdx.x; });
 }
 
 template <typename T, class Epi, int BQ, int VEC, bool RESIDENT>

@@ -1,7 +1,8 @@
-// The candidate-group select shared by the two-phase search (topk_twophase.cu,
-// select_kernel) and the merged single-launch search (topk_merged.cu, stage 2):
-// one block picks the t smallest of a row of group mins in ascending (value,
-// group id) order, so both searches choose the same groups in the same order.
+// The extract-min candidate-group select of topk_twophase.cu's select_kernel
+// (the TPU kernel's algorithm, which chip_smoke.py times beside the radix
+// select of select_radix.cuh): one block picks the t smallest of a row of
+// group mins in ascending (value, group id) order. lex_less is shared with
+// topk_running.cu.
 
 #pragma once
 
@@ -16,25 +17,12 @@ __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);
 }
 
-// Reads a value the same kernel may have written before a grid-wide barrier
-// (kCoherent: from L2, skipping the non-coherent L1) or one written before the
-// launch (through the read-only cache).
-template <bool kCoherent>
-__device__ __forceinline__ float load_min(const float* p) {
-  if constexpr (kCoherent) {
-    return __ldcg(p);
-  } else {
-    return __ldg(p);
-  }
-}
-
 // t passes over row[0, ngroups), each a block-wide argmin over the entries
 // that come after the previous pass's winner in (value, id) order: the
 // extract-min sequence of the TPU kernel (ties to the lowest group id) without
 // a scratch copy of the row. Writes ids[p] and, unless vals is null, vals[p];
 // returns the last winner's value (the certificate threshold) to every thread.
 // Every thread of the block calls it; blockDim.x is a multiple of 32, <= 1024.
-template <bool kCoherent>
 __device__ float block_select_topt(const float* row, int ngroups, int t, float* vals, int* ids) {
   __shared__ float wv[32];
   __shared__ int wi[32];
@@ -49,7 +37,7 @@ __device__ float block_select_topt(const float* row, int ngroups, int t, float* 
     float bv = INFINITY;
     int bi = INT_MAX;
     for (int i = threadIdx.x; i < ngroups; i += blockDim.x) {
-      const float v = load_min<kCoherent>(row + i);
+      const float v = __ldg(row + i);
       if (lex_less(prev_v, prev_i, v, i) && lex_less(v, i, bv, bi)) {
         bv = v;
         bi = i;

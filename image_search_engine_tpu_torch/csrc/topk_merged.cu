@@ -1,226 +1,176 @@
-// Merged two-phase exact top-k for Hopper (sm_90a): group-min sweep, select
-// and candidate rescore in ONE cooperative launch, with a plain C interface
-// for ctypes (ops/_kernels.py builds this file with nvcc and binds it;
-// ops/topk_merged.py holds the wrapper, merged_candidates, its plain PyTorch
-// version and the search, topk_merged).
+// Merged two-phase exact top-k for Hopper (sm_90a): the group-min sweep, the
+// select and the candidate rescore of the two-phase search in ONE persistent
+// launch, with a plain C interface for ctypes (ops/_kernels.py builds this
+// file with nvcc and binds it; ops/topk_merged.py holds the wrapper,
+// merged_candidates, its plan, merged_plan, the plain PyTorch version and
+// the search, topk_merged).
 //
 // Replaces image_search_engine_tpu/ops/topk_merged.py _merged_kernel (via
 // topk_merged). The TPU kernel is one program so that query block b's
-// candidate copies overlap block b+1's sweep, which separate programs cannot
-// do on a TPU core. Here the grid is launched cooperatively (every block
-// resident at once, sized by the occupancy calculator) and runs three
-// stages separated by grid-wide barriers:
+// candidate copies and rescore run under block b+1's sweep, which separate
+// programs cannot do on a TPU core. Here one launch runs the two-phase
+// search's own routines on the route ops/topk.py _on_tensor_cores picks for
+// both of its phases:
 //
-//   1. group mins: for each 128-row group and each query tile, the min of
-//      norms[r] - 2 q.x[r] into a (Q, ngroups) scratch, in groupmin_kernel's
-//      work order (the query tiles of one group back to back, so they share
-//      it in L2);
-//   2. select: per query, the t smallest group mins in ascending (value,
-//      group id) order (block_select_topt, select.cuh, as select_kernel) and
-//      the t-th as the certificate threshold; when t = ngroups every group is
-//      a candidate, in order, and the threshold is +inf;
-//   3. rescore: every row of each query's t groups, in rescore_kernel's
-//      order (each group split over 4 work items of 32 rows).
+//   route 0, f32 on CUDA cores (up to F32_CUDA_CORE_MAX_Q queries, or rows
+//     of no whole 16-byte units): twophase.cuh groupmin_block and
+//     rescore_block (row_dot);
+//   route 1, bf16 on tensor cores: groupmin_mma.cuh groupmin_mma_block
+//     (mma.sync, QueryMajorMins) on ops/topk.py mma_plan's tile, and
+//     twophase.cuh rescore_mma_block, two (query, group) pairs a block,
+//     four warps each;
+//   route 2, f32 beyond those queries over rows of whole 16-byte units:
+//     groupmin_tf32.cuh's warpgroup 3xTF32 sweep and rescore on wgmma_plan's
+//     query tile, a producer warpgroup and two consumer warpgroups;
 //
-// Each stage is a grid-stride loop over the same work items as the
-// three-kernel search's f32 kernels (topk_twophase.cu) and scores rows with
-// the same routine (scoring.cuh's row_dot and score_of, the same VEC), so
-// over an f32 store this search equals topk_twophase at the same margin bit
-// for bit wherever topk_twophase scores f32 on CUDA cores (a few queries,
-// ops/topk.py F32_CUDA_CORE_MAX_Q): the same mins, the same candidate
-// groups in the same order, the same scores. Over a bf16 store, and over an
-// f32 one beyond those few queries, topk_twophase scores on tensor cores
-// (mma.cuh, groupmin_tf32.cu) while this search keeps row_dot: the two
-// agree within the f32 summation-order tolerance.
+// and on every route the select is select_radix.cuh's radix select
+// (select_radix_block, one block a query). Each item runs the same code on
+// the same operands as the kernel it comes from, so the mins, candidates,
+// threshold and scores equal topk_twophase's bit for bit. This source holds
+// the entry point and route 0; route 1 is topk_merged_mma<bq>.cu, one
+// source per query tile, route 2 topk_merged_tf32.cu, so that they build in
+// parallel; topk_merged.cuh is the scheduler they share.
 //
-// What bounds it: as the two-phase search, one read of the store per query
-// tile (bytes at small Q; the 2*Q*N*d operations at large Q), then the
-// gathered candidate rows. What one launch saves is two launches and their
-// gaps. The stages run in sequence: overlapping one query block's rescore
-// with the next block's sweep (the point of the TPU design) is later work,
-// with warp specialisation and TMA.
+// Schedule. The grid is persistent: ops/topk_merged.py merged_plan sizes it
+// to the blocks that fit the card at once. A block takes work items from a
+// global ticket (atomicAdd) in one fixed order over units, a unit being
+// tiles_per_unit query tiles that sweep the store together, slice-major as
+// the sweep kernels order their blocks (a unit's tiles share each slice in
+// L2): the sweep of unit 0, the sweep of unit 1, the select of unit 0, the
+// rescore of unit 0, the sweep of unit 2, the select of unit 1, ... So unit
+// u's select and rescore start under the tail of unit u+1's sweep, and no
+// block idles between the phases that three kernels would separate. A
+// select item waits (an acquire load, spinning) until its unit's count of
+// finished sweep items is whole; a rescore item until its query's select
+// flag is set. A producer
+// publishes with __threadfence() and then an atomicAdd. An item waits only
+// on items dispensed before it, which blocks that are running hold, so the
+// launch cannot deadlock, whatever the number of resident blocks. Mins and
+// candidates written in this launch are read through L2 (__ldcg, or an
+// acquire), never through the read-only path (__ldg) the kernels use on
+// another launch's outputs: so the select reads its row from L2 and the
+// rescore takes its group id from the block's scheduler, which read it
+// after the wait. The counters are zeroed by the wrapper with the outputs.
+//
+// One block shape a route: 256 threads on routes 0 and 1 (the sweep's 8
+// warps, the select's SEL_THREADS; route 1's rescore runs a pair on each
+// half, behind named barriers 1 and 2), 384 on route 2 (the select on the
+// two consumer warpgroups behind named barrier 2; the ring's mbarrier
+// phases carry over from item to item). The shared memory of a block is the
+// most any of its items needs: they run one at a time and reuse it (route
+// 2's select in the ring, handed back to the Tensor Memory Accelerator with
+// a proxy fence).
+//
+// What bounds it: what bounds the two-phase search, one read of the store
+// per unit (bytes at serving batch sizes, the sweep's operations at large
+// Q), then the candidate rows. Units cost a store pass each; what they buy
+// is the select and rescore of unit u under the sweep of unit u+1.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
 
 #include "scoring.cuh"
-#include "select.cuh"
-
-namespace cg = cooperative_groups;
+#include "topk_merged.cuh"
+#include "twophase.cuh"
 
 namespace {
 
-constexpr int GROUP = 128;        // candidate-group width (rows)
-constexpr int RESCORE_SPLIT = 4;  // stage-3 work items per candidate group
-
-// mins (Q, ngroups), cand (Q, t) and thr (Q,) are written by one stage and
-// read by the next through L2 (__ldcg), never through the read-only cache.
-template <typename T, int VEC, int QT>
-__global__ void __launch_bounds__(THREADS)
-    merged_kernel(const T* __restrict__ q, const float* __restrict__ norms,
-                  const T* __restrict__ x, float* mins, int* cand, float* thr,
-                  float* __restrict__ scores, int nq, long long n, int d, int ngroups, int t) {
-  extern __shared__ float qs[];  // QT * d in stage 1, d in stage 3
-  __shared__ float red[WARPS][QT];
-  cg::grid_group grid = cg::this_grid();
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  // ---- stage 1: group mins; item = g * nqt + query tile ----
-  const int nqt = (nq + QT - 1) / QT;
-  int staged = -1;
-  for (long long item = blockIdx.x; item < (long long)ngroups * nqt; item += gridDim.x) {
-    const int qt = (int)(item % nqt);
-    const int g = (int)(item / nqt);
-    const int q0 = qt * QT;
-    if (qt != staged) {
-      __syncthreads();
-      stage_queries(q, qs, q0, QT, nq, d);
-      __syncthreads();
-      staged = qt;
-    }
-    float best[QT];
-#pragma unroll
-    for (int qi = 0; qi < QT; ++qi) best[qi] = INFINITY;
-    for (int r = warp; r < GROUP; r += WARPS) {
-      const long long row = (long long)g * GROUP + r;
-      if (row >= n) break;  // ragged last group: missing rows count as +inf
-      float acc[QT];
-      row_dot<T, VEC, QT>(x + row * d, qs, d, lane, acc);
-      const float nr = __ldg(norms + row);
-#pragma unroll
-      for (int qi = 0; qi < QT; ++qi) best[qi] = fminf(best[qi], score_of(nr, acc[qi]));
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int qi = 0; qi < QT; ++qi) red[warp][qi] = best[qi];
-    }
+// ---- route 0: f32 on CUDA cores, QT queries per sweep item ----
+template <int VEC, int QT>
+__global__ void __launch_bounds__(THREADS, 4) merged_cuda_kernel(const MergedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ MergedItem desc[2];
+  const float* q = static_cast<const float*>(a.q);
+  const float* x = static_cast<const float*>(a.x);
+  for (int k = 0;; ++k) {
+    if (threadIdx.x == 0) desc[k & 1] = next_item<ROUTE_CUDA>(a);
     __syncthreads();
-    if (threadIdx.x < QT && q0 + (int)threadIdx.x < nq) {
-      float m = red[0][threadIdx.x];
-#pragma unroll
-      for (int w = 1; w < WARPS; ++w) m = fminf(m, red[w][threadIdx.x]);
-      mins[(size_t)(q0 + threadIdx.x) * ngroups + g] = m;
-    }
-    __syncthreads();  // red is rewritten by the next item
-  }
-  grid.sync();
-
-  // ---- stage 2: select, one query per block ----
-  for (int qi = blockIdx.x; qi < nq; qi += gridDim.x) {
-    int* ids = cand + (size_t)qi * t;
-    if (t == ngroups) {
-      for (int j = threadIdx.x; j < t; j += blockDim.x) ids[j] = j;
-      if (threadIdx.x == 0) thr[qi] = INFINITY;
+    const MergedItem it = desc[k & 1];
+    if (it.kind == ITEM_DONE) return;
+    if (it.kind == ITEM_SWEEP) {
+      groupmin_block<float, VEC, QT>(q, a.norms, x, a.mins, a.nq, a.n, a.d, a.ngroups, a.nqt,
+                                     (unsigned)it.index);
+      publish(a.counters + 1 + it.unit, [] { __syncthreads(); });
+    } else if (it.kind == ITEM_SELECT) {
+      select_query<0>(a, it.index, smem);
+      publish(a.counters + 1 + a.units + it.index, [] { __syncthreads(); });
     } else {
-      const float last =
-          block_select_topt<true>(mins + (size_t)qi * ngroups, ngroups, t, nullptr, ids);
-      if (threadIdx.x == 0) thr[qi] = last;
-    }
-  }
-  grid.sync();
-
-  // ---- stage 3: rescore; item = (query * t + j) * SPLIT + s ----
-  constexpr int ROWS = GROUP / RESCORE_SPLIT;
-  staged = -1;
-  for (long long item = blockIdx.x; item < (long long)nq * t * RESCORE_SPLIT; item += gridDim.x) {
-    const int s = (int)(item % RESCORE_SPLIT);
-    const long long slot = item / RESCORE_SPLIT;
-    const int qi = (int)(slot / t);
-    if (qi != staged) {
-      __syncthreads();
-      stage_queries(q, qs, qi, 1, qi + 1, d);
-      __syncthreads();
-      staged = qi;
-    }
-    const int g = __ldcg(cand + slot);
-    for (int r = s * ROWS + warp; r < (s + 1) * ROWS; r += WARPS) {
-      const long long row = (long long)g * GROUP + r;
-      float score = INFINITY;
-      if (g >= 0 && row < n) {
-        float acc[1];
-        row_dot<T, VEC, 1>(x + row * d, qs, d, lane, acc);
-        score = score_of(__ldg(norms + row), acc[0]);
-      }
-      if (lane == 0) scores[slot * GROUP + r] = score;
+      const int g = it.g[0];
+      rescore_block<float, VEC>(q, a.norms, x, a.scores, a.n, a.d, a.t, (unsigned)it.index,
+                                [g](long long) { return g; });
     }
   }
 }
 
-template <typename T, int VEC, int QT>
-cudaError_t launch_merged(const void* q, const void* norms, const void* x, void* mins, void* cand,
-                          void* thr, void* scores, int nq, long long n, int d, int t,
-                          cudaStream_t stream) {
-  auto kernel = merged_kernel<T, VEC, QT>;
-  const size_t smem = (size_t)QT * d * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
-      cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;  // not even one block fits an SM
-  const T* q_ = static_cast<const T*>(q);
-  const float* norms_ = static_cast<const float*>(norms);
-  const T* x_ = static_cast<const T*>(x);
-  float* mins_ = static_cast<float*>(mins);
-  int* cand_ = static_cast<int*>(cand);
-  float* thr_ = static_cast<float*>(thr);
-  float* scores_ = static_cast<float*>(scores);
-  int ngroups = (int)((n + GROUP - 1) / GROUP);
-  void* args[] = {&q_, &norms_, &x_, &mins_, &cand_, &thr_, &scores_, &nq, &n, &d, &ngroups, &t};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(per_sm * sms), dim3(THREADS), args,
-                                    smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
+// ---- launch ----
 
-template <typename T, int VEC>
-cudaError_t merged_qt(const void* q, const void* norms, const void* x, void* mins, void* cand,
-                      void* thr, void* scores, int nq, long long n, int d, int qt, int t,
-                      cudaStream_t s) {
-  switch (qt) {
-    case 1: return launch_merged<T, VEC, 1>(q, norms, x, mins, cand, thr, scores, nq, n, d, t, s);
-    case 2: return launch_merged<T, VEC, 2>(q, norms, x, mins, cand, thr, scores, nq, n, d, t, s);
-    case 4: return launch_merged<T, VEC, 4>(q, norms, x, mins, cand, thr, scores, nq, n, d, t, s);
-    case 8: return launch_merged<T, VEC, 8>(q, norms, x, mins, cand, thr, scores, nq, n, d, t, s);
+template <int VEC>
+cudaError_t launch_cuda(const MergedArgs& a, int grid, int smem, cudaStream_t s) {
+  const void* fn = nullptr;
+  switch (a.bq) {
+    case 1: fn = (const void*)merged_cuda_kernel<VEC, 1>; break;
+    case 2: fn = (const void*)merged_cuda_kernel<VEC, 2>; break;
+    case 4: fn = (const void*)merged_cuda_kernel<VEC, 4>; break;
+    case 8: fn = (const void*)merged_cuda_kernel<VEC, 8>; break;
     default: return cudaErrorInvalidValue;
   }
+  cudaError_t err = set_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<MergedArgs*>(&a)};
+  return cudaLaunchKernel(fn, dim3(grid), dim3(THREADS), args, smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 store, 1 = bfloat16 store; q is in the store dtype. vec:
-// 1, or 16 bytes' worth of elements (4 for f32, 8 for bf16) when rows are
-// 16-byte aligned. qt: queries per stage-1 work item (1, 2, 4 or 8). mins:
-// (nq, ngroups) scratch; cand (nq, t) int32 and thr (nq,) f32: the selected
-// groups and the certificate threshold; scores (nq, t * 128) f32, column j *
-// 128 + i for row cand[:, j] * 128 + i (+inf past n). 0 < t <= ngroups.
-// Returns the cudaError_t of the one cooperative launch (0 = success).
-int ise_topk_merged(int dtype, const void* q, const void* norms, const void* x, void* mins,
-                    void* cand, void* thr, void* scores, int nq, long long n, int d, int qt, int t,
-                    int vec, void* stream) {
-  const long long ngroups = (n + GROUP - 1) / GROUP;
-  if (t < 1 || t > ngroups || ngroups > INT32_MAX) return cudaErrorInvalidValue;
+// One launch of the merged search on the plan of ops/topk_merged.py
+// merged_plan. route: 0 f32 on CUDA cores (bq: queries per sweep item, 1,
+// 2, 4 or 8; vec 4 or 1), 1 bf16 on tensor cores (mma_plan's bq, dp, kc,
+// resident; rkc the rescore's k-chunk; vec 8, 2 or 1); route 2, f32 on the
+// warpgroup MMA, is ise_topk_merged_tf32 (topk_merged_tf32.cu), with the
+// same arguments (qhi, qlo the queries' tf32 halves, read by it alone). q:
+// the queries in the store dtype; norms (n,); mins (nq, ngroups), cand (nq,
+// t) int32, thr (nq,), scores (nq, t * 128): the outputs; vals (nq, t) f32
+// scratch; sort_g (nq, 2t) 64-bit scratch when t > 4096; counters 1 + units
+// + nq zeroed int32 (units = ceil(nqt / tpu)). gps groups per sweep item (1
+// on route 0), tpu query tiles per unit. grid blocks of smem dynamic shared
+// memory. Returns the cudaError_t of the launch (0 = success).
+int ise_topk_merged(int route, const void* q, const void*, const void*, const void* norms,
+                    const void* x, void* mins, void* cand, void* thr, void* scores, void* vals,
+                    void* sort_g, void* counters, int nq, long long n, int d, int t, int bq,
+                    int gps, int tpu, int dp, int kc, int rkc, int resident, int vec, int grid,
+                    int smem, void* stream) {
+  MergedArgs a;
+  if (!merged_args(a, route, q, norms, x, mins, cand, thr, scores, vals, sort_g, counters, nq, n,
+                   d, t, bq, gps, tpu, dp, kc, rkc, grid, smem))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && vec == 4)
-    return merged_qt<float, 4>(q, norms, x, mins, cand, thr, scores, nq, n, d, qt, t, s);
-  if (dtype == 0 && vec == 1)
-    return merged_qt<float, 1>(q, norms, x, mins, cand, thr, scores, nq, n, d, qt, t, s);
-  if (dtype == 1 && vec == 8)
-    return merged_qt<__nv_bfloat16, 8>(q, norms, x, mins, cand, thr, scores, nq, n, d, qt, t, s);
-  if (dtype == 1 && vec == 1)
-    return merged_qt<__nv_bfloat16, 1>(q, norms, x, mins, cand, thr, scores, nq, n, d, qt, t, s);
+  if (route == ROUTE_CUDA) {
+    if (gps != 1 || (size_t)smem < (size_t)bq * d * sizeof(float))
+      return cudaErrorInvalidValue;
+    if (vec == 4) return launch_cuda<4>(a, grid, smem, s);
+    if (vec == 1) return launch_cuda<1>(a, grid, smem, s);
+    return cudaErrorInvalidValue;
+  }
+  if (route == ROUTE_MMA) {
+    constexpr int KSTEP = MMA_KBYTES / 2;
+    const size_t need = groupmin_mma_smem(bq, nq, dp, kc, resident != 0, 2);
+    if (!mma_plan_ok(d, dp, kc, KSTEP, (size_t)smem, need) || rkc < KSTEP || rkc % KSTEP != 0 ||
+        (size_t)smem < 2 * round16(rescore_mma_smem(dp, rkc)))
+      return cudaErrorInvalidValue;
+    switch (bq) {
+      case 16: return ise_merged::launch_mma16(a, vec, resident != 0, grid, smem, s);
+      case 32: return ise_merged::launch_mma32(a, vec, resident != 0, grid, smem, s);
+      case 64: return ise_merged::launch_mma64(a, vec, resident != 0, grid, smem, s);
+      case 128: return ise_merged::launch_mma128(a, vec, resident != 0, grid, smem, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   return cudaErrorInvalidValue;
 }
 

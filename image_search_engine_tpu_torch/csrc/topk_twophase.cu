@@ -41,7 +41,9 @@
 // Precision.HIGHEST. bf16 stores multiply bf16 by bf16 (exact in f32) and
 // accumulate in f32 on the tensor cores.
 // Rows at or past n score +inf, so the store is never padded or copied per
-// call.
+// call. The f32 phase-1 and phase-2 blocks and the bf16 phase-2 block are
+// twophase.cuh's routines, which the merged search (topk_merged.cu) runs
+// too; each kernel here calls its routine with blockIdx.x.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,53 +56,20 @@
 #include "mma.cuh"
 #include "scoring.cuh"
 #include "select.cuh"
+#include "twophase.cuh"
 
 namespace {
 
-constexpr int RESCORE_SPLIT = 4;  // phase-2 blocks per candidate group
 constexpr int SELECT_MAX_THREADS = 1024;
 
-// Phase 1. Block b handles query tile b % nqt (QT queries) of group b / nqt,
-// so the nqt blocks that read one group run back to back and share it in L2.
-// Output is query-major: out[qi * ngroups + g].
+// Phase 1 (twophase.cuh groupmin_block): block b takes query tile b % nqt of
+// group b / nqt.
 template <typename T, int VEC, int QT>
 __global__ void __launch_bounds__(THREADS)
     groupmin_kernel(const T* __restrict__ q, const float* __restrict__ norms,
                     const T* __restrict__ x, float* __restrict__ out, int nq, long long n, int d,
                     int ngroups, int nqt) {
-  extern __shared__ float qs[];  // QT * d
-  __shared__ float red[WARPS][QT];
-  const int qt = blockIdx.x % nqt;
-  const int g = blockIdx.x / nqt;
-  const int q0 = qt * QT;
-  stage_queries(q, qs, q0, QT, nq, d);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float best[QT];
-#pragma unroll
-  for (int qi = 0; qi < QT; ++qi) best[qi] = INFINITY;
-  for (int r = warp; r < GROUP; r += WARPS) {
-    const long long row = (long long)g * GROUP + r;
-    if (row >= n) break;  // ragged last group: missing rows count as +inf
-    float acc[QT];
-    row_dot<T, VEC, QT>(x + row * d, qs, d, lane, acc);
-    const float nr = __ldg(norms + row);
-#pragma unroll
-    for (int qi = 0; qi < QT; ++qi) best[qi] = fminf(best[qi], score_of(nr, acc[qi]));
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int qi = 0; qi < QT; ++qi) red[warp][qi] = best[qi];
-  }
-  __syncthreads();
-  if (threadIdx.x < QT && q0 + (int)threadIdx.x < nq) {
-    float m = red[0][threadIdx.x];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) m = fminf(m, red[w][threadIdx.x]);
-    out[(size_t)(q0 + threadIdx.x) * ngroups + g] = m;
-  }
+  groupmin_block<T, VEC, QT>(q, norms, x, out, nq, n, d, ngroups, nqt, blockIdx.x);
 }
 
 // Select, the extract-min route (chip_smoke.py's comparison). One block per query
@@ -110,135 +79,33 @@ __global__ void __launch_bounds__(THREADS)
 __global__ void __launch_bounds__(SELECT_MAX_THREADS)
     select_kernel(const float* __restrict__ mins, float* __restrict__ vals, int* __restrict__ ids,
                   int ngroups, int t) {
-  block_select_topt<false>(mins + (size_t)blockIdx.x * ngroups, ngroups, t,
-                           vals + (size_t)blockIdx.x * t, ids + (size_t)blockIdx.x * t);
+  block_select_topt(mins + (size_t)blockIdx.x * ngroups, ngroups, t,
+                    vals + (size_t)blockIdx.x * t, ids + (size_t)blockIdx.x * t);
 }
 
-// Phase 2. Block b scores rows [s*32, s*32+32) of candidate slot b / SPLIT
-// (slot = query * t + j, s = b % SPLIT). out[slot * GROUP + r].
+// Phase 2 (twophase.cuh rescore_block): block b takes rows [s*32, s*32+32)
+// of candidate slot b / SPLIT, its group read from cand.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
     rescore_kernel(const T* __restrict__ q, const float* __restrict__ norms,
                    const T* __restrict__ x, const int* __restrict__ cand,
                    float* __restrict__ out, long long n, int d, int t) {
-  extern __shared__ float qs[];  // d
-  constexpr int ROWS = GROUP / RESCORE_SPLIT;
-  const int s = blockIdx.x % RESCORE_SPLIT;
-  const long long slot = blockIdx.x / RESCORE_SPLIT;
-  const int qi = (int)(slot / t);
-  stage_queries(q, qs, qi, 1, qi + 1, d);
-  __syncthreads();
-
-  const int g = __ldg(cand + slot);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = s * ROWS + warp; r < (s + 1) * ROWS; r += WARPS) {
-    const long long row = (long long)g * GROUP + r;
-    float score = INFINITY;
-    if (g >= 0 && row < n) {
-      float acc[1];
-      row_dot<T, VEC, 1>(x + row * d, qs, d, lane, acc);
-      score = score_of(__ldg(norms + row), acc[0]);
-    }
-    if (lane == 0) out[slot * GROUP + r] = score;
-  }
+  rescore_block<T, VEC>(q, norms, x, out, n, d, t, blockIdx.x,
+                        [cand](long long slot) { return __ldg(cand + slot); });
 }
 
-// Phase 2 for a bf16 store on tensor cores. Block b scores the (query,
-// candidate group) pair of slot b; its 4 warps take 32 of the group's rows
-// each. The query sits in A row (query % 16), every other A row is zero
-// (those lanes read a zero row), and the group's row r sits in column r %
-// 32 of warp r / 32: the same lane and register of an 8-row B tile as phase
-// 1 gives it, and every score runs the same mma sequence over the whole of
-// d. The query row and the zero row are staged once per block; each warp
-// streams its 32 rows in k-chunks of kc columns, cp.async double-buffered
-// in its own two stages (four warps keep four chunks of a pair in flight,
-// where a single warp would stream all 128 rows in one chain of dependent
-// chunks). out[slot * GROUP + r], +inf for rows at or past n.
-constexpr int RESCORE_MMA_WARPS = 4;
-constexpr int RESCORE_MMA_ROWS = GROUP / RESCORE_MMA_WARPS;  // rows per warp
-
-__host__ __device__ inline size_t rescore_mma_smem(int dp, int kc) {
-  return (size_t)2 * (dp * 2 + SMEM_PAD_BYTES) +
-         (size_t)RESCORE_MMA_WARPS * 2 * RESCORE_MMA_ROWS * (kc * 2 + SMEM_PAD_BYTES);
-}
-
+// Phase 2 for a bf16 store on tensor cores (twophase.cuh rescore_mma_block):
+// block b scores the (query, candidate group) pair of slot b on its
+// RESCORE_MMA_WARPS warps.
 template <int VEC>
 __global__ void __launch_bounds__(RESCORE_MMA_WARPS * 32)
     rescore_mma_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict__ norms,
                        const __nv_bfloat16* __restrict__ x, const int* __restrict__ cand,
                        float* __restrict__ out, long long n, int d, int dp, int kc, int t) {
-  constexpr int ROWS = RESCORE_MMA_ROWS;
-  constexpr int WTN = ROWS / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int PAD = SMEM_PAD_BYTES / 2;
-  constexpr int KSTEP = MMA_KBYTES / 2;  // bf16 elements per k-step
-  const int qst = dp + PAD;
-  const int xst = kc + PAD;
-  __nv_bfloat16* qrow = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* zrow = qrow + qst;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  __nv_bfloat16* xs = zrow + qst + (size_t)warp * 2 * ROWS * xst;
-
-  const long long slot = blockIdx.x;
-  const int qi = (int)(slot / t);
-  load_tile<__nv_bfloat16, VEC>(qrow, qst, q + (size_t)qi * d, d, 1, 1, 0, dp, d, threadIdx.x,
-                                blockDim.x);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < qst; i += blockDim.x) zrow[i] = __float2bfloat16(0.f);
-  cp_async_wait<0>();
-  __syncthreads();  // the last block-wide barrier
-
-  const int g = __ldg(cand + slot);
-  const int c0 = warp * ROWS;  // this warp's first column (row of the group)
-  const long long r0 = (long long)g * GROUP + c0;
-  float* o = out + slot * GROUP + c0;
-  if (g < 0 || r0 >= n) {  // none of this warp's rows exists
-    for (int r = lane; r < ROWS; r += 32) o[r] = INFINITY;
-    return;
-  }
-  const int valid = (int)min((long long)ROWS, n - r0);
-  const int nchunks = (dp + kc - 1) / kc;
-  auto fetch = [&](int c) {
-    load_tile<__nv_bfloat16, VEC>(xs + (size_t)(c & 1) * ROWS * xst, xst, x + r0 * d, d, ROWS,
-                                  valid, c * kc, min(kc, dp - c * kc), d, lane, 32);
-    cp_async_commit();
-  };
-  fetch(0);
-
-  const int arow = qi % 16;
-  uint32_t a[1] = {smem_u32(a_lane_row(lane) == arow ? qrow : zrow) + a_lane_byte(lane)};
-  const uint32_t b_pair = 16 * xst * 2;
-  const uint32_t b_stage = ROWS * xst * 2;
-  const uint32_t b0 = smem_u32(xs + (size_t)b_lane_row(lane) * xst) + b_lane_byte(lane);
-  float acc[1][WTN][4];
-  zero_acc(acc);
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      fetch(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncwarp();
-    uint32_t ac[1] = {a[0] + (uint32_t)c * kc * 2};
-    mma_steps<MmaBf16, 1, WTN>(ac, b0 + (uint32_t)(c & 1) * b_stage, b_pair,
-                               min(kc, dp - c * kc) / KSTEP, acc);
-    __syncwarp();  // the warp is done with stage c & 1 before it is refilled
-  }
-  if ((lane >> 2) == arow % 8) {  // the lanes holding A row arow: registers 2h, 2h + 1
-    const int h = arow / 8;
-#pragma unroll
-    for (int ni = 0; ni < WTN; ++ni) {
-      const int col = ni * 8 + 2 * (lane & 3);
-      float2 sc;
-      sc.x = col < valid ? score_of(__ldg(norms + r0 + col), acc[0][ni][2 * h]) : INFINITY;
-      sc.y = col + 1 < valid ? score_of(__ldg(norms + r0 + col + 1), acc[0][ni][2 * h + 1])
-                             : INFINITY;
-      *reinterpret_cast<float2*>(o + col) = sc;
-    }
-  }
+  rescore_mma_block<VEC, BlockThreads>(q, norms, x, out, n, d, dp, kc, t, smem,
+                                       [] { return (long long)blockIdx.x; },
+                                       [cand](long long slot) { return __ldg(cand + slot); });
 }
 
 template <typename T, int VEC, int QT>

@@ -29,9 +29,11 @@ SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
            _CSRC / "topk_running.cu", _CSRC / "topk_merged.cu", _CSRC / "groupmin_variants.cu",
            _CSRC / "groupmin_width_mma.cu", _CSRC / "groupmin_two_level_mma.cu",
            _CSRC / "rescore_variants.cu", _CSRC / "groupmin_tf32.cu",
-           _CSRC / "select_topt.cu")
+           _CSRC / "select_topt.cu", _CSRC / "topk_merged_tf32.cu",
+           *(_CSRC / f"topk_merged_mma{bq}.cu" for bq in (16, 32, 64, 128)))
 HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh", _CSRC / "mma.cuh",
-           _CSRC / "groupmin_mma.cuh", _CSRC / "wgmma.cuh")
+           _CSRC / "groupmin_mma.cuh", _CSRC / "wgmma.cuh", _CSRC / "select_radix.cuh",
+           _CSRC / "twophase.cuh", _CSRC / "groupmin_tf32.cuh", _CSRC / "topk_merged.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -140,8 +142,10 @@ def library() -> ctypes.CDLL:
             lib.ise_kmeans_assign.restype = i
             lib.ise_topk_running.argtypes = [i, p, p, p, p, p, p, p, i, ll, i, i, i, i, i, p]
             lib.ise_topk_running.restype = i
-            lib.ise_topk_merged.argtypes = [i, p, p, p, p, p, p, p, i, ll, i, i, i, i, p]
-            lib.ise_topk_merged.restype = i
+            merged = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i, i,
+                      i, i, p]
+            lib.ise_topk_merged.argtypes = lib.ise_topk_merged_tf32.argtypes = merged
+            lib.ise_topk_merged.restype = lib.ise_topk_merged_tf32.restype = i
             lib.ise_groupmin_width.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]
             lib.ise_groupmin_width.restype = i
             lib.ise_groupmin_width_mma.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i,
