@@ -65,8 +65,12 @@ Phases (each raises on failure; the script then exits non-zero):
      over HTTP with its launch counts; after phase 7, phase 1 at bench.py's
      point quantized to int8 (Q = 2048);
   5. the last two package kernels through their entry points:
-     ``topk_running`` (running top-k accumulators) at Q = 1 and 8 over 1M x
-     2048 f32 and Q = 1 over bf16, ids equal to its plain version's, and
+     ``topk_running`` (running top-k accumulators; the store's rows staged
+     by the Tensor Memory Accelerator, a lane per row) at Q = 1 and 8 over
+     1M x 2048 f32 and Q = 1 over bf16, ids equal to its plain version's,
+     timed in turns beside the warp-per-row kernel it replaced (forced
+     through ``running_route``, the only place it runs; its ids checked
+     too), launches by route, ptxas registers and spills, and
      ``topk_merged`` (the two-phase search in one persistent launch, on the
      two-phase search's route) at Q = 1 and 64 over 1M x 2048 f32 and bf16
      and at Q = 2048 and 4096 over 1M x 128 bf16, equal to
@@ -86,12 +90,14 @@ Phases (each raises on failure; the script then exits non-zero):
      dispatch split into groupmin, select_topt, rescore and the finish,
      the four phase-1 prototype kernels (group width, chunked columns,
      two-level mins in three layouts) against their plain versions at Q =
-     2048 and 4096 plus a 46-shape edge sweep, with timings beside
+     2048 and 4096 plus a 49-shape edge sweep, with timings beside
      ``groupmin`` and the bf16 product alone: the width and two-level
      kernels on the tensor-core sweep (width 128 and every layout's group
-     mins equal to ``groupmin``'s bit for bit) and on the CUDA-core route
-     they replaced, forced (its 128-row mins equal to each other's bit for
-     bit, production's within tolerance of them); then the tie order of the
+     mins equal to ``groupmin``'s bit for bit), the chunked one on the bf16
+     warpgroup-MMA sweep (its distance from ``groupmin`` logged; also on
+     128-query tiles), each on the CUDA-core route it replaced, forced (the
+     row_dot kernels' 128-row mins equal to each other's bit for bit,
+     production's within tolerance of them); then the tie order of the
      flat paths over a store whose second half repeats its first, and the
      cost of the k > 128 full scan's stable sort at 1M rows;
   7. the same store: each ported phase-2 prototype script's searches once
@@ -142,10 +148,10 @@ SOURCES = {
     "kmeans_assign": CSRC + "kmeans_assign.cu",
     "groupmin_q8": CSRC + "topk_twophase_q8.cu",
     "rescore_q8": CSRC + "topk_twophase_q8.cu",
-    "topk_running": CSRC + "topk_running.cu",
+    "topk_running": CSRC + "topk_running_rows.cu",
     "topk_merged": CSRC + "topk_merged.cu",
     "groupmin_width": CSRC + "groupmin_width_mma.cu",
-    "groupmin_chunked": CSRC + "groupmin_variants.cu",
+    "groupmin_chunked": CSRC + "groupmin_chunked_wgmma.cu",
     "groupmin_two_level": CSRC + "groupmin_two_level_mma.cu",
     "groupmin_two_level_layouts": CSRC + "groupmin_two_level_mma.cu",
     "rescore_gather": CSRC + "rescore_variants.cu",
@@ -156,8 +162,11 @@ SOURCES = {
 SOURCES_F32_TC = {"groupmin": CSRC + "groupmin_tf32.cu", "rescore": CSRC + "groupmin_tf32.cu"}
 # the extract-min kernel (t passes), timed beside the radix select that replaced it
 SOURCE_SELECT_EXTRACT_MIN = CSRC + "topk_twophase.cu"
-# the CUDA-core width and two-level kernels, timed beside the tensor-core ones that replaced them
+# the CUDA-core width, two-level and chunked kernels, timed beside the tensor-core ones that
+# replaced them
 SOURCE_VARIANTS_CUDA_CORE = CSRC + "groupmin_variants.cu"
+# the warp-per-row running top-k, timed beside the staged kernel that replaced it
+SOURCE_RUNNING_ROW_DOT = CSRC + "topk_running.cu"
 REPLACES = {
     "groupmin": "image_search_engine_tpu/ops/topk_pallas.py:252",
     "select_topt": "image_search_engine_tpu/ops/topk_pallas.py:361",
@@ -383,9 +392,9 @@ def select_route(route: str):
 
 @contextlib.contextmanager
 def variants_route(route: str):
-    """groupmin_width and groupmin_two_level on one of their routes: "mma"
-    (epilogues of the bf16 tensor-core sweep, every caller's) or
-    "cuda_core" (the row_dot kernels they replaced, which no script path
+    """groupmin_width, groupmin_two_level and groupmin_chunked on one of
+    their routes: "mma" (the bf16 tensor-core sweeps, every caller's) or
+    "cuda_core" (the CUDA-core kernels they replaced, which no script path
     takes); this sets ``groupmin_variants.ROUTE`` for the duration."""
     from image_search_engine_tpu_torch.ops import groupmin_variants as GV
 
@@ -395,6 +404,65 @@ def variants_route(route: str):
         yield
     finally:
         GV.ROUTE = keep
+
+
+@contextlib.contextmanager
+def chunked_query_tile(bq: int):
+    """groupmin_chunked's sweep on query tiles of ``bq`` queries whatever
+    the batch (128: one 64-query M tile a warpgroup, the store read from L2
+    once per 128 queries); this sets ``groupmin_variants.CHUNKED_BQ`` for
+    the duration."""
+    from image_search_engine_tpu_torch.ops import groupmin_variants as GV
+
+    keep = GV.CHUNKED_BQ
+    GV.CHUNKED_BQ = (bq, bq)
+    try:
+        yield
+    finally:
+        GV.CHUNKED_BQ = keep
+
+
+@contextlib.contextmanager
+def running_route(route: str):
+    """topk_running on one of its routes: "staged" (rows staged by the
+    Tensor Memory Accelerator, a lane per row; every caller's) or "row_dot"
+    (the warp-per-row kernel it replaced, which no caller takes); this sets
+    ``topk.RUNNING_ROUTE`` for the duration."""
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    keep = T.RUNNING_ROUTE
+    T.RUNNING_ROUTE = route
+    try:
+        yield
+    finally:
+        T.RUNNING_ROUTE = keep
+
+
+def kernel_registers(pattern: str) -> dict:
+    """Registers and spill stores (bytes) of each instantiation of the
+    kernels whose mangled names match ``pattern`` (a regular expression with
+    the kernel's name in group 1 and its template arguments in group 2),
+    from the build's ptxas log."""
+    from image_search_engine_tpu_torch.ops import _kernels
+
+    text = _kernels.library_path().with_suffix(".log").read_text()
+    out = {}
+    for fn, body in re.findall(r"Compiling entry function '(\S+)' for \S+\n(.*?Used \d+ "
+                               r"registers[^\n]*)", text, re.S):
+        m = re.search(pattern, fn)
+        if m:
+            out[f"{m.group(1)}<{m.group(2)}>"] = {
+                "registers": int(re.search(r"Used (\d+) registers", body).group(1)),
+                "spill_stores": int(re.search(r"(\d+) bytes spill stores", body).group(1))}
+    if not out:
+        raise AssertionError(f"no instantiation matching {pattern} in the ptxas log")
+    return out
+
+
+def registers_summary(regs: dict) -> str:
+    return (f"{len(regs)} instantiations, registers {min(r['registers'] for r in regs.values())}-"
+            f"{max(r['registers'] for r in regs.values())}, spill stores up to "
+            f"{max(r['spill_stores'] for r in regs.values())} bytes")
 
 
 #: the extract-min kernel's launches in each main-path run (counts set to 0
@@ -2155,29 +2223,13 @@ def three_kernels_ms(qf, x, norms, t, flush, reps: int) -> dict:
             "sum": med(0, 3)}
 
 
-def merged_registers() -> dict:
-    """Registers and spill stores (bytes) of each merged-kernel
-    instantiation, from the build's ptxas log, by its mangled name's
-    template part."""
-    from image_search_engine_tpu_torch.ops import _kernels
-
-    text = _kernels.library_path().with_suffix(".log").read_text()
-    out = {}
-    for fn, body in re.findall(r"Compiling entry function '(\S+)' for \S+\n(.*?Used \d+ "
-                               r"registers[^\n]*)", text, re.S):
-        m = re.search(r"(merged_(?:cuda|mma|tf32)_kernel)I(\w+?)EEv", fn)
-        if m:
-            out[f"{m.group(1)}<{m.group(2)}>"] = {
-                "registers": int(re.search(r"Used (\d+) registers", body).group(1)),
-                "spill_stores": int(re.search(r"(\d+) bytes spill stores", body).group(1))}
-    return out
-
-
 def edge_sweep_phase5(gen) -> dict:
     """Small shapes at both kernels' edges, untimed. topk_running: k in {1,
-    20, 128} x N in {1, 127, 128, 129, 5000} (k > N included), metrics,
-    dtypes, query tiles and row widths (d = 130: scalar loads) rotating;
-    ip with PAD_NORM rows; a tie-heavy store. topk_merged: a store of fewer
+    20, 64, 128} (every list width) x N in {1, 127, 128, 129, 5000} (k > N
+    included; ragged 256-row tiles), metrics, dtypes, batches of a partial
+    query tile and row widths rotating (d = 16, 64, 2048; d = 130, rows the
+    Tensor Memory Accelerator cannot tile, in bf16 and f32); ip with
+    PAD_NORM rows; a tie-heavy store. topk_merged: a store of fewer
     groups than k + margin (every group rescored), ragged groups, Q > 8,
     d = 130; f32 and bf16, l2 and ip. Returns the largest errors."""
     import torch
@@ -2187,8 +2239,9 @@ def edge_sweep_phase5(gen) -> dict:
 
     worst, near, cases = 0.0, 0, 0
     rot = [("l2", torch.float32, 1, 16), ("ip", torch.bfloat16, 3, 130),
-           ("cosine", torch.float32, 9, 64), ("l2", torch.bfloat16, 8, 2048)]
-    for k in (1, 20, 128):
+           ("cosine", torch.float32, 9, 64), ("l2", torch.bfloat16, 8, 2048),
+           ("l2", torch.float32, 5, 130)]
+    for k in (1, 20, 64, 128):
         for n in (1, 127, 128, 129, 5000):
             metric, dtype, nq, d = rot[cases % len(rot)]
             x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
@@ -2274,6 +2327,7 @@ def phase5() -> dict:
     launches = {"topk_running": T.topk_running.launches,
                 "topk_merged": TM.merged_candidates.launches,
                 "topk_merged_tensor_cores": TM.merged_candidates.tensor_core_launches}
+    running_by_route = {r: getattr(T.topk_running, f"{r}_launches") for r in T.RUNNING_ROUTES}
     # each merged call on the two-phase search's route: f32 at Q = 1 on CUDA
     # cores, the rest on tensor cores
     plans = {c: merged_plan_of(q.to(stores[s][0].dtype), stores[s][0],
@@ -2283,14 +2337,17 @@ def phase5() -> dict:
             "topk_merged_tensor_cores": sum(p.route != "cuda" for p in plans.values())}
     if launches != want:
         raise AssertionError(f"phase 5 entry-point calls launched {launches}, want {want}")
-    regs = merged_registers()
-    log(f"  entry-point calls: launches {launches} (one per call; merged routes "
-        f"{ {c: p.route for c, p in plans.items()} }); merged kernels' ptxas: "
-        f"{len(regs)} instantiations, registers {min(r['registers'] for r in regs.values())}-"
-        f"{max(r['registers'] for r in regs.values())}, spill stores up to "
-        f"{max(r['spill_stores'] for r in regs.values())} bytes")
+    if running_by_route != {"staged": len(running_cases), "row_dot": 0}:
+        raise AssertionError(f"phase 5: topk_running launches by route {running_by_route}")
+    regs = kernel_registers(r"(merged_(?:cuda|mma|tf32)_kernel)I(\w+?)EEv")
+    running_regs = kernel_registers(r"(running_rows_kernel)I(\w+?)EEv")
+    log(f"  entry-point calls: launches {launches} (one per call; running by route "
+        f"{running_by_route}; merged routes { {c: p.route for c, p in plans.items()} }); merged "
+        f"kernels' ptxas: {registers_summary(regs)}; the staged running kernel's: "
+        f"{registers_summary(running_regs)}")
 
-    res = {"launches": launches, "running": {}, "merged": {}, "merged_ptxas": regs}
+    res = {"launches": launches, "running_by_route": running_by_route, "running": {},
+           "merged": {}, "merged_ptxas": regs, "running_ptxas": running_regs}
     for c, (s, q) in running_cases.items():
         x, norms = stores[s]
         err, near = check_running(f"running {c}", q, x, K, "l2", x_norms=norms,
@@ -2298,17 +2355,38 @@ def phase5() -> dict:
         nq, isz = q.shape[0], x.element_size()
         b = bound(x.numel() * isz + x.shape[0] * 4 + q.numel() * 4 + nq * K * 8,
                   2 * nq * x.numel(), F32_FLOPS)
+        with running_route("row_dot"):
+            row_dot_err, _ = check_running(f"running {c} (row_dot)", q, x, K, "l2",
+                                           x_norms=norms)
+        plan = T.running_plan(nq, x.shape[0], x.shape[1], isz, K,
+                              torch.cuda.get_device_properties(0).multi_processor_count)
+
+        def row_dot_ms():
+            with running_route("row_dot"):
+                return median_ms(lambda: T.topk_running(q, x, K, "l2", x_norms=norms), flush)
+
+        staged = lambda: median_ms(  # noqa: E731
+            lambda: T.topk_running(q, x, K, "l2", x_norms=norms), flush)
+        # the two routes in turns: staged, row_dot, row_dot, staged
+        t1, o1, o2, t2 = staged(), row_dot_ms(), row_dot_ms(), staged()
         r = {"max_abs_err": err, "near_ties": near, "bound_ms": b[0], "bound_by": b[1],
-             "ms": median_ms(lambda: T.topk_running(q, x, K, "l2", x_norms=norms), flush),
+             "ms": float(np.median([t1, t2])), "row_dot_ms": float(np.median([o1, o2])),
+             "row_dot_max_abs_err": row_dot_err,
+             "plan": {"qt": plan.qt, "stages": plan.stages, "blocks_per_sm": plan.blocks_per_sm,
+                      "nslices": plan.nslices, "smem": plan.smem},
              "plain_ms": median_ms(lambda: T.topk_running_ref(q, x, K, "l2", x_norms=norms),
                                    flush, reps=5),
              "twophase_ms": median_ms(lambda: T.topk_twophase(q, x, K, "l2", x_norms=norms),
                                       flush)}
+        r["vs_row_dot"] = r["ms"] / r["row_dot_ms"]
         res["running"][c] = r
         log(f"  topk_running {c} (N={x.shape[0]:,} d={x.shape[1]} {str(x.dtype)[6:]} k={K}): "
             f"ids = plain ({near} near-ties), "
-            f"err {err:.3g}; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-            f"{b[0]:.4f} ms by {b[1]}); topk_twophase {r['twophase_ms']:.4f} ms")
+            f"err {err:.3g}; {r['ms']:.4f} ms ({t1:.4f}, {t2:.4f}; {r['ms'] / b[0]:.3f}x the "
+            f"bound {b[0]:.4f} ms by {b[1]}) against the replaced row_dot kernel's "
+            f"{r['row_dot_ms']:.4f} ms ({o1:.4f}, {o2:.4f}; ids = plain too): "
+            f"{r['vs_row_dot']:.3f}x; plan {r['plan']}; plain {r['plain_ms']:.4f} ms; "
+            f"topk_twophase {r['twophase_ms']:.4f} ms")
     del running_out
 
     for c, (s, q, k) in merged_cases.items():
@@ -2417,8 +2495,9 @@ def bench_point_registers() -> dict:
 
 def check_variants(name, qf, x, norms, nf32, *, route="mma", layouts=None, widths=None,
                    chunked=True):
-    """The four prototype kernels on (qf, x), width and two-level on
-    ``route``: each f32 output within score_tol of its plain version; width
+    """The four prototype kernels on (qf, x) on ``route``: each f32 output
+    within score_tol of its plain version (the chunked one's also within it
+    of production ``groupmin(...).T``, its distance logged); width
     128 and every layout's two-level group mins equal to ``want`` bit for
     bit, which on the "mma" route is production ``groupmin(...).T`` (the
     prototypes are its sweep with another epilogue) and on the "cuda_core"
@@ -2468,9 +2547,10 @@ def check_variants(name, qf, x, norms, nf32, *, route="mma", layouts=None, width
             if not torch.equal(gm.T.to(torch.bfloat16).float(), smin4):
                 raise AssertionError(f"{name}: two-level {lay} ({route}) group mins are not "
                                      "their subgroups' min")
-    for c in GV.CHUNKS if chunked else ():
-        got = GV.groupmin_chunked(qf, x, norms, c)
-        errs[f"chunk{c}"] = max_abs_err(got, GV.groupmin_chunked_ref(qf, x, norms))
+        for c in GV.CHUNKS if chunked else ():
+            got = GV.groupmin_chunked(qf, x, norms, c)
+            errs[f"chunk{c}"] = max_abs_err(got, GV.groupmin_chunked_ref(qf, x, norms))
+            errs[f"chunk{c}_vs_groupmin"] = max_abs_err(got, T.groupmin(qf, x, norms).T)
     worst = max(v for k, v in errs.items() if not k.endswith("_ulps"))
     if worst > tol:
         raise AssertionError(f"{name}: prototype kernel error {worst} > tolerance {tol}")
@@ -2482,30 +2562,37 @@ def edge_sweep_variants(gen) -> dict:
     x Q in {1, 7, 64}, d = 128 (and d = 130, rows of no 16-byte multiple,
     for the width and two-level kernels: 4-byte copies on tensor cores,
     scalar row loads on CUDA cores), and Q = 129 (a second, partial
-    128-query tile) at N in {129, 5000}: query tiles of 16 (8 warps along a
-    group's rows), 64 and 128 (4), and v2's staging. The width and
-    two-level kernels on both routes (the chunked one once), untimed.
-    Returns {"shapes", "mma", "cuda_core"}: the largest error per route."""
+    128-query tile; the chunked sweep's 256-query tile, two M tiles a
+    warpgroup) at N in {129, 5000}: query tiles of 16 (8 warps along a
+    group's rows), 64 and 128 (4), and v2's staging; then the chunked
+    sweep's other plans: d = 8 and 72 (one 64-column stage, and d padded
+    by the zero fill), d = 1040 at Q = 300 (the query tile streamed with
+    each stage). Every kernel on both routes, untimed. Returns {"shapes",
+    "mma", "cuda_core"}: the largest error per route."""
     import torch
 
     shapes = [(n, nq, d) for n in (1, 31, 32, 33, 127, 129, 5000) for nq in (1, 7, 64)
               for d in (128, 130)]
     shapes += [(n, 129, d) for n in (129, 5000) for d in (128, 130)]
+    chunked_only = [(4099, 257, 8), (300, 17, 72), (5000, 300, 1040)]
     worst = {"mma": 0.0, "cuda_core": 0.0}
-    for n, nq, d in shapes:
+    for n, nq, d in shapes + chunked_only:
         x = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
         q = torch.randn(nq, d, device="cuda", generator=gen).to(torch.bfloat16)
         nf32 = (torch.randn(n, d, device="cuda", generator=gen) ** 2).sum(1)
         norms = (x.float() ** 2).sum(1)
+        only = (n, nq, d) in chunked_only
         for route in worst:
             errs = check_variants(f"variants edge N={n} Q={nq} d={d}", q, x, norms, nf32,
-                                  route=route, chunked=route == "mma" and d % 8 == 0)
+                                  route=route, chunked=d % 8 == 0,
+                                  **({"widths": (), "layouts": ("v1",)} if only else {}))
             worst[route] = max(worst[route], *(v for k, v in errs.items()
                                                if not k.endswith("_ulps")))
-    log(f"  prototype edge sweep: {len(shapes)} shapes, every width, chunk and layout, both "
-        f"routes; largest error {worst['mma']:.3g} (tensor cores; width 128 and two-level "
-        f"group mins = groupmin bit for bit), {worst['cuda_core']:.3g} (CUDA cores)")
-    return {"shapes": len(shapes), **worst}
+    log(f"  prototype edge sweep: {len(shapes)} shapes, every width, chunk and layout, and "
+        f"{len(chunked_only)} more of the chunked sweep's, both routes; largest error "
+        f"{worst['mma']:.3g} (tensor cores; width 128 and two-level group mins = groupmin bit "
+        f"for bit), {worst['cuda_core']:.3g} (CUDA cores)")
+    return {"shapes": len(shapes) + len(chunked_only), **worst}
 
 
 def assert_ties_ascending(name, d, i) -> int:
@@ -2719,13 +2806,13 @@ def phase6(store) -> dict:
         torch.cuda.synchronize()
         two_level_mma[script] = GV.groupmin_two_level.mma_launches - before
     launches = {"groupmin_width": GV.groupmin_width.mma_launches,
-                "groupmin_chunked": GV.groupmin_chunked.launches,
+                "groupmin_chunked": GV.groupmin_chunked.mma_launches,
                 "groupmin_two_level": two_level_mma["subgroup_proto"],
                 "groupmin_two_level_layouts": two_level_mma["subgroup_variants"],
                 "groupmin": T.groupmin.launches, "select_topt": T.select_topt.launches,
                 "rescore": T.rescore.launches}
     by_route = {fn.__name__: {r: getattr(fn, f"{r}_launches") for r in GV.ROUTES}
-                for fn in (GV.groupmin_width, GV.groupmin_two_level)}
+                for fn in GV.KERNELS}
     note_extract_min("bench twin and scripts")
     if not all(launches.values()):
         raise AssertionError(f"phase 6 main path: a kernel did not launch: {launches}")
@@ -2777,9 +2864,8 @@ def phase6(store) -> dict:
     log(f"  registers a thread at the bench point's tiles (two 256-thread blocks an SM take at "
         f"most 128): {regs}")
     errs = check_variants("Q=2048", qf, store.x, nbf, nf32)
-    errs4 = check_variants("Q=4096", qf4, store.x, nbf, nf32, chunked=False)
-    cc_errs = check_variants("Q=2048 CUDA cores", qf, store.x, nbf, nf32, route="cuda_core",
-                             chunked=False)
+    errs4 = check_variants("Q=4096", qf4, store.x, nbf, nf32)
+    cc_errs = check_variants("Q=2048 CUDA cores", qf, store.x, nbf, nf32, route="cuda_core")
     cc_errs4 = check_variants("Q=4096 CUDA cores", qf4, store.x, nbf, nf32, route="cuda_core",
                               layouts=("v1",), widths=(), chunked=False)
     edge = edge_sweep_variants(gen)
@@ -2793,9 +2879,15 @@ def phase6(store) -> dict:
 
     def proto_times(route: str, reps: int) -> dict:
         """The width and two-level kernels on ``route`` at Q = 2048 (v1 also
-        at 4096), CUDA-event medians after an L2 flush."""
+        at 4096), the chunked one at both, CUDA-event medians after an L2
+        flush."""
         res = {}
         with variants_route(route):
+            for c in GV.CHUNKS:
+                res[f"chunk{c}"] = median_ms(lambda: GV.groupmin_chunked(qf, x, nbf, c), flush,
+                                             reps=reps)
+                res[f"chunk{c}_Q4096"] = median_ms(lambda: GV.groupmin_chunked(qf4, x, nbf, c),
+                                                   flush, reps=reps)
             for g in GV.WIDTHS:
                 res[f"width{g}"] = median_ms(lambda: GV.groupmin_width(qf, x, nf32, g), flush,
                                              reps=reps)
@@ -2814,9 +2906,21 @@ def phase6(store) -> dict:
              **proto_times("mma", PROTO_REPS)}
     sub_major = torch.empty((nsub, PROTO_Q), dtype=torch.bfloat16, device="cuda")
     times["v3_transpose"] = ms(lambda: sub_major.T.contiguous())  # v3's wrapper, alone
-    for c in GV.CHUNKS:
-        times[f"chunk{c}"] = ms(lambda: GV.groupmin_chunked(qf, x, nbf, c))
     cuda_core = proto_times("cuda_core", CUDA_CORE_REPS)
+    for nq, qq in ((PROTO_Q, qf), (BENCH_Q, qf4)):  # what the 256-query tile's L2 reads buy
+        want = GV.groupmin_chunked(qq, x, nbf, 512)
+        with chunked_query_tile(128):
+            if not torch.equal(GV.groupmin_chunked(qq, x, nbf, 512), want):
+                raise AssertionError("groupmin_chunked: 128-query tiles' mins differ")
+            times[f"chunk512_bq128_Q{nq}"] = ms(lambda: GV.groupmin_chunked(qq, x, nbf, 512))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunked_plans = {}
+    for c in GV.CHUNKS:
+        for nq in (PROTO_Q, BENCH_Q):
+            p = GV.chunked_plan(nq, n, d, c, sms)
+            chunked_plans[f"chunk{c}_Q{nq}"] = {k: getattr(p, k) for k in (
+                "bq", "kc", "stages", "resident", "rows_in_flight", "gps", "grid", "smem")}
+    chunked_regs = kernel_registers(r"(groupmin_wgmma_kernel)I(\w+?)EEv")
     plain = {"groupmin": median_ms(lambda: T.groupmin_ref(qf, x, nf32), flush, reps=2),
              "width": median_ms(lambda: GV.groupmin_width_ref(qf, x, nf32, 128), flush, reps=2),
              "two_level": median_ms(lambda: GV.groupmin_two_level_ref(qf, x, nf32), flush, reps=2),
@@ -2827,6 +2931,18 @@ def phase6(store) -> dict:
         f"(Q={BENCH_Q} {times['product_Q4096']:.4f}), the row_dot sweep (groupmin_width 128 on "
         f"CUDA cores) {cuda_core['width128']:.4f} ms; distance from the row_dot sweep's mins "
         f"{cc_errs['groupmin_vs_row_dot']:.3g}")
+    log(f"  groupmin_chunked (bf16 wgmma, ping-pong warpgroups): Q={PROTO_Q} chunk 512 "
+        f"{times['chunk512']:.4f} ms, 1024 {times['chunk1024']:.4f} ms; Q={BENCH_Q} "
+        f"{times['chunk512_Q4096']:.4f}, {times['chunk1024_Q4096']:.4f} ms (on 128-query tiles, "
+        f"chunk 512: {times[f'chunk512_bq128_Q{PROTO_Q}']:.4f}, "
+        f"{times[f'chunk512_bq128_Q{BENCH_Q}']:.4f} ms); beside groupmin "
+        f"(mma.sync) {times['groupmin']:.4f}, {times['groupmin_Q4096']:.4f} ms and the replaced "
+        f"CUDA-core kernel {cuda_core['chunk512']:.4f}, {cuda_core['chunk1024']:.4f}; "
+        f"{cuda_core['chunk512_Q4096']:.4f}, {cuda_core['chunk1024_Q4096']:.4f} ms; distance "
+        f"from groupmin(...).T " + ", ".join(
+            f"{k}{tag} {v:.3g}" for e, tag in ((errs, ""), (errs4, " Q=4096"))
+            for k, v in e.items() if k.startswith("chunk") and k.endswith("_vs_groupmin"))
+        + f"; plans {chunked_plans}; ptxas {registers_summary(chunked_regs)}")
     log(f"  prototype kernels at Q={PROTO_Q} (N={n:,} d={d} bf16), tensor cores: " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in times.items()) + "; CUDA cores (replaced): " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in cuda_core.items()) + "; plain " + "; ".join(
@@ -2861,7 +2977,20 @@ def phase6(store) -> dict:
              **{f"G={g}_ms": cuda_core[f"width{g}"] for g in GV.WIDTHS}}}),
         ("groupmin_chunked", times["chunk512"], plain["chunked"], b2048["groupmin_chunked"],
          worst("chunk"), "Q=2048 N=1,000,000 d=128 bf16 chunk=512 (bf16-row norms)",
-         {f"chunk={c}_ms": times[f"chunk{c}"] for c in GV.CHUNKS}),
+         {**{f"chunk={c}_ms": times[f"chunk{c}"] for c in GV.CHUNKS},
+          **{f"Q=4096_chunk={c}_ms": times[f"chunk{c}_Q4096"] for c in GV.CHUNKS},
+          "Q=4096_bound_ms": bnd(BENCH_Q, ng * BENCH_Q * 4)[0],
+          "groupmin_Q4096_ms": times["groupmin_Q4096"], "plans": chunked_plans,
+          **{f"Q={nq}_query_tile_128_ms": times[f"chunk512_bq128_Q{nq}"]
+             for nq in (PROTO_Q, BENCH_Q)},
+          "ptxas": chunked_regs,
+          "distance_from_groupmin": max(v for e in (errs, errs4) for k, v in e.items()
+                                        if k.startswith("chunk") and k.endswith("_vs_groupmin")),
+          "cuda_core": {"source": SOURCE_VARIANTS_CUDA_CORE,
+                        "max_abs_err": worst_cuda_core("chunk"),
+                        **{f"chunk={c}_ms": cuda_core[f"chunk{c}"] for c in GV.CHUNKS},
+                        **{f"Q=4096_chunk={c}_ms": cuda_core[f"chunk{c}_Q4096"]
+                           for c in GV.CHUNKS}}}),
         ("groupmin_two_level", times["two_level_v1"], plain["two_level"],
          b2048["groupmin_two_level"], worst("two_level_v1"),
          "Q=2048 N=1,000,000 d=128 bf16 v1 (f32-row norms)",
@@ -2880,16 +3009,17 @@ def phase6(store) -> dict:
     ]
     # the kernels line's names of the tensor-core prototypes: (wrapper, registers' key prefix)
     on_sweep = {"groupmin_width": ("groupmin_width", "width"),
+                "groupmin_chunked": ("groupmin_chunked", None),  # its own sweep: "ptxas"
                 "groupmin_two_level": ("groupmin_two_level", "two_level"),
                 "groupmin_two_level_layouts": ("groupmin_two_level", "two_level")}
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
         "launches": launches[name], "max_abs_err": err, "ms": tk, "plain_ms": p, "bound_ms": b[0],
         "bound_by": b[1], "library_ms": None, "shape": shape,
-        **({"launches_by_route": by_route[on_sweep[name][0]],
-            "registers_bench_point": {k: v for k, v in regs.items()
+        **({"launches_by_route": by_route[on_sweep[name][0]]} if name in on_sweep else {}),
+        **({"registers_bench_point": {k: v for k, v in regs.items()
                                       if k.startswith(on_sweep[name][1])}}
-           if name in on_sweep else {}),
+           if on_sweep.get(name, (None, None))[1] else {}),
         "product_alone_ms": times["product"], "groupmin_ms": times["groupmin"], "variants": extra,
     } for name, tk, p, b, err, shape, extra in entries]
     b2048, b4096 = bnd(PROTO_Q, ng * PROTO_Q * 4), bnd(BENCH_Q, ng * BENCH_Q * 4)
@@ -3338,6 +3468,12 @@ def main() -> int:
             "shapes": {c: {k: v for k, v in r.items() if k != "max_abs_err"}
                        for c, r in cases.items()},
         })
+    running = kernels[-2]
+    running["launches_by_route"] = last["running_by_route"]
+    running["ptxas"] = last["running_ptxas"]
+    running["row_dot"] = {"source": SOURCE_RUNNING_ROW_DOT, **{
+        c: {"ms": r["row_dot_ms"], "max_abs_err": r["row_dot_max_abs_err"]}
+        for c, r in last["running"].items()}}
     merged = kernels[-1]
     merged["tensor_core_launches"] = last["launches"]["topk_merged_tensor_cores"]
     merged["edge_routes"] = last["edge"]["topk_merged_routes"]

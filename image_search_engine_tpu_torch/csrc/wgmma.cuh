@@ -1,8 +1,10 @@
 // Hopper's asynchronous building blocks, shared by the kernels that use
-// them (kmeans_assign.cu, groupmin_tf32.cu): mbarriers, the Tensor Memory
-// Accelerator's tiled loads and tensor maps (128-byte swizzle), and the
-// warpgroup MMA (wgmma) on tf32 operands, A from registers (each warp its 16
-// rows in mma.sync m16n8k8's A fragment, mma.cuh) and B from shared memory.
+// them (kmeans_assign.cu, groupmin_tf32.cu, groupmin_wgmma.cuh,
+// topk_running_rows.cu): mbarriers, the Tensor Memory Accelerator's tiled
+// loads and tensor maps (128-byte swizzle), and the warpgroup MMA (wgmma) on
+// tf32 operands, A from registers (each warp its 16 rows in mma.sync
+// m16n8k8's A fragment, mma.cuh) and B from shared memory, and on bf16
+// operands, both from shared memory.
 
 #pragma once
 
@@ -52,12 +54,21 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// the box at (c0, c1) of a 2-D tensor map, likewise
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 
 // ---- the warpgroup MMA ----
 
 // A descriptor of a K-major operand tile in the 128-byte swizzle: rows of
-// 128 bytes, 8-row atoms 1024 bytes apart; the k-step's 32 bytes are
-// selected by the start address.
+// 128 bytes, 8-row atoms 1024 bytes apart; the k-step's 32 bytes (8 tf32 or
+// 16 bf16 values) are selected by the start address.
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3ffff) >> 4) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
@@ -153,6 +164,43 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// d = a . b (+ d when scale_d != 0) for a 64 x N x 16 bf16 tile with f32
+// sums: a (64 rows of the left operand) and b (N rows of the right one), both
+// K-major in shared memory (desc_a, desc_b). The accumulator is laid out as
+// wgmma_tf32's: row 16 w + lane / 4 + 8 h of warp w, column 8 j + 2 (lane %
+// 4) + e in d[4 j + 2 h + e].
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -161,6 +209,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// until at most N of this warpgroup's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving reads or writes of r across the async MMA
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
@@ -200,6 +253,23 @@ bool tensor_map(CUtensorMap* map, const void* base, long long cols, long long e1
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
                    strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D tensor map of a row-major (rows, cols) matrix of `type` elements of
+// esize bytes (rows of cols * esize bytes, a multiple of 16, at a 16-byte
+// aligned base) with a box of box_cols x box_rows (box_cols * esize = 128
+// for the 128-byte swizzle), zero-filling out of bounds.
+bool tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base,
+                   long long cols, long long rows, int box_cols, int box_rows,
+                   CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(cols * esize)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encoder() &&
+         encoder()(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

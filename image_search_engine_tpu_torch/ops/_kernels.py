@@ -30,10 +30,12 @@ SOURCES = (_CSRC / "topk_twophase.cu", _CSRC / "topk_twophase_q8.cu",
            _CSRC / "groupmin_width_mma.cu", _CSRC / "groupmin_two_level_mma.cu",
            _CSRC / "rescore_variants.cu", _CSRC / "groupmin_tf32.cu",
            _CSRC / "select_topt.cu", _CSRC / "topk_merged_tf32.cu",
-           *(_CSRC / f"topk_merged_mma{bq}.cu" for bq in (16, 32, 64, 128)))
+           *(_CSRC / f"topk_merged_mma{bq}.cu" for bq in (16, 32, 64, 128)),
+           _CSRC / "groupmin_chunked_wgmma.cu", _CSRC / "topk_running_rows.cu")
 HEADERS = (_CSRC / "scoring.cuh", _CSRC / "select.cuh", _CSRC / "mma.cuh",
            _CSRC / "groupmin_mma.cuh", _CSRC / "wgmma.cuh", _CSRC / "select_radix.cuh",
-           _CSRC / "twophase.cuh", _CSRC / "groupmin_tf32.cuh", _CSRC / "topk_merged.cuh")
+           _CSRC / "twophase.cuh", _CSRC / "groupmin_tf32.cuh", _CSRC / "topk_merged.cuh",
+           _CSRC / "groupmin_wgmma.cuh", _CSRC / "running_lists.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install prefix
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -142,6 +144,9 @@ def library() -> ctypes.CDLL:
             lib.ise_kmeans_assign.restype = i
             lib.ise_topk_running.argtypes = [i, p, p, p, p, p, p, p, i, ll, i, i, i, i, i, p]
             lib.ise_topk_running.restype = i
+            lib.ise_topk_running_rows.argtypes = [i, p, p, p, p, p, p, p, i, ll, i, i, i, i, ll,
+                                                  i, i, i, p]
+            lib.ise_topk_running_rows.restype = i
             merged = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i, i,
                       i, i, p]
             lib.ise_topk_merged.argtypes = lib.ise_topk_merged_tf32.argtypes = merged
@@ -158,6 +163,8 @@ def library() -> ctypes.CDLL:
             lib.ise_groupmin_two_level_mma.restype = i
             lib.ise_groupmin_chunked.argtypes = [p, p, p, p, i, ll, i, i, p]
             lib.ise_groupmin_chunked.restype = i
+            lib.ise_groupmin_chunked_wgmma.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, p]
+            lib.ise_groupmin_chunked_wgmma.restype = i
             lib.ise_rescore_gather.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]
             lib.ise_rescore_gather.restype = i
             lib.ise_rescore_cross.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]

@@ -1,5 +1,6 @@
 """The phase-1 group-min sweep's prototype variants (``csrc/groupmin_width_mma.cu``,
-``csrc/groupmin_two_level_mma.cu``, ``csrc/groupmin_variants.cu``).
+``csrc/groupmin_two_level_mma.cu``, ``csrc/groupmin_chunked_wgmma.cu``,
+``csrc/groupmin_variants.cu``).
 
 Ports of the TPU prototypes under the JAX repo's ``benchmarks/``, each the
 production sweep (:func:`~image_search_engine_tpu_torch.ops.topk.groupmin`:
@@ -17,38 +18,45 @@ The width and two-level kernels are production's bf16 tensor-core sweep
 (``csrc/groupmin_mma.cuh``, on :func:`~image_search_engine_tpu_torch.ops.
 topk.mma_plan`'s tiles) with another output policy in its epilogue, so
 what each changes is all that separates its time from ``groupmin``'s, and
-their 128-row mins are ``groupmin``'s bit for bit. The CUDA-core kernels
-they replaced (a warp per row scored by ``row_dot``, the design production
-``groupmin`` ran for bf16 before its tensor cores) stay as the ``cuda_core``
-route, which only ``chip_smoke.py`` takes, through :data:`ROUTE`.
+their 128-row mins are ``groupmin``'s bit for bit. The chunked kernel is a
+bf16 sweep on the warpgroup MMA fed by the Tensor Memory Accelerator
+(``csrc/groupmin_wgmma.cuh``, on :func:`chunked_plan`'s tiles), whose two
+consumer warpgroups take the products in turn so that one's mins overlap
+the other's product. The CUDA-core kernels they replaced (a warp per row
+scored by ``row_dot``, the design production ``groupmin`` ran for bf16
+before its tensor cores; for the chunked one, register-blocked f32 FMAs)
+stay as the ``cuda_core`` route, which only ``chip_smoke.py`` takes,
+through :data:`ROUTE`.
 
 As in the prototypes, the query and the store are bf16 (f32 sums) and the
 mins are group-major, (groups, Q). Rows of a ragged last group past N count
 as +inf; nothing is padded. Each wrapper launches its CUDA kernel for CUDA
 tensors (or raises) and runs its plain PyTorch version (``*_ref``: one f32
 product, then mins over slices) for CPU tensors, and counts its launches in
-``<wrapper>.launches`` (the width and two-level ones also per route, in
-``mma_launches`` and ``cuda_core_launches``).
+``<wrapper>.launches``, and per route in ``mma_launches`` and
+``cuda_core_launches``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from image_search_engine_tpu_torch.ops import _kernels
-from image_search_engine_tpu_torch.ops.topk import (GROUP, MmaPlan, _on_cuda, _query_tile,
-                                                    _stream, _vec_mma, mma_plan)
+from image_search_engine_tpu_torch.ops.topk import (_BLOCK_SMEM_MAX, GROUP, MmaPlan, SweepGrid,
+                                                    _on_cuda, _query_tile, _stream, _vec_mma,
+                                                    mma_plan, num_groups)
 
 SUB = 32  # subgroup width of the two-level sweep
 WIDTHS = (128, 64, 32)
 LAYOUTS = ("v1", "v2", "v3")
 CHUNKS = (512, 1024)
-#: the width and two-level kernels' routes: "mma", the tensor-core sweep
-#: (every caller), and "cuda_core", the row_dot kernels it replaced
-#: (``chip_smoke.py``'s comparison only)
+#: the kernels' routes: "mma", the tensor-core sweeps (every caller), and
+#: "cuda_core", the CUDA-core kernels they replaced (``chip_smoke.py``'s
+#: comparison only)
 ROUTES = ("mma", "cuda_core")
 #: the route the wrappers launch on CUDA tensors; ``chip_smoke.py`` alone
 #: sets it to "cuda_core", for the length of a comparison
@@ -255,20 +263,109 @@ def groupmin_two_level_ref(q: torch.Tensor, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+#: queries per tile of the chunked warpgroup-MMA sweep: 64 or 128 per
+#: consumer warpgroup (csrc/groupmin_wgmma.cuh, BQ = 128 MT)
+CHUNKED_BQ = (128, 256)
+_WG_SPAN = 64  # bf16 columns of one 128-byte swizzle span (WG_SPAN)
+_WG_X_SPAN = GROUP * 128  # a group's rows over one span, in bytes (WG_X_SPAN)
+
+
+@dataclass(frozen=True)
+class ChunkedPlan(SweepGrid):
+    """The chunked warpgroup-MMA sweep's tiles for Q = nq queries over an
+    (n, d) bf16 store: block b takes query tile b % nqt (``bq`` queries) and
+    the slice of ``gps`` groups b // nqt; a group's rows arrive over ``nkc``
+    ring stages of ``kc`` columns each (d zero-padded to ``dp``), in a ring
+    of ``stages`` stages; the query tile stays in shared memory for the
+    block (``resident``) or arrives in each stage beside the rows."""
+
+    d: int
+    kc: int
+    stages: int
+    resident: bool
+
+    @property
+    def dp(self) -> int:
+        return -(-self.d // self.kc) * self.kc
+
+    @property
+    def nkc(self) -> int:
+        return self.dp // self.kc
+
+    @property
+    def stage_bytes(self) -> int:
+        """groupmin_wgmma_stage: the group's rows over kc columns, and the
+        query tile's unless resident."""
+        spans = self.kc // _WG_SPAN
+        return spans * _WG_X_SPAN + (0 if self.resident else spans * self.bq * 128)
+
+    @property
+    def smem(self) -> int:
+        """groupmin_wgmma_smem: alignment, resident tile, ring, mbarriers."""
+        return (1024 + (self.bq * self.dp * 2 if self.resident else 0)
+                + self.stages * self.stage_bytes + (2 * self.stages + 1) * 8)
+
+    @property
+    def rows_in_flight(self) -> int:
+        """Store rows the ring holds: what ``chunk`` sets on the card."""
+        return self.stages * GROUP // self.nkc
+
+
+def chunked_plan(nq: int, n: int, d: int, chunk: int, sms: int) -> ChunkedPlan:
+    """The tile plan :func:`groupmin_chunked` launches with on a card of
+    ``sms`` SMs. Query tiles of 128 queries up to Q = 128, else 256 (two
+    consumer warpgroups of one or two 64-query M tiles). A stage is a
+    group's 128 rows over 128 columns (64 where d <= 64), so at d = 128 a
+    group is one stage and one commit. The query tile is resident if it
+    fits beside two stages, else it streams in every stage. ``chunk`` is
+    the rows the ring keeps in flight: chunk / 128 groups' stages, as many
+    as fit the 227 KB of shared memory a block may have (a warpgroup's
+    product between two of its epilogues is one group whatever the chunk,
+    its 128 queries x 128 rows of f32 sums filling 128 registers a thread).
+    The slices give the SMs one wave of blocks, each query tile's blocks
+    on one slice running together, so the slice is read from L2 after its
+    first tile. Raises on shapes the kernel cannot take."""
+    if nq < 1 or n < 1 or d < 8 or d % 8 or sms < 1 or chunk not in CHUNKS:
+        raise ValueError(f"no chunked plan for Q={nq}, N={n}, d={d}, chunk={chunk} on {sms} SMs")
+    if n > 2 ** 31 - 1 - GROUP:
+        raise ValueError(f"N={n} rows exceed the tensor map's int row coordinates")
+    bq = CHUNKED_BQ[0] if nq <= CHUNKED_BQ[0] else CHUNKED_BQ[1]
+    kc = 2 * _WG_SPAN if d > _WG_SPAN else _WG_SPAN
+    nqt, ng = -(-nq // bq), num_groups(n)
+    nslices = min(ng, max(1, sms // nqt))
+    gps = -(-ng // nslices)
+    for resident in (True, False):
+        base = ChunkedPlan(nq=nq, n=n, bq=bq, gps=gps, d=d, kc=kc, stages=0, resident=resident)
+        fit = (_BLOCK_SMEM_MAX - base.smem) // (base.stage_bytes + 16)
+        if fit >= 2:
+            break
+    want = chunk // GROUP * base.nkc
+    return ChunkedPlan(nq=nq, n=n, bq=bq, gps=gps, d=d, kc=kc, stages=max(2, min(want, fit)),
+                       resident=resident)
+
+
 def groupmin_chunked(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
                      chunk: int) -> torch.Tensor:
-    """The 128-row group mins, (ngroups, Q) f32 group-major, with each
-    4096-row tile scored ``chunk`` rows (512 or 1024) at a time: the same
-    function as ``groupmin(...).T``, its sums in another order.
+    """The 128-row group mins, (ngroups, Q) f32 group-major, of a sweep
+    whose products and mins overlap: the same function as
+    ``groupmin(...).T``, its sums in another order. ``chunk`` (512 or 1024,
+    the TPU prototype's rows per product) sets the rows the sweep keeps in
+    flight (:func:`chunked_plan`).
 
     Replaces ``chunked_kernel`` (benchmarks/sweep_chunked.py:53, launched
-    :74). What bounds it on the card: the 2*Q*N*d products. The design is
-    the CUDA form of "a chunk's product, then its mins": a block stages a
-    tile of 32768 / ``chunk`` queries (64 or 32) and the chunk's rows in shared memory
-    a slice of 8 columns at a time, each thread accumulates an 8-query x
-    16-row register tile with f32 FMAs, the (queries x chunk) scores go to
-    shared memory, and each warp takes the min of 128-row groups of them,
-    then the next chunk. Rows must be 16-byte multiples (d % 8 == 0).
+    :74). What bounds it on the card: the 2*Q*N*d products. The TPU
+    script asked whether the matrix unit's product of the next chunk
+    overlaps the vector unit's mins of this one; the kernel
+    (``csrc/groupmin_chunked_wgmma.cu`` on ``csrc/groupmin_wgmma.cuh``) runs
+    the products as asynchronous bf16 warpgroup MMAs fed by the Tensor
+    Memory Accelerator, and its two consumer warpgroups take them in turn,
+    so one's mins of a group run on the CUDA cores while the other's product
+    runs on the tensor cores. Rows must be 16-byte multiples at 16-byte
+    aligned addresses (d % 8 == 0). On the ``cuda_core`` route
+    (:data:`ROUTE`), the kernel it replaced: a tile of 32768 / ``chunk``
+    queries by ``chunk`` rows at a time, each thread an 8-query x 16-row
+    register tile of f32 FMAs, the scores through shared memory to a min
+    pass, then the next chunk.
     """
     _check(q, x, norms)
     if chunk not in CHUNKS:
@@ -282,16 +379,26 @@ def groupmin_chunked(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
     out = torch.empty((-(-n // GROUP), nq), dtype=torch.float32, device=x.device)
     if nq == 0 or n == 0:
         return out
+    route = _route()
     with torch.cuda.device(x.device):
-        err = _kernels.library().ise_groupmin_chunked(
-            q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, d, chunk,
-            _stream(x))
+        lib = _kernels.library()
+        if route == "mma":
+            p = chunked_plan(nq, n, d, chunk,
+                             torch.cuda.get_device_properties(x.device).multi_processor_count)
+            err = lib.ise_groupmin_chunked_wgmma(
+                q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, d, p.bq,
+                p.kc, p.stages, p.gps, int(p.resident), p.smem, _stream(x))
+        else:
+            err = lib.ise_groupmin_chunked(q.data_ptr(), norms.data_ptr(), x.data_ptr(),
+                                           out.data_ptr(), nq, n, d, chunk, _stream(x))
     _kernels.check(err, "groupmin_chunked")
-    groupmin_chunked.launches += 1
+    _count(groupmin_chunked, route)
     return out
 
 
 groupmin_chunked.launches = 0
+groupmin_chunked.mma_launches = 0  # of those, the warpgroup-MMA sweep's
+groupmin_chunked.cuda_core_launches = 0  # and the FMA kernel's (chip_smoke.py's comparison)
 
 
 def groupmin_chunked_ref(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
@@ -306,6 +413,5 @@ KERNELS = (groupmin_width, groupmin_two_level, groupmin_chunked)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    for fn in (groupmin_width, groupmin_two_level):
         for route in ROUTES:
             setattr(fn, f"{route}_launches", 0)

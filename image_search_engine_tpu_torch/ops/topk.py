@@ -990,18 +990,122 @@ def rescore_q8_ref(q: torch.Tensor, qscale: torch.Tensor, x: torch.Tensor, scale
 #: neighbours the running and merged top-k kernels return at most (as the
 #: TPU kernels)
 KERNEL_MAX_K = 128
-#: scan blocks the running top-k aims for per SM (a few waves, long slices)
+#: scan blocks the replaced running top-k kernel aims for per SM (a few
+#: waves, long slices)
 _RUNNING_BLOCKS_PER_SM = 8
-#: warps per scan block (``WARPS`` in csrc/scoring.cuh)
+#: warps per scan block of either kernel (``WARPS`` in csrc/scoring.cuh,
+#: ``ROWS_WARPS`` in csrc/topk_running_rows.cu: the consumers)
 _RUNNING_WARPS = 8
+#: the running top-k's routes: "staged", rows staged in shared memory by the
+#: Tensor Memory Accelerator and scored a lane per row
+#: (csrc/topk_running_rows.cu, every caller's), and "row_dot", the warp per
+#: row kernel it replaced (csrc/topk_running.cu, ``chip_smoke.py``'s
+#: comparison only)
+RUNNING_ROUTES = ("staged", "row_dot")
+#: the route :func:`topk_running` launches on CUDA tensors; ``chip_smoke.py``
+#: alone sets it to "row_dot", for the length of a comparison
+RUNNING_ROUTE = "staged"
+# The staged kernel's shared memory (csrc/topk_running_rows.cu): a stage is
+# 256 rows (a lane each) x 128 bytes of them, after 128 bytes of mbarriers
+# and 1024 of alignment; the f32 query tile is qt rows of d rounded up to a
+# stage's columns.
+_ROWS_TILE = 256
+_ROWS_SPAN = 128
+_ROWS_STAGE = _ROWS_TILE * _ROWS_SPAN
+_ROWS_MAX_STAGES = 8
+_ROWS_FIXED = 2 * _ROWS_MAX_STAGES * 8 + 1024
+#: shared memory of an H100 SM (228 KB), each resident block reserving 1 KB,
+#: and the most one block may ask for (227 KB)
+_SM_SMEM = 233_472
+_BLOCK_SMEM_MAX = 232_448
 
 
 def _running_slices(n: int, k: int, nqt: int, sms: int) -> int:
-    """Store slices per query tile: enough blocks for a few waves over the
-    SMs, but at least k rows for each warp of a slice, so the slices' lists
-    stay small next to the store."""
+    """Store slices per query tile of the replaced ("row_dot") kernel:
+    enough blocks for a few waves over the SMs, but at least k rows for each
+    warp of a slice, so the slices' lists stay small next to the store."""
     want = -(-_RUNNING_BLOCKS_PER_SM * sms // nqt)
     return max(1, min(want, n // (_RUNNING_WARPS * k)))
+
+
+@dataclass(frozen=True)
+class RunningPlan:
+    """The staged running top-k's launch for Q = nq queries over an (n, d)
+    store of ``itemsize``-byte elements at k neighbours: blocks of
+    ``qt`` queries and a slice of ``rows_per_slice`` rows (whole 256-row
+    tiles), ``nslices`` slices per query tile, a ring of ``stages`` stages of
+    32 KB, ``blocks_per_sm`` blocks sharing an SM; ``smem`` bytes of dynamic
+    shared memory a block (the ring and the f32 query tile, or the warps'
+    lists where those are larger)."""
+
+    nq: int
+    n: int
+    d: int
+    itemsize: int
+    k: int
+    qt: int
+    stages: int
+    blocks_per_sm: int
+    nslices: int
+    rows_per_slice: int
+
+    @property
+    def nqt(self) -> int:
+        return -(-self.nq // self.qt)
+
+    @property
+    def dpad(self) -> int:
+        span = _ROWS_SPAN // self.itemsize
+        return -(-self.d // span) * span
+
+    @property
+    def smem(self) -> int:
+        return _rows_smem(self.qt, self.dpad, self.stages, self.k)
+
+
+def _rows_smem(qt: int, dpad: int, stages: int, k: int) -> int:
+    """running_rows_smem in csrc/topk_running_rows.cu."""
+    return _ROWS_FIXED + max(stages * _ROWS_STAGE + qt * dpad * 4,
+                             _RUNNING_WARPS * qt * k * 8)
+
+
+def running_plan(nq: int, n: int, d: int, itemsize: int, k: int, sms: int) -> RunningPlan:
+    """The launch of the staged running top-k (csrc/topk_running_rows.cu) on
+    a card of ``sms`` SMs. The query tile holds min(Q, 8) queries (a power
+    of two), halved until it and a ring of two stages fit a block. Two
+    blocks share an SM where the tile leaves them a ring of two stages each
+    and holds at most 4 queries (the kernel's register budget for two
+    blocks), else one does, with a ring of as many stages (up to 8) as fit.
+    The slices give every SM its blocks in one wave, as long as each warp of
+    a slice gets k rows, in whole 256-row tiles. Raises on shapes the kernel
+    cannot take."""
+    if nq < 1 or n < 1 or d < 1 or itemsize not in (2, 4) or not 1 <= k <= KERNEL_MAX_K:
+        raise ValueError(f"no running plan for Q={nq}, N={n}, d={d}, itemsize={itemsize}, k={k}")
+    span = _ROWS_SPAN // itemsize
+    dpad = -(-d // span) * span
+    qt = next(t for t in (1, 2, 4, 8) if t >= min(nq, 8))
+    while qt > 1 and _rows_smem(qt, dpad, 2, k) > _BLOCK_SMEM_MAX:
+        qt //= 2
+    if _rows_smem(qt, dpad, 2, k) > _BLOCK_SMEM_MAX:
+        raise ValueError(f"a {d * 4}-byte query row leaves no room for the running top-k's ring")
+    for bps in (2, 1) if qt <= 4 else (1,):
+        budget = min(_BLOCK_SMEM_MAX, _SM_SMEM // bps - 1024)
+        stages = min(_ROWS_MAX_STAGES, (budget - _ROWS_FIXED - qt * dpad * 4) // _ROWS_STAGE)
+        if stages >= 2 and _rows_smem(qt, dpad, stages, k) <= budget:
+            break
+    nqt = -(-nq // qt)
+    nslices = max(1, min(bps * sms // nqt, n // (_RUNNING_WARPS * k)))
+    rows = -(-n // nslices)
+    rows_per_slice = -(-rows // _ROWS_TILE) * _ROWS_TILE
+    return RunningPlan(nq=nq, n=n, d=d, itemsize=itemsize, k=k, qt=qt, stages=stages,
+                       blocks_per_sm=bps, nslices=-(-n // rows_per_slice),
+                       rows_per_slice=rows_per_slice)
+
+
+def _running_route() -> str:
+    if RUNNING_ROUTE not in RUNNING_ROUTES:
+        raise ValueError(f"RUNNING_ROUTE={RUNNING_ROUTE!r} not in {RUNNING_ROUTES}")
+    return RUNNING_ROUTE
 
 
 def topk_running(
@@ -1027,11 +1131,17 @@ def topk_running(
     79, launched :211). What bounds it on the card: one read of the store
     per query tile of up to 8 queries, N*d*itemsize + 4N bytes, so at
     serving batch sizes a memory-bandwidth kernel like :func:`groupmin`.
-    The design (``csrc/topk_running.cu``) splits the store into slices, one
-    block per (slice, query tile); each warp keeps its own sorted top-k per
-    query in registers and inserts a row only when it beats the warp's k-th
-    (the TPU kernel's reject-fast test, per row); the block merges its
-    warps' lists, and a second kernel merges the slices' lists per query.
+    The design (``csrc/topk_running_rows.cu``, :func:`running_plan`) splits
+    the store into slices, one block per (slice, query tile); a producer
+    warp streams the slice into a ring of shared-memory stages with the
+    Tensor Memory Accelerator, and each lane of 8 consumer warps sums one
+    row for every query of the tile, the query values read as broadcasts;
+    per query, a ballot against the warp's k-th picks the rows that enter
+    the warp's own sorted top-k (the TPU kernel's reject-fast test); the
+    block merges its warps' lists, and a second kernel merges the slices'
+    lists per query. On the "row_dot" route (:data:`RUNNING_ROUTE`), the
+    warp-per-row kernel it replaced. Launches are counted in
+    ``topk_running.launches`` and per route in ``<route>_launches``.
     """
     qf, x, norms, metric, q = _running_inputs(q, x, k, metric, x_norms)
     if not _on_cuda(qf, x, norms):
@@ -1041,7 +1151,14 @@ def topk_running(
     n = x.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"N={n} rows: the running top-k kernel takes N < 2^31")
-    qt = _query_tile(nq, d * 4)
+    route = _running_route()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if route == "staged":
+        plan = running_plan(max(nq, 1), max(n, 1), d, x.element_size(), k, sms)
+        qt, nslices = plan.qt, plan.nslices
+    else:
+        qt = _query_tile(nq, d * 4)
+        nslices = _running_slices(n, k, -(-nq // qt), sms)
     nqt = -(-nq // qt)
     if nqt > 65535:
         raise ValueError(f"{nq} queries exceed the kernel's grid ({65535 * qt} at most)")
@@ -1049,21 +1166,27 @@ def topk_running(
     ids = torch.empty((nq, k), dtype=torch.int32, device=x.device)
     if nq == 0:
         return _finish_scores(vals, ids.long(), q, metric)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nslices = _running_slices(n, k, nqt, sms)
     part_v = torch.empty((nq, nslices, k), dtype=torch.float32, device=x.device)
     part_i = torch.empty((nq, nslices, k), dtype=torch.int32, device=x.device)
+    args = (_DTYPE_CODES[x.dtype], qf.data_ptr(), norms.data_ptr(), x.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(), nq, n, d, k,
+            qt, nslices)
     with torch.cuda.device(x.device):
-        err = _kernels.library().ise_topk_running(
-            _DTYPE_CODES[x.dtype], qf.data_ptr(), norms.data_ptr(), x.data_ptr(),
-            part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-            nq, n, d, k, qt, nslices, _vec(x), _stream(x))
+        lib = _kernels.library()
+        if route == "staged":
+            err = lib.ise_topk_running_rows(*args, plan.rows_per_slice, plan.stages, plan.smem,
+                                            int(_vec(x) > 1), _stream(x))
+        else:
+            err = lib.ise_topk_running(*args, _vec(x), _stream(x))
     _kernels.check(err, "topk_running")
     topk_running.launches += 1
+    setattr(topk_running, f"{route}_launches", getattr(topk_running, f"{route}_launches") + 1)
     return _finish_scores(vals, ids.long(), q, metric)
 
 
 topk_running.launches = 0
+topk_running.staged_launches = 0  # of those, the staged kernel's
+topk_running.row_dot_launches = 0  # and the warp-per-row kernel's (chip_smoke.py's comparison)
 
 
 def topk_running_ref(
@@ -1118,6 +1241,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     groupmin.tensor_core_launches = rescore.tensor_core_launches = 0
+    topk_running.staged_launches = topk_running.row_dot_launches = 0
     select_topt.radix_launches = select_topt.extract_min_launches = 0
     group_order.launches = 0  # rescore_q8's slot order (counted apart from KERNELS)
 
