@@ -103,10 +103,21 @@ Phases (each raises on failure; the script then exits non-zero):
   7. the same store: each ported phase-2 prototype script's searches once
      (fused gather and rescore, its QB sweep, the approximate select and Q
      = 4096, cross products only, the hierarchical select) with their
-     recall@10 beside the production search's, the three rescore variant
-     kernels against their plain versions at Q = 2048 and 4096 on a real
-     phase 1's candidates plus an edge sweep, with timings beside the
-     production ``rescore``.
+     recall@10 beside the production search's (launches by route: none on
+     the slot route; the slot order's launches counted), then the rescore
+     variant kernels on both routes (the group route: the slots in group
+     order, each group staged once a block; the slot route it replaced,
+     forced through ``rescore_route``) against their plain versions at
+     every QB, at Q = 2048 and 4096 on a real phase 1's candidates, over an
+     edge sweep and over skewed candidate lists (one group for every
+     query, a group's slots over many blocks' ranges, t = ngroups,
+     repeated groups, ids outside the store), the group route's slot order
+     against its plain version, timings of both routes in turns beside the
+     two slot orders alone (the route's shared-memory one and production's
+     ``group_order``) and the production ``rescore``, ptxas registers and
+     spills of the group route's instantiations; and an empty batch and k
+     = 0 through ``FlatIndex.search`` on each store dtype and metric
+     (shapes and dtypes as the JAX package's).
 
 Before its last two lines it prints a JSON object describing the 16
 kernels (launches, errors, times, bounds; ``groupmin`` and ``rescore``
@@ -436,6 +447,22 @@ def running_route(route: str):
         yield
     finally:
         T.RUNNING_ROUTE = keep
+
+
+@contextlib.contextmanager
+def rescore_route(route: str):
+    """rescore_gather and rescore_cross on one of their routes: "group" (the
+    slots in group order, each group staged once a block; every caller's)
+    or "slot" (the kernel they replaced, which no caller takes); this sets
+    ``rescore_variants.ROUTE`` for the duration."""
+    from image_search_engine_tpu_torch.ops import rescore_variants as RV
+
+    keep = RV.ROUTE
+    RV.ROUTE = route
+    try:
+        yield
+    finally:
+        RV.ROUTE = keep
 
 
 def kernel_registers(pattern: str) -> dict:
@@ -3049,12 +3076,12 @@ RESCORE_MARGIN = 2  # the phase-2 prototypes' margin: t = k + 2 = 12 candidate g
 
 
 def check_rescore_variants(name, qf, x, norms, cand, tol, *, qbs=None, cross=True) -> dict:
-    """rescore_gather at each QB (and rescore_cross) against their plain
-    versions on (qf, x, cand): scores within tol, +inf (cross: 0) exactly at
-    the rows past N, and the final top-10 of the kernel's scores the plain
-    scores' (near-ties apart; the cross products scored as the script's
-    epilogue does, ``norms`` with PAD_NORM past N). Returns {kernel_qb:
-    max_abs_err}."""
+    """rescore_gather at each QB (and rescore_cross) on both routes against
+    their plain versions on (qf, x, cand): scores within tol, +inf (cross: 0)
+    exactly at the rows past N, and the final top-10 of the kernel's scores
+    the plain scores' (near-ties apart; the cross products scored as the
+    script's epilogue does, ``norms`` with PAD_NORM past N). Returns
+    {kernel_route_qb: max_abs_err}."""
     import torch
 
     from image_search_engine_tpu_torch.ops import rescore_variants as RV
@@ -3073,13 +3100,16 @@ def check_rescore_variants(name, qf, x, norms, cand, tol, *, qbs=None, cross=Tru
         want = ref(qf, x, cand)
         final = (lambda s: s) if kind == "gather" else (lambda s: cn - 2.0 * s)
         rd, rpos = stable_smallest(final(want), kk)
-        for qb in qbs or RV.QBS:
-            got = fn(qf, x, cand, qb=qb)
-            if not bool((got[~valid] == past).all()):
-                raise AssertionError(f"{name}: rescore_{kind} qb={qb} rows past N are not {past}")
-            errs[f"{kind}_qb{qb}"] = max_abs_err(got, want)
-            _, pos = stable_smallest(final(got), kk)
-            assert_ids_equal(f"{name} rescore_{kind} qb={qb}", pos, rpos, rd, tol)
+        for route in RV.ROUTES:
+            for qb in qbs or RV.QBS:
+                with rescore_route(route):
+                    got = fn(qf, x, cand, qb=qb)
+                what = f"{name} rescore_{kind} {route} qb={qb}"
+                if not bool((got[~valid] == past).all()):
+                    raise AssertionError(f"{what}: rows past N are not {past}")
+                errs[f"{kind}_{route}_qb{qb}"] = max_abs_err(got, want)
+                _, pos = stable_smallest(final(got), kk)
+                assert_ids_equal(what, pos, rpos, rd, tol)
     worst = max(errs.values())
     if worst > tol:
         raise AssertionError(f"{name}: rescore variant error {worst} > tolerance {tol}")
@@ -3087,10 +3117,11 @@ def check_rescore_variants(name, qf, x, norms, cand, tol, *, qbs=None, cross=Tru
 
 
 def edge_sweep_rescore(gen) -> float:
-    """Both kernels at every QB over N in {1, 127, 128, 129, 5000}, Q in {1,
-    7, 33}, d in {128, 130} (rows of no 16-byte multiple: scalar loads) and
-    t in {1, 12} (at most ngroups), random candidate groups with the ragged
-    last group among them, untimed. Returns the largest error."""
+    """Both kernels at every QB on both routes over N in {1, 127, 128, 129,
+    5000}, Q in {1, 7, 33}, d in {128, 130} (rows of no 16-byte multiple:
+    scalar loads on the slot route, the block's own copies on the group
+    route) and t in {1, 12} (at most ngroups), random candidate groups with
+    the ragged last group among them, untimed. Returns the largest error."""
     import torch
 
     from image_search_engine_tpu_torch.ops import topk as T
@@ -3111,9 +3142,112 @@ def edge_sweep_rescore(gen) -> float:
                                                   norms, cand, score_tol(q, norms))
                     worst = max(worst, *errs.values())
                     cases += 1
-    log(f"  rescore variants edge sweep: {cases} shapes, both kernels at every QB; largest error "
-        f"{worst:.3g}")
+    log(f"  rescore variants edge sweep: {cases} shapes, both kernels at every QB on both routes; "
+        f"largest error {worst:.3g}")
     return worst
+
+
+def skew_cases_rescore(x, norms, qf, gen) -> float:
+    """Both kernels at every QB on both routes over candidate lists that
+    crowd the group route's ranges: over the bench store, every query
+    picking one group (t = 1), every slot of 256 queries one group (a row
+    that repeats a group 12 times), the ragged last group (64 rows) in
+    every query's first slot with random groups beside it (one group's
+    2,048 slots over many blocks' ranges), 12 slots drawn from 3 groups,
+    ids outside [0, ngroups) (-1 and ngroups + 3, +inf or 0 whole); over a
+    5,000-row store, t = ngroups (every group, in a random order a query).
+    Returns the largest error."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    ng = T.num_groups(x.shape[0])
+    nq = qf.shape[0]
+    cases = {
+        "one group t=1": torch.full((nq, 1), 1234, dtype=torch.int32, device="cuda"),
+        "one group, whole rows": torch.full((256, 12), 77, dtype=torch.int32, device="cuda"),
+        "ragged group in every row": torch.randint(0, ng, (nq, 12), device="cuda", generator=gen,
+                                                   dtype=torch.int32).index_fill_(
+            1, torch.tensor([0], device="cuda"), ng - 1),
+        "3 groups": torch.randint(4000, 4003, (64, 12), device="cuda", generator=gen,
+                                  dtype=torch.int32),
+        "ids outside": torch.randint(0, ng, (64, 12), device="cuda", generator=gen,
+                                     dtype=torch.int32),
+    }
+    cases["ids outside"][:, 3] = -1
+    cases["ids outside"][::2, 7] = ng + 3
+    worst = 0.0
+    for name, cand in cases.items():
+        q = qf[:cand.shape[0]].contiguous()
+        errs = check_rescore_variants(f"rescore skew ({name})", q, x, norms, cand,
+                                      score_tol(q, norms))
+        worst = max(worst, *errs.values())
+    xs = torch.randn(5000, BENCH_D, device="cuda", generator=gen).to(torch.bfloat16)
+    qs = torch.randn(33, BENCH_D, device="cuda", generator=gen).to(torch.bfloat16)
+    ns, ngs = (xs.float() ** 2).sum(1), T.num_groups(5000)
+    cand = torch.argsort(torch.rand(33, ngs, device="cuda", generator=gen), dim=1).to(torch.int32)
+    errs = check_rescore_variants(f"rescore skew (t = ngroups = {ngs})", qs, xs, ns,
+                                  cand.contiguous(), score_tol(qs, ns))
+    worst = max(worst, *errs.values())
+    log(f"  rescore variants skew cases: {len(cases) + 1}, both kernels at every QB on both "
+        f"routes; largest error {worst:.3g}")
+    return worst
+
+
+def check_empty_batch_and_k0() -> dict:
+    """Faults F4 and F5 on the card: ``FlatIndex.search`` over 300 x 33 f32
+    rows (``np.random.default_rng(0)``) with an empty batch at k = 5 and
+    with k = 0 for the first three rows, on each store dtype and metric:
+    float32 distances and int32 ids of shape (0, 5) and (3, 0), as the JAX
+    package returns. Returns {case: shape}."""
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+
+    x = np.random.default_rng(0).standard_normal((300, 33)).astype(np.float32)
+    seen = {}
+    for dtype in ("f32", "bf16", "int8"):
+        for metric in ("l2", "ip", "cosine"):
+            index = FlatIndex(metric, dtype=dtype, device="cuda").add(x)
+            for q, k, want in ((x[:0], 5, (0, 5)), (x[:3], 0, (3, 0))):
+                d, i = index.search(q, k)
+                case = f"{dtype} {metric} Q={q.shape[0]} k={k}"
+                if (d.shape, i.shape, d.dtype, i.dtype) != (want, want, np.float32, np.int32):
+                    raise AssertionError(f"{case}: got {d.shape} {d.dtype} and {i.shape} "
+                                         f"{i.dtype}, want {want} float32 and int32")
+                seen[case] = list(want)
+    log(f"  F4 and F5 on the card: {len(seen)} searches (empty batch at k = 5, k = 0), each "
+        "store dtype and metric, float32 distances and int32 ids of the reference's shapes")
+    return seen
+
+
+def check_slot_order(cand, ng, flush) -> dict:
+    """The group route's slot order (``rescore_variants.slot_order``: one
+    block, bins and order in shared memory) against its plain version, a
+    permutation of the slots whose group sequence is the plain version's
+    (the order within a group is free), timed beside production's
+    ``group_order`` (bins in device memory, checked the same way) and
+    torch.argsort of the ids; bound: the ids read and the order written."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import rescore_variants as RV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    flat = cand.view(-1)
+    bins = flat.clamp(-1, ng)  # ids below 0 share a bin, as do those of ng or more
+    want = bins[RV.slot_order_ref(cand, ng).long()]
+    every = torch.arange(flat.numel(), device="cuda", dtype=torch.int32)
+    for name, order in (("slot_order", RV.slot_order(cand, ng)),
+                        ("group_order", T.group_order(cand, ng).order)):
+        if not (torch.equal(torch.sort(order).values, every)
+                and torch.equal(bins[order.long()], want)):
+            raise AssertionError(f"{name}: the slots are not in the plain version's group order")
+    b = bound(flat.numel() * 8, 0, F32_FLOPS)
+    return {"max_abs_err": 0.0, "ms": median_ms(lambda: RV.slot_order(cand, ng), flush),
+            "device_ms": graph_ms(lambda: RV.slot_order(cand, ng), flush),
+            "plain_ms": median_ms(lambda: RV.slot_order_ref(cand, ng), flush),
+            "group_order_ms": median_ms(lambda: T.group_order(cand, ng), flush),
+            "group_order_device_ms": graph_ms(lambda: T.group_order(cand, ng), flush),
+            "library_ms": median_ms(lambda: torch.argsort(flat), flush),
+            "bound_ms": b[0], "bound_by": b[1], "shape": f"{flat.numel()} slots, {ng} groups"}
 
 
 def rescore_bound(nq, x, cand, ops_per_element, norms_bytes=0):
@@ -3189,9 +3323,13 @@ def phase7(store) -> dict:
     launches = {"rescore_gather": before,
                 "rescore_gather_sweep2": RV.rescore_gather.launches - before,
                 "rescore_cross": RV.rescore_cross.launches, "groupmin": T.groupmin.launches,
-                "rescore": T.rescore.launches}
+                "rescore": T.rescore.launches, "slot_order": RV.slot_order.launches}
+    by_route = {fn.__name__: {r: getattr(fn, f"{r}_launches") for r in RV.ROUTES}
+                for fn in RV.KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"phase 7 main path: a kernel did not launch: {launches}")
+    if any(r["slot"] for r in by_route.values()):
+        raise AssertionError(f"phase 7 main path: the slot route launched: {by_route}")
     qf = queries[PROTO_Q].to(torch.bfloat16).contiguous()
     if not torch.equal(sweep_sum, T.groupmin(qf, x, nbf).sum()[None, None]):
         raise AssertionError("gather_kernel_sweep2 sweep-only: sum differs from groupmin's")
@@ -3202,23 +3340,47 @@ def phase7(store) -> dict:
         log(f"  {script} recall@10 vs float64 (8 queries): " + ", ".join(
             f"{k} {v:.3f}" for k, v in r.items()))
     log("  true top-10 inside the candidate groups (8 queries): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in covers.items()) + f"; launches {launches}")
+        f"{k} {v:.3f}" for k, v in covers.items()) + f"; launches {launches}, by route "
+        f"{by_route}")
 
     # the kernels against their plain versions on a real phase 1's candidates, then timed
     cand = GP.candidates(qf, x, nbf, RESCORE_MARGIN)
     qf4 = queries[BENCH_Q].to(torch.bfloat16).contiguous()
     cand4 = GP.candidates(qf4, x, nbf, RESCORE_MARGIN)
     errs = check_rescore_variants(f"Q={PROTO_Q}", qf, x, nbf, cand, score_tol(qf, nbf))
-    errs4 = check_rescore_variants(f"Q={BENCH_Q}", qf4, x, nbf, cand4, score_tol(qf4, nbf),
-                                   qbs=(8,), cross=False)
-    worst_edge = edge_sweep_rescore(gen)
+    errs4 = check_rescore_variants(f"Q={BENCH_Q}", qf4, x, nbf, cand4, score_tol(qf4, nbf))
+    # margin 3 at Q = 4096: 53,248 slots, past the slot order's shared memory, so the route
+    # orders them with production's group_order
+    cand4m3 = GP.candidates(qf4, x, nbf, RESCORE_MARGIN + 1)
+    before = T.group_order.launches
+    errs4m3 = check_rescore_variants(f"Q={BENCH_Q} t={cand4m3.shape[1]}", qf4, x, nbf, cand4m3,
+                                     score_tol(qf4, nbf), qbs=(8,))
+    if T.group_order.launches == before:
+        raise AssertionError("slot_order did not take group_order past its shared memory")
+    worst_edge = max(edge_sweep_rescore(gen), skew_cases_rescore(x, nbf, qf, gen))
+    empty = check_empty_batch_and_k0()
+    ng = T.num_groups(x.shape[0])
+    orders = {f"Q={nq}": check_slot_order(c, ng, flush) for nq, c in ((PROTO_Q, cand),
+                                                                       (BENCH_Q, cand4))}
     ms = lambda fn: median_ms(fn, flush)  # noqa: E731
-    times, plain = {}, {}
-    for qb in RV.QBS:
-        times[f"gather_qb{qb}"] = ms(lambda: RV.rescore_gather(qf, x, cand, qb=qb))
-        times[f"cross_qb{qb}"] = ms(lambda: RV.rescore_cross(qf, x, cand, qb=qb))
-    times["gather_qb8_Q4096"] = ms(lambda: RV.rescore_gather(qf4, x, cand4))
+    times, plain, device = {}, {}, {}
+    for qb in RV.QBS:  # the two routes in turns
+        for kind, fn in (("gather", RV.rescore_gather), ("cross", RV.rescore_cross)):
+            for route in (*RV.ROUTES, *reversed(RV.ROUTES)):
+                with rescore_route(route):
+                    times.setdefault(f"{kind}_{route}_qb{qb}", []).append(
+                        ms(lambda: fn(qf, x, cand, qb=qb)))
+    for route in (*RV.ROUTES, *reversed(RV.ROUTES)):
+        with rescore_route(route):
+            times.setdefault(f"gather_{route}_qb8_Q4096", []).append(
+                ms(lambda: RV.rescore_gather(qf4, x, cand4)))
+            times.setdefault(f"gather_{route}_qb8_Q4096_t13", []).append(
+                ms(lambda: RV.rescore_gather(qf4, x, cand4m3)))
+    times = {k: float(np.mean(v)) for k, v in times.items()}
     times["rescore"] = ms(lambda: T.rescore(qf, x, nbf, cand))
+    device["gather_group_qb8"] = graph_ms(lambda: RV.rescore_gather(qf, x, cand), flush)
+    device["cross_group_qb8"] = graph_ms(lambda: RV.rescore_cross(qf, x, cand), flush)
+    device["gather_group_qb8_Q4096"] = graph_ms(lambda: RV.rescore_gather(qf4, x, cand4), flush)
     plain["gather"] = ms(lambda: RV.rescore_gather_ref(qf, x, cand))
     plain["gather_Q4096"] = ms(lambda: RV.rescore_gather_ref(qf4, x, cand4))
     plain["cross"] = ms(lambda: RV.rescore_cross_ref(qf, x, cand))
@@ -3227,22 +3389,34 @@ def phase7(store) -> dict:
     b_gather4, ngroups4 = rescore_bound(BENCH_Q, x, cand4, 4)
     b_cross, _ = rescore_bound(PROTO_Q, x, cand, 2)
     b_rescore, _ = rescore_bound(PROTO_Q, x, cand, 2, norms_bytes=4)
+    regs = kernel_registers(r"(rescore_grouped_kernel)I(\w+?)EEv")
     t = cand.shape[1]
     log(f"  rescore variants at Q={PROTO_Q} t={t} ({ngroups:,} distinct groups of "
-        f"{PROTO_Q * t:,} picks; Q={BENCH_Q}: {ngroups4:,} of {BENCH_Q * t:,}): " + "; ".join(
-            f"{k} {v:.4f} ms" for k, v in times.items()) + "; plain " + "; ".join(
+        f"{PROTO_Q * t:,} picks; Q={BENCH_Q}: {ngroups4:,} of {BENCH_Q * t:,}), each route's "
+        "mean of two medians in turns, group route with its group order: " + "; ".join(
+            f"{k} {v:.4f} ms" for k, v in times.items()) + "; device (CUDA graph) " + "; ".join(
+            f"{k} {v:.4f} ms" for k, v in device.items()) + "; plain " + "; ".join(
             f"{k} {v:.4f} ms" for k, v in plain.items()) + f"; bounds gather {b_gather[0]:.4f}, "
         f"cross {b_cross[0]:.4f}, rescore {b_rescore[0]:.4f}, gather Q={BENCH_Q} "
-        f"{b_gather4[0]:.4f} ms; errors " + "; ".join(
-            f"{k} {v:.3g}" for k, v in {**errs, **{f"{k} Q={BENCH_Q}": v
-                                                   for k, v in errs4.items()}}.items())
+        f"{b_gather4[0]:.4f} ms; the slot order's share of the group route at QB=8: gather "
+        f"{orders[f'Q={PROTO_Q}']['ms'] / times['gather_group_qb8']:.3f}, Q={BENCH_Q} "
+        f"{orders[f'Q={BENCH_Q}']['ms'] / times['gather_group_qb8_Q4096']:.3f}; slot orders "
+        f"{orders}; ptxas "
+        f"{registers_summary(regs)} {regs}; errors " + "; ".join(
+            f"{k} {v:.3g}" for k, v in {**errs, **{f"{k} Q={BENCH_Q}": v for k, v in errs4.items()},
+                                        **{f"{k} Q={BENCH_Q} t=13": v
+                                           for k, v in errs4m3.items()}}.items())
         + f"; phase 7 took {time.perf_counter() - t0:.1f} s")
+    spilled = {k: r for k, r in regs.items() if r["spill_stores"]}
+    if spilled:
+        raise AssertionError(f"rescore_grouped_kernel spills: {spilled}")
 
     def worst(kind):
-        return max(worst_edge, *(v for e in (errs, errs4) for k, v in e.items()
+        return max(worst_edge, *(v for e in (errs, errs4, errs4m3) for k, v in e.items()
                                  if k.startswith(kind)))
 
-    shape = f"Q={PROTO_Q} t={t} N={BENCH_N:,} d={BENCH_D} bf16 QB=8 (a real phase 1's candidates)"
+    shape = (f"Q={PROTO_Q} t={t} N={BENCH_N:,} d={BENCH_D} bf16 QB=8 (a real phase 1's "
+             "candidates), group route with its group order")
     production = {"production_rescore_ms": times["rescore"],
                   "production_rescore_plain_ms": plain["rescore"],
                   "production_rescore_bound_ms": b_rescore[0], "distinct_groups": ngroups}
@@ -3250,20 +3424,36 @@ def phase7(store) -> dict:
                     "bound_by": b_rescore[1],
                     "shape": f"Q={PROTO_Q} t={t} N={BENCH_N:,} d={BENCH_D} bf16 (a real phase 1's "
                              "candidates)"}
+
+    def routes(kind, suffix=""):
+        return {f"QB={qb}{suffix}_ms": {r: times[f"{kind}_{r}_qb{qb}{suffix}"]
+                                        for r in RV.ROUTES}
+                for qb in (RV.QBS if not suffix else (8,))}
+
+    common_extra = {"rescore_route": RV.ROUTE, "slot_route_source": SOURCES["rescore_gather"],
+                    "ptxas": regs, "skew_and_edge_max_abs_err": worst_edge}
     entries = [
-        ("rescore_gather", times["gather_qb8"], plain["gather"], b_gather, worst("gather"),
-         {f"QB={qb}_ms": times[f"gather_qb{qb}"] for qb in RV.QBS}),
-        ("rescore_gather_sweep2", times["gather_qb8"], plain["gather"], b_gather, worst("gather"),
-         {"Q=4096_ms": times["gather_qb8_Q4096"], "Q=4096_plain_ms": plain["gather_Q4096"],
-          "Q=4096_bound_ms": b_gather4[0], "Q=4096_distinct_groups": ngroups4}),
-        ("rescore_cross", times["cross_qb8"], plain["cross"], b_cross, worst("cross"),
-         {f"QB={qb}_ms": times[f"cross_qb{qb}"] for qb in RV.QBS}),
+        ("rescore_gather", times["gather_group_qb8"], plain["gather"], b_gather, worst("gather"),
+         {**routes("gather"), "device_ms": device["gather_group_qb8"],
+          "launches_by_route": by_route["rescore_gather"]}),
+        ("rescore_gather_sweep2", times["gather_group_qb8"], plain["gather"], b_gather,
+         worst("gather"),
+         {**routes("gather", "_Q4096"), **routes("gather", "_Q4096_t13"),
+          "Q=4096_device_ms": device["gather_group_qb8_Q4096"],
+          "Q=4096_plain_ms": plain["gather_Q4096"], "Q=4096_bound_ms": b_gather4[0],
+          "Q=4096_distinct_groups": ngroups4}),
+        ("rescore_cross", times["cross_group_qb8"], plain["cross"], b_cross, worst("cross"),
+         {**routes("cross"), "device_ms": device["cross_group_qb8"],
+          "launches_by_route": by_route["rescore_cross"]}),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
         "launches": launches[name], "max_abs_err": err, "ms": tk, "plain_ms": p, "bound_ms": b[0],
         "bound_by": b[1], "library_ms": None, "shape": shape, **production, "variants": extra,
+        **common_extra,
     } for name, tk, p, b, err, extra in entries]
+    kernels[0].update(slot_order={**orders, "launches": launches["slot_order"]},
+                      f4_f5_on_card=empty)
     return {"kernels": kernels, "times": times, "recalls": recalls, "rescore_bf16": rescore_bf16}
 
 

@@ -169,6 +169,12 @@ def library() -> ctypes.CDLL:
             lib.ise_rescore_gather.restype = i
             lib.ise_rescore_cross.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]
             lib.ise_rescore_cross.restype = i
+            grouped = [p, p, p, p, p, i, ll, i, i, i, i, i, i, p]
+            lib.ise_rescore_gather_grouped.argtypes = grouped
+            lib.ise_rescore_cross_grouped.argtypes = grouped
+            lib.ise_rescore_gather_grouped.restype = lib.ise_rescore_cross_grouped.restype = i
+            lib.ise_rescore_order.argtypes = [p, p, i, i, i, p]
+            lib.ise_rescore_order.restype = i
             lib.ise_error_string.argtypes = [i]
             lib.ise_error_string.restype = ctypes.c_char_p
             _lib = lib

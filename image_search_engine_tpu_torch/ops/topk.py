@@ -832,7 +832,7 @@ def rescore_ref(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
     f32 matmul."""
     nq, t = cand.shape
     valid, safe = _candidate_rows(cand, x.shape[0])
-    xs = x[safe.reshape(-1)].float().view(nq, t * GROUP, -1)
+    xs = x[safe.reshape(-1)].float().view(nq, t * GROUP, x.shape[1])
     cross = torch.bmm(xs, q.float()[:, :, None])[:, :, 0]
     scores = norms[safe] - 2.0 * cross
     return torch.where(valid, scores, torch.full_like(scores, float("inf")))
@@ -1302,7 +1302,9 @@ def finish_candidates(q: torch.Tensor, scores: torch.Tensor, cand: torch.Tensor,
     """The two-phase searches' last step: the k best of the (Q, t*128)
     rescored candidates, their row ids rebuilt from the (Q, t) group ids,
     the distances in the metric's sign, and with ``with_certificate`` the
-    certificate "k-th score <= threshold" (the t-th selected group min)."""
+    certificate "k-th score <= threshold" (the t-th selected group min;
+    at k = 0, where the JAX package's ``topk_twophase`` raises, vacuously
+    true: no kept score exceeds it)."""
     nq, t = cand.shape
     kk = min(k, t * GROUP)
     # positions follow the select's group order, so ties go to the earlier
@@ -1311,7 +1313,7 @@ def finish_candidates(q: torch.Tensor, scores: torch.Tensor, cand: torch.Tensor,
     flat_ids = (cand.long()[:, :, None] * GROUP
                 + torch.arange(GROUP, device=scores.device)).reshape(nq, t * GROUP)
     ids = torch.gather(flat_ids, 1, pos)
-    extra = (vals.amax(dim=1) <= threshold,) if with_certificate else ()
+    extra = ((vals <= threshold[:, None]).all(dim=1),) if with_certificate else ()
     return _finish_scores(vals, ids, q, metric) + extra
 
 
