@@ -30,17 +30,31 @@ Phases (each raises on failure; the script then exits non-zero):
      alone);
   2. the flat main path through the user's entry points: 4,096 PNGs
      indexed by the port's indexer CLI (ResNet-50, flat l2, f32 store), the
-     port's HTTP server queried with corpus images, and the kernel launch
-     counts of that serving run; then a batch of 64 stored embeddings
-     through FlatIndex.search (the f32 tensor-core route), and the select on
-     the served index's group mins (Q = 1, 32 groups) timed;
+     port's HTTP server (``--prewarm-wide-margin``) queried with corpus
+     images, each request one replay of the CUDA graph prewarm captured
+     (none eager), and the kernel launch counts of that serving run (counted
+     per replay); every served dispatch's replay against its eager run
+     (``raw_dispatch``) bit for bit at B = 1 and 8 and at the wide margin;
+     the server-side search p50 at B = 1 eager and replayed, one replay's
+     device ms beside the host's time to issue the eager dispatch, QPS of
+     64 requests from 1 and from 8 clients (threads of a client process of
+     their own); then ``--micro-batch on`` (B =
+     8, 3 ms): 64 requests from 8 clients, each its own file first and the
+     unbatched server's ids, launches once a replay, /stats, QPS from 8 and
+     1 clients; ``--micro-batch auto``: the calibration's figures, decision
+     and /stats; the bf16 flat store and cell-probe IVF built from the
+     index's embeddings, replays against eager runs; then a batch of 64
+     stored embeddings through FlatIndex.search (the f32 tensor-core route),
+     and the select on the served index's group mins (Q = 1, 32 groups)
+     timed;
   3. IVF-PQ: an IVFPQIndex (nlist 1024, nprobe 4, m 16) built on the card
      over 1,000,000 x 2048 clustered rows, its two kernels (k-means
      assignment, probed scan) and the probed top-k against their plain
      versions, the probed search against ADC and exact search; then the
      IVF-PQ path through the entry points (the same PNGs, indexer CLI with
      ``--index-type ivfpq --pq-rerank 64``, HTTP server) with the launch
-     counts of the build and of serving; the assignment (3xTF32 on tensor
+     counts of the build and of serving, its replays against eager runs,
+     latencies and QPS unbatched and with ``--micro-batch on`` as phase 2's; the assignment (3xTF32 on tensor
      cores) beside cuBLAS's f32 product alone and both bounds; the probed
      scan's two routes (slot by slot, bucket by bucket) bit-equal and timed
      at Q = 1, 64 and 128 (either side of the plan's crossing),
@@ -62,8 +76,11 @@ Phases (each raises on failure; the script then exits non-zero):
      and in group order at Q = 1, 64 and 256, and the group order's kernel);
      then the same PNGs through
      ``--store-dtype int8`` and through ``--index-type chi2``, each served
-     over HTTP with its launch counts; after phase 7, phase 1 at bench.py's
-     point quantized to int8 (Q = 2048);
+     over HTTP with its launch counts and its replays against eager runs;
+     the quickstart twin (``python -m
+     image_search_engine_tpu_torch.examples.quickstart``, resnet-tiny) and
+     ``graft_entry.entry()``'s ResNet-50 forward on the card; after phase 7,
+     phase 1 at bench.py's point quantized to int8 (Q = 2048);
   5. the last two package kernels through their entry points:
      ``topk_running`` (running top-k accumulators; the store's rows staged
      by the Tensor Memory Accelerator, a lane per row) at Q = 1 and 8 over
@@ -119,8 +136,12 @@ Phases (each raises on failure; the script then exits non-zero):
      = 0 through ``FlatIndex.search`` on each store dtype and metric
      (shapes and dtypes as the JAX package's).
 
-Before its last two lines it prints a JSON object describing the 16
-kernels (launches, errors, times, bounds; ``groupmin`` and ``rescore``
+Before its last three lines it prints a JSON object of the serving
+figures (per family: replays and eager runs of the served queries, the
+replay checks, latencies, QPS with batching off and on, the batched run's
+launches and agreement, the captured programs and their graph pool; the
+auto calibration; the entry-point twins). Before its last two lines it
+prints a JSON object describing the 16 kernels (launches, errors, times, bounds; ``groupmin`` and ``rescore``
 per store dtype and, for f32, per route; the extract-min select's launches
 in each main-path run, which must be 0) and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
@@ -977,13 +998,18 @@ def write_corpus(root: Path, n: int, size: int = 224) -> list:
         return list(pool.map(write, range(n)))
 
 
-def post_image(url: str, data: bytes, filename: str = "q.png"):
+def multipart(data: bytes, filename: str = "q.png") -> tuple:
+    """(body, Content-Type) of a one-file multipart/form-data upload."""
     boundary = uuid.uuid4().hex
     body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"image\"; "
             f"filename=\"{filename}\"\r\nContent-Type: application/octet-stream\r\n\r\n"
             ).encode() + data + f"\r\n--{boundary}--\r\n".encode()
-    req = urllib.request.Request(url, data=body, method="POST", headers={
-        "Content-Type": f"multipart/form-data; boundary={boundary}"})
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def post_image(url: str, data: bytes, filename: str = "q.png"):
+    body, ctype = multipart(data, filename)
+    req = urllib.request.Request(url, data=body, method="POST", headers={"Content-Type": ctype})
     try:
         with urllib.request.urlopen(req, timeout=300) as r:
             return r.status, json.loads(r.read())
@@ -1023,28 +1049,28 @@ def index_corpus(workdir: Path, name: str, *flags: str) -> Path:
 
 
 def serve_and_query(art: Path, index_type: str, paths: list, label: str,
-                    own_first: bool = True) -> dict:
-    """The port's HTTP server on ``art``, 8 corpus images posted one at a
-    time: each answers 200 with K finite ascending distances and the
-    query's own file first (``own_first``) or among the K; a garbage upload
-    answers 400 and /healthz counts the corpus. The kernels' launch counts
-    are set to 0 just before the 8 requests and read just after. Returns
-    {engine, launches, p50_ms, first, escalations}."""
-    from image_search_engine_tpu_torch import engine as port_engine
-    from image_search_engine_tpu_torch.ops import ivf as IV
+                    own_first: bool = True, flags: tuple = (), load: bool = False) -> dict:
+    """The port's HTTP server on ``art`` (extra CLI ``flags``), 8 corpus
+    images posted one at a time: each answers 200 with K finite ascending
+    distances and the query's own file first (``own_first``) or among the
+    K; a garbage upload answers 400 and /healthz counts the corpus. The
+    kernels' launch counts are set to 0 just before the 8 requests and read
+    just after; each request must be one replay of the program prewarm
+    captured, none an eager run. Then the served dispatch against
+    ``raw_dispatch`` at B = 1 and 8 (check_replays; also at the wide margin
+    when the server prewarmed it) and, with ``load``, the server's
+    latencies and QPS (serving_load). Returns {engine, launches, p50_ms,
+    first, escalations, replays, programs, ...}."""
     from image_search_engine_tpu_torch.ops import topk as T
 
-    cfg, device = port_engine.parse_args(["--artifacts-dir", str(art), "--index-type", index_type,
-                                          "--port", "0", "--device", "cuda"])
-    engine, httpd = port_engine.make_server(cfg, device)  # prewarm builds + runs the kernels
-    if engine.index.ntotal != len(paths):
-        raise AssertionError(f"{label}: engine loaded {engine.index.ntotal} rows")
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
-    try:
+    extra = {}
+    with running_server(art, index_type, *flags) as (engine, base):
+        if engine.index.ntotal != len(paths):
+            raise AssertionError(f"{label}: engine loaded {engine.index.ntotal} rows")
+        bs = engine._batched_search
         T.reset_launch_counts()
         reset_scan_counts()
+        replays0, eager0 = bs.replays, bs.eager_runs
         first, lat = 0, []
         for i in np.linspace(0, len(paths) - 1, 8).astype(int):
             t0 = time.perf_counter()
@@ -1059,11 +1085,12 @@ def serve_and_query(art: Path, index_type: str, paths: list, label: str,
             if not (np.all(np.isfinite(dists)) and dists == sorted(dists)):
                 raise AssertionError(f"{label} query {i}: distances not finite ascending: {dists}")
             first += names[0] == str(paths[i])
-        counts = {**T.launch_counts(), "select_topt_radix": T.select_topt.radix_launches,
-                  "group_order": T.group_order.launches, "probed_scan": IV.probed_scan.launches,
-                  "probed_scan_slot": IV.probed_scan.slot_launches,
-                  "probed_scan_bucket": IV.probed_scan.bucket_launches}
+        counts = served_counts()
         note_extract_min(f"{label} serving")
+        replays, eager = bs.replays - replays0, bs.eager_runs - eager0
+        if (replays, eager) != (8, 0):
+            raise AssertionError(f"{label}: the 8 served queries ran {replays} replays and "
+                                 f"{eager} eager dispatches (want 8 and 0)")
         status, _ = post_image(base + "/similar_images", b"not an image")
         if status != 400:
             raise AssertionError(f"{label} garbage upload answered {status}, want 400")
@@ -1072,12 +1099,427 @@ def serve_and_query(art: Path, index_type: str, paths: list, label: str,
         if health.get("status") != "ok" or health.get("corpus") != len(paths):
             raise AssertionError(f"{label} healthz: {health}")
         escalations = engine.stats.snapshot()["certificate_escalations"]
+        rows = np.linspace(0, len(paths) - 1, 8).astype(int)
+        replay_check = check_replays(label, bs, corpus_batch(paths, rows),
+                                     wide="--prewarm-wide-margin" in flags, run=engine._on_device)
+        if load:
+            extra = serving_load(engine, base, paths, label, own_first)
+    log(f"  {label}: 8 served queries = 8 graph replays, 0 eager dispatches; "
+        f"{programs_line(bs)}")
+    return {"engine": engine, "launches": counts, "p50_ms": float(np.median(lat)) * 1e3,
+            "first": first, "escalations": escalations, "replays": replays, "eager": eager,
+            "replay_check": replay_check, "programs": programs_summary(bs), **extra}
+
+
+def served_counts() -> dict:
+    """The serving kernels' launch counts (counted per replay)."""
+    from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    return {**T.launch_counts(), "select_topt_radix": T.select_topt.radix_launches,
+            "group_order": T.group_order.launches, "probed_scan": IV.probed_scan.launches,
+            "probed_scan_slot": IV.probed_scan.slot_launches,
+            "probed_scan_bucket": IV.probed_scan.bucket_launches}
+
+
+@contextlib.contextmanager
+def running_server(art: Path, index_type: str, *flags: str):
+    """The port's engine (prewarm builds the kernels, runs and captures the
+    serving programs) and its HTTP server on ``art`` with the CLI
+    ``flags``, serving on a thread; yields (engine, base URL), then stops
+    both."""
+    from image_search_engine_tpu_torch import engine as port_engine
+
+    cfg, device = port_engine.parse_args(["--artifacts-dir", str(art), "--index-type", index_type,
+                                          "--port", "0", "--device", "cuda", *flags])
+    engine, httpd = port_engine.make_server(cfg, device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield engine, f"http://127.0.0.1:{httpd.server_address[1]}"
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=60)
-    return {"engine": engine, "launches": counts, "p50_ms": float(np.median(lat)) * 1e3,
-            "first": first, "escalations": escalations}
+        engine.close()
+
+
+def micro_batch_block(base: str):
+    """The ``micro_batch`` block of the server's GET /stats (None when off)."""
+    with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+        return json.loads(r.read()).get("micro_batch")
+
+
+# ---------------------------------------------------------------------------
+# Serving on the host: captured programs and micro-batching
+# ---------------------------------------------------------------------------
+
+#: the clients and requests of the concurrency runs: 64 corpus images, from
+#: 1 client and from 8 (the batcher's B = micro_batch_max = 8, 3 ms wait:
+#: the Config defaults)
+CLIENTS, LOAD_REQUESTS = 8, 64
+LATENCY_REPS = 20
+
+
+def corpus_batch(paths: list, rows) -> np.ndarray:
+    """(len(rows), 224, 224, 3) f32 of the corpus PNGs at ``rows``, as a
+    request's decode and resize give them to the dispatch."""
+    from image_search_engine_tpu_torch.serving.http import _resize_host
+    from image_search_engine_tpu_torch.utils.imageio import load_image
+
+    return np.stack([_resize_host(load_image(paths[i]), 224) for i in rows])
+
+
+def check_replays(label: str, bs, images: np.ndarray, wide: bool = False, run=None) -> dict:
+    """At B = 1 and 8 (and at the wide margin with ``wide``): the served
+    dispatch (the key's CUDA graph, captured now if prewarm did not)
+    against ``raw_dispatch`` on the same images: every output (distances,
+    ids, certificate or valid mask) equal bit for bit. ``run(fn, *args)``
+    runs each on the serving path's device thread. Returns {case: True}."""
+    import torch
+
+    from image_search_engine_tpu_torch.index.flat import WIDE_MARGIN
+
+    run = run or (lambda fn, *a: fn(*a))
+    cases = {}
+    for b in (1, 8):
+        for t_margin in ((None, WIDE_MARGIN) if wide else (None,)):
+            case = f"B={b}" + (f" t_margin={t_margin}" if t_margin else "")
+            got = run(lambda: [t.clone() for t in bs.dispatch(images[:b], K, t_margin)])
+            want = run(bs.raw_dispatch, images[:b], K, t_margin)
+            torch.cuda.synchronize()
+            if len(got) != len(want) or not all(
+                    g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+                    for g, w in zip(got, want)):
+                diffs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+                raise AssertionError(f"{label} {case}: the replay differs from the eager "
+                                     f"dispatch (max abs differences by output {diffs})")
+            cases[case] = True
+    log(f"  {label}: replay = eager dispatch bit for bit at {', '.join(cases)} "
+        f"(distances, ids, {'certificates' if got[2].dim() == 1 else 'valid masks'})")
+    return cases
+
+
+def programs_summary(bs) -> dict:
+    """Each captured program's warm run and capture ms and its replays; the
+    graphs' pool bytes."""
+    progs = {f"B={key[0]} statics={key[2]} t_margin={key[3]}": {
+        "warm_ms": p.warm_s * 1e3, "capture_ms": p.capture_s * 1e3, "replays": p.replays}
+        for key, p in bs.programs.items()}
+    return {"programs": progs, "pool_bytes": bs.graphs.pool_bytes()}
+
+
+def programs_line(bs) -> str:
+    s = programs_summary(bs)
+    return ("programs " + "; ".join(f"{k}: warm {v['warm_ms']:.1f} ms, capture "
+                                    f"{v['capture_ms']:.1f} ms, {v['replays']} replays"
+                                    for k, v in s["programs"].items())
+            + f"; graph pool {s['pool_bytes'] / 2**20:.1f} MiB")
+
+
+def post_rows(base: str, files: dict, clients: int) -> tuple:
+    """POST each of ``files`` ({row: PNG path}, read before the clock
+    starts) from ``clients`` threads; returns ({row: [[distance, "",
+    path], ...]} without the thumbnails, wall seconds)."""
+    blobs = {i: Path(f).read_bytes() for i, f in files.items()}
+
+    def one(i):
+        status, js = post_image(base + "/similar_images", blobs[i])
+        if status != 200:
+            raise AssertionError(f"query {i}: HTTP {status} {js}")
+        return i, [[p[0], "", p[2]] for p in js["prediction"]]
+
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(clients) as pool:
+        res = dict(pool.map(one, blobs))
+    return res, time.perf_counter() - t0
+
+
+def post_many(base: str, paths: list, rows, clients: int) -> tuple:
+    """post_rows for the corpus PNGs at ``rows``, run in a client process
+    of its own, so that the clients' HTTP and JSON work does not share the
+    server's interpreter lock; returns its answers and wall seconds."""
+    import multiprocessing
+
+    files = {int(i): str(paths[i]) for i in rows}
+    with cf.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return pool.submit(post_rows, base, files, clients).result(timeout=600)
+
+
+@contextlib.contextmanager
+def quiet_queries():
+    """The engine's per-query log line off during a burst of requests."""
+    import logging
+
+    lg = logging.getLogger("image_search_engine_tpu_torch.engine")
+    level = lg.level
+    lg.setLevel(logging.WARNING)
+    try:
+        yield
+    finally:
+        lg.setLevel(level)
+
+
+def check_answers(label: str, paths: list, res: dict, own_first: bool) -> None:
+    for i, pred in res.items():
+        names = [p[2] for p in pred]
+        if len(pred) != K or str(paths[i]) not in names[:1 if own_first else K]:
+            raise AssertionError(f"{label} query {i}: {len(pred)} results, top-1 {names[:1]}")
+
+
+def compare_answers(label: str, res: dict, ref: dict) -> dict:
+    """Each answer in ``res`` against ``ref``'s for the same image: the
+    same ids in the same order, or, where a rank's id differs, the same top
+    hit and that rank's distances within twice the noise that the batch
+    size puts on the bf16 embedding (the largest distance difference of an
+    id that both answers rank: a batch of 8 runs other convolution
+    algorithms than a batch of 1). Raises on any other difference; returns
+    the counts and the noise."""
+    noise = 0.0
+    for i in res:
+        ref_d = {p[2]: p[0] for p in ref[i]}
+        noise = max([noise] + [abs(p[0] - ref_d[p[2]]) for p in res[i] if p[2] in ref_d])
+    equal = near = 0
+    for i in res:
+        ids, ref_ids = [p[2] for p in res[i]], [p[2] for p in ref[i]]
+        if ids == ref_ids:
+            equal += 1
+            continue
+        ranks = [r for r, (a, b) in enumerate(zip(ids, ref_ids)) if a != b]
+        if (len(ids) != len(ref_ids) or ids[0] != ref_ids[0]
+                or any(abs(res[i][r][0] - ref[i][r][0]) > 2 * noise for r in ranks)):
+            raise AssertionError(f"{label} query {i}: ids {ids} differ from {ref_ids} beyond "
+                                 f"near ties (noise {noise})")
+        near += 1
+    return {"ids_equal": equal, "near_tie_swaps": near, "distance_noise": noise}
+
+
+def search_latency(engine, image: np.ndarray) -> dict:
+    """On the device thread, at B = 1, in turns: the server-side search
+    (host clock around the dispatch and its host copy) eager
+    (``raw_dispatch``) against the replay, p50 over LATENCY_REPS each; the
+    device ms of one replay (CUDA events around the graph's replay alone)
+    beside the host's time to issue the eager dispatch (host clock around
+    ``raw_dispatch``, which returns before the device ends) and the eager
+    dispatch's CUDA-event time."""
+    import torch
+
+    bs = engine._batched_search
+    prog = max((p for key, p in bs.programs.items() if key[0] == 1 and key[3] is None),
+               key=lambda p: p.replays)
+
+    def measure():
+        eager, replay, issue, eager_ev, graph_ev = [], [], [], [], []
+        for _ in range(LATENCY_REPS):
+            for name, fn in (("eager", bs.raw_dispatch), ("replay", bs.dispatch)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                [t.cpu() for t in fn(image, K)]
+                (eager if name == "eager" else replay).append(time.perf_counter() - t0)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s.record()
+            t0 = time.perf_counter()
+            bs.raw_dispatch(image, K)
+            issue.append(time.perf_counter() - t0)
+            e.record()
+            torch.cuda.synchronize()
+            eager_ev.append(s.elapsed_time(e))
+            s.record()
+            prog.replay()
+            e.record()
+            torch.cuda.synchronize()
+            graph_ev.append(s.elapsed_time(e))
+        ms = lambda v: float(np.median(v)) * 1e3  # noqa: E731
+        return {"eager_search_p50_ms": ms(eager), "replay_search_p50_ms": ms(replay),
+                "eager_issue_ms": ms(issue), "eager_event_ms": float(np.median(eager_ev)),
+                "replay_device_ms": float(np.median(graph_ev))}
+
+    return engine._on_device(measure)
+
+
+def host_breakdown(engine, data: bytes) -> dict:
+    """The server's host work on one upload, in the request handler's
+    order, p50 ms over LATENCY_REPS (the server idle otherwise): the
+    multipart parse, the PNG decode, ``engine.query`` (resize, the dispatch
+    on the device thread with its host copy, thumbnails) and the JSON
+    encoding of the answer."""
+    from image_search_engine_tpu_torch.serving.http import _parse_multipart
+    from image_search_engine_tpu_torch.utils.imageio import decode_image_bytes
+
+    body, ctype = multipart(data)
+    parts = {"multipart_ms": [], "decode_ms": [], "query_ms": [], "json_ms": []}
+    with quiet_queries():
+        for _ in range(LATENCY_REPS):
+            t0 = time.perf_counter()
+            png = _parse_multipart({"Content-Type": ctype}, body)
+            t1 = time.perf_counter()
+            image = decode_image_bytes(png)
+            t2 = time.perf_counter()
+            prediction = engine.query(image)
+            t3 = time.perf_counter()
+            json.dumps({"prediction": prediction}).encode()
+            t4 = time.perf_counter()
+            for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[key].append(dt)
+    return {key: float(np.median(v)) * 1e3 for key, v in parts.items()}
+
+
+def serving_load(engine, base: str, paths: list, label: str, own_first: bool) -> dict:
+    """The unbatched server under load: server-side latency at B = 1
+    (search_latency), then LOAD_REQUESTS corpus images from 1 client and
+    from CLIENTS, each answered with its own file; returns the latencies,
+    the QPS by clients and the answers (the batched server's reference)."""
+    rows = np.linspace(0, len(paths) - 1, LOAD_REQUESTS).astype(int)
+    latency = search_latency(engine, corpus_batch(paths, rows[:1]))
+    host = host_breakdown(engine, paths[rows[0]].read_bytes())
+    qps, answers = {}, None
+    with quiet_queries():
+        for clients in (1, CLIENTS):
+            res, secs = post_many(base, paths, rows, clients)
+            check_answers(f"{label} unbatched", paths, res, own_first)
+            qps[clients] = LOAD_REQUESTS / secs
+            answers = answers or res
+    log(f"  {label} unbatched: server-side search p50 at B=1 eager "
+        f"{latency['eager_search_p50_ms']:.4f} ms, replay {latency['replay_search_p50_ms']:.4f} "
+        f"ms; one replay {latency['replay_device_ms']:.4f} ms on the device, the eager dispatch "
+        f"{latency['eager_issue_ms']:.4f} ms to issue on the host ({latency['eager_event_ms']:.4f} "
+        f"ms by events); the server's host work on one upload, p50: multipart parse "
+        f"{host['multipart_ms']:.4f} ms, PNG decode {host['decode_ms']:.4f}, engine.query "
+        f"{host['query_ms']:.4f}, JSON {host['json_ms']:.4f}; QPS {qps[1]:.2f} from 1 client, "
+        f"{qps[CLIENTS]:.2f} from {CLIENTS} ({LOAD_REQUESTS} requests each)")
+    return {"latency": {**latency, "host": host}, "qps_off": qps, "answers": answers,
+            "rows": rows}
+
+
+def serve_batched(art: Path, index_type: str, paths: list, label: str, unbatched: dict,
+                  used: tuple, own_first: bool = True) -> dict:
+    """The server with ``--micro-batch on`` (B = 8, 3 ms wait): /stats says
+    {"mode": "on", "active": true}; LOAD_REQUESTS corpus images from
+    CLIENTS threads, each answered with its own file and the unbatched
+    server's ids (distances within the bf16 embedding's batch-size noise,
+    logged); launches counted per replay (each kernel in ``used`` once a
+    replay, none off the plans' routes, no extract-min select); no eager
+    dispatch after prewarm; then the QPS from 1 client."""
+    from image_search_engine_tpu_torch.ops import rescore_variants as RV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    with running_server(art, index_type, "--micro-batch", "on") as (engine, base):
+        bs = engine._batched_search
+        mb = micro_batch_block(base)
+        if mb != {"mode": "on", "active": True}:
+            raise AssertionError(f"{label} batched /stats micro_batch: {mb}")
+        rows = unbatched["rows"]
+        T.reset_launch_counts()
+        reset_scan_counts()
+        RV.reset_launch_counts()
+        replays0, eager0 = bs.replays, bs.eager_runs
+        with quiet_queries():
+            res, secs = post_many(base, paths, rows, CLIENTS)
+        counts = served_counts()
+        note_extract_min(f"{label} batched serving")
+        replays, eager = bs.replays - replays0, bs.eager_runs - eager0
+        check_answers(f"{label} batched", paths, res, own_first)
+        agree = compare_answers(f"{label} batched", res, unbatched["answers"])
+        off_route = {"probed_scan_bucket": counts["probed_scan_bucket"],
+                     **{f"{n}_slot": getattr(RV, n).slot_launches
+                        for n in ("rescore_gather", "rescore_cross")}}
+        if (eager or not replays or any(counts[k] != replays for k in used)
+                or any(off_route.values())):
+            raise AssertionError(f"{label} batched: {replays} replays, {eager} eager; launches "
+                                 f"{counts}, off the routes {off_route} (want each of {used} "
+                                 f"once a replay, none off the routes)")
+        qps = {CLIENTS: LOAD_REQUESTS / secs}
+        with quiet_queries():
+            res1, secs1 = post_many(base, paths, rows, 1)
+        check_answers(f"{label} batched, 1 client", paths, res1, own_first)
+        qps[1] = LOAD_REQUESTS / secs1
+        mb = micro_batch_block(base)
+        if mb != {"mode": "on", "active": True}:
+            raise AssertionError(f"{label} batched /stats micro_batch: {mb}")
+    log(f"  {label} --micro-batch on: {len(res)} requests from {CLIENTS} clients in {replays} "
+        f"replays (0 eager), each its own file first; against the unbatched server's answers "
+        f"{agree}; launches {({k: counts[k] for k in used})}, off the "
+        f"plans' routes {off_route}; QPS {qps[CLIENTS]:.2f} from {CLIENTS} clients, "
+        f"{qps[1]:.2f} from 1; {programs_line(bs)}")
+    return {"qps_on": qps, "replays": replays, "launches": {k: counts[k] for k in used},
+            "against_unbatched": agree, "programs": programs_summary(bs)}
+
+
+def serve_auto(art: Path, paths: list) -> dict:
+    """The flat server with ``--micro-batch auto``: the calibration's two
+    ms/query figures and its decision, /stats' micro_batch block (mode
+    auto, calibrated, active = the decision), and 8 queries answered with
+    their own file."""
+    with running_server(art, "l2", "--micro-batch", "auto") as (engine, base):
+        cal = engine.mb_calibration
+        mb = micro_batch_block(base)
+        want = {"mode": "auto", "active": cal["batching"], "calibrated": True}
+        if mb != want:
+            raise AssertionError(f"auto /stats micro_batch: {mb}, want {want}")
+        rows = np.linspace(0, len(paths) - 1, 8).astype(int)
+        with quiet_queries():
+            res, _ = post_many(base, paths, rows, CLIENTS)
+        check_answers("flat auto", paths, res, True)
+        note_extract_min("flat auto serving")
+    log(f"  flat --micro-batch auto: calibration {cal['threaded_ms_per_query']:.4f} ms/query "
+        f"from {engine.cfg.micro_batch_max} independent B=1 dispatches, "
+        f"{cal['batched_ms_per_query']:.4f} ms/query coalesced -> batching "
+        f"{'ON' if cal['batching'] else 'OFF'}; /stats {mb}; 8 requests ok")
+    return dict(cal)
+
+
+def check_more_families(engine, paths: list) -> dict:
+    """The served families no phase serves over HTTP, built from the flat
+    index's embeddings with the served embedder: the bf16 flat store and
+    cell-probe IVF (the CLI's nlist and nprobe); each one's replay against
+    its eager dispatch at B = 1 and 8 (check_replays), the bf16 one also at
+    the wide margin."""
+    from image_search_engine_tpu_torch.config import Config
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.index.ivf import IVFIndex
+    from image_search_engine_tpu_torch.serving import fused
+
+    vecs = engine.index.store.values()
+    cfg = Config()
+    prologue = fused.cnn_prologue(engine.embedder, normalize=False)
+    images = corpus_batch(paths, np.linspace(0, len(paths) - 1, 8).astype(int))
+    out = {}
+    for label, family, wide in (
+            ("bf16 flat", fused.flat_family(FlatIndex("l2", dtype="bf16", device="cuda")
+                                            .add(vecs)), True),
+            ("cell-probe IVF", fused.ivf_family(IVFIndex(
+                metric="l2", nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe, device="cuda")
+                .add(vecs)), False)):
+        bs = fused.make_batched_search(prologue, *family, device="cuda")
+        out[label] = check_replays(label, bs, images, wide=wide)
+        out[label + " programs"] = programs_summary(bs)
+    return out
+
+
+def check_entry_twins(workdir: Path) -> dict:
+    """The quickstart twin on the card (resnet-tiny, its synthetic corpus:
+    the first image's own file first) and ``graft_entry.entry()``'s
+    ResNet-50 forward at batch 8, 224 px (finite (8, 2048))."""
+    import torch
+
+    from image_search_engine_tpu_torch import graft_entry
+    from image_search_engine_tpu_torch.examples import quickstart
+
+    t0 = time.perf_counter()
+    results = quickstart.main(["--device", "cuda", "--work-dir", str(workdir / "quickstart")])
+    first = sorted((workdir / "quickstart" / "images").glob("*.png"))[0]
+    if len(results) != 5 or results[0][2] != str(first):
+        raise AssertionError(f"quickstart on the card: {results}")
+    qs_s = time.perf_counter() - t0
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (8, 2048) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"graft_entry forward: {tuple(out.shape)}")
+    log(f"  quickstart twin (resnet-tiny, 20 images, --device cuda) in {qs_s:.1f} s: own file "
+        f"first; graft_entry.entry(): ResNet-50 forward (8, 2048) finite on the card")
+    return {"quickstart_s": qs_s, "top1": results[0][2] == str(first)}
 
 
 def phase2(workdir: Path) -> dict:
@@ -1087,21 +1529,37 @@ def phase2(workdir: Path) -> dict:
     paths = write_corpus(workdir / "images", 4096)
     log(f"  wrote {len(paths)} PNGs in {time.perf_counter() - t0:.1f} s")
     art = index_corpus(workdir, "artifacts", "--index-type", "l2")
-    out = serve_and_query(art, "l2", paths, "flat")
+    out = serve_and_query(art, "l2", paths, "flat", flags=("--prewarm-wide-margin",), load=True)
     counts = {k: out["launches"][k] for k in ("groupmin", "select_topt", "rescore")}
     if out["engine"].index.ntotal // 128 <= K + 4:
         raise AssertionError("the index must have more groups than t so the select runs")
-    if not all(v > 0 for v in counts.values()):
-        raise AssertionError(f"a kernel did not launch while serving: {counts}")
+    if not all(v == out["replays"] for v in counts.values()):
+        raise AssertionError(f"a kernel did not launch once a replay while serving: {counts}")
     if out["launches"]["select_topt_radix"] != counts["select_topt"]:
         raise AssertionError(f"serving's select took the extract-min route: {out['launches']}")
     log(f"  8 queries ok (top-1 = the query's own file); launches while serving {counts}; "
         f"request latency p50 {out['p50_ms']:.2f} ms (client clock, 8 requests); "
         f"certificate escalations {out['escalations']}")
+    on = serve_batched(art, "l2", paths, "flat", out,
+                       ("groupmin", "select_topt", "rescore", "select_topt_radix"))
+    serving = {"flat": served_summary(out, on), "flat_auto": serve_auto(art, paths),
+               **check_more_families(out["engine"], paths)}
     return {"launches": counts, "p50_ms": out["p50_ms"], "escalations": out["escalations"],
             "paths": paths, "art": art, "batch": search_batch(out["engine"].index),
             "select_radix_launches": out["launches"]["select_topt_radix"],
-            "select": served_select(out["engine"].index)}
+            "select": served_select(out["engine"].index), "serving": serving}
+
+
+def served_summary(off: dict, on: dict) -> dict:
+    """A family's serving figures for the JSON line: replays and eager runs
+    of the 8 served queries, the replay checks, latencies, QPS with
+    batching off and on, the batched run's launches and agreement, and the
+    captured programs of both servers."""
+    return {"served_queries": {"replays": off["replays"], "eager": off["eager"]},
+            "replay_equals_eager": off["replay_check"], "latency": off["latency"],
+            "qps": {"off": off["qps_off"], "on": on["qps_on"]},
+            "batched": {k: on[k] for k in ("replays", "launches", "against_unbatched")},
+            "programs": {"unbatched": off["programs"], "batched": on["programs"]}}
 
 
 def served_select(index) -> dict:
@@ -1612,7 +2070,7 @@ def phase3_entry(workdir: Path, paths: list) -> dict:
     KM.assign.launches = 0
     art = index_corpus(workdir, "artifacts_ivfpq", "--index-type", "ivfpq", "--pq-rerank", "64")
     assign_launches = KM.assign.launches
-    out = serve_and_query(art, "ivfpq", paths, "ivfpq", own_first=False)
+    out = serve_and_query(art, "ivfpq", paths, "ivfpq", own_first=False, load=True)
     if type(out["engine"].index).__name__ != "IVFPQIndex":
         raise AssertionError(f"engine loaded {type(out['engine'].index).__name__}")
     used = ("probed_scan", "probed_scan_slot", "select_topt", "select_topt_radix")
@@ -1623,11 +2081,14 @@ def phase3_entry(workdir: Path, paths: list) -> dict:
             or counts["select_topt"] != counts["select_topt_radix"]):
         raise AssertionError(f"a kernel did not launch, or off its route: assign "
                              f"{assign_launches} during the build, {counts} while serving")
+    if any(counts[k] != out["replays"] for k in used):
+        raise AssertionError(f"a kernel did not launch once a replay while serving: {counts}")
     log(f"  {assign_launches} assign launches in the build; 8 queries ok (own file in the top "
         f"{K}, ranked first in {out['first']} of 8); launches while serving {counts}; request "
         f"latency p50 {out['p50_ms']:.2f} ms (client clock)")
+    on = serve_batched(art, "ivfpq", paths, "ivfpq", out, used, own_first=True)
     return {"assign_launches": assign_launches, "launches": counts, "first": out["first"],
-            "p50_ms": out["p50_ms"]}
+            "p50_ms": out["p50_ms"], "serving": served_summary(out, on)}
 
 
 # ---------------------------------------------------------------------------
@@ -2045,7 +2506,7 @@ def phase4_entry(workdir: Path, paths: list, flat_art: Path) -> dict:
 
     log("phase 4: the int8 and chi2 paths (indexer CLI -> HTTP server)")
     art = index_corpus(workdir, "artifacts_int8", "--index-type", "l2", "--store-dtype", "int8")
-    q8 = serve_and_query(art, "l2", paths, "int8")
+    q8 = serve_and_query(art, "l2", paths, "int8", flags=("--prewarm-wide-margin",))
     idx8 = q8["engine"].index
     want = {"groupmin": 0, "select_topt": 8, "rescore": 0, "groupmin_q8": 8, "rescore_q8": 8,
             "group_order": 0, "topk_running": 0, "select_topt_radix": 8, "probed_scan": 0,
@@ -2073,7 +2534,11 @@ def phase4_entry(workdir: Path, paths: list, flat_art: Path) -> dict:
     log(f"  chi2: 8 queries ok (top-1 = the query's own file); no kernel launched; request "
         f"latency p50 {c2['p50_ms']:.2f} ms (client clock)")
     return {"launches": q8["launches"], "p50_ms": q8["p50_ms"], "overlap": overlap,
-            "escalations": q8["escalations"], "chi2_p50_ms": c2["p50_ms"]}
+            "escalations": q8["escalations"], "chi2_p50_ms": c2["p50_ms"],
+            "serving": {name: {"served_queries": {"replays": r["replays"], "eager": r["eager"]},
+                               "replay_equals_eager": r["replay_check"],
+                               "programs": r["programs"]}
+                        for name, r in (("int8", q8), ("chi2", c2))}}
 
 
 # ---------------------------------------------------------------------------
@@ -3457,6 +3922,12 @@ def phase7(store) -> dict:
     return {"kernels": kernels, "times": times, "recalls": recalls, "rescore_bf16": rescore_bf16}
 
 
+def qps_line(fam: dict) -> str:
+    q = fam["qps"]
+    return (f"off {q['off'][1]:.2f} / {q['off'][CLIENTS]:.2f}, on {q['on'][1]:.2f} / "
+            f"{q['on'][CLIENTS]:.2f}")
+
+
 def main() -> int:
     import torch
 
@@ -3491,6 +3962,8 @@ def main() -> int:
         batched = phase3_batched()
         shapes_q8 = phase4_kernels()
         q8_served = phase4_entry(workdir, served["paths"], served["art"])
+        log("phase 4 (continued): the entry-point twins")
+        twins = check_entry_twins(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     last = phase5()
@@ -3670,13 +4143,17 @@ def main() -> int:
     merged["ptxas"] = last["merged_ptxas"]
     kernels.extend(sixth["kernels"])
     kernels.extend(seventh["kernels"])
+    serving = {**served["serving"], "ivfpq": pq_served["serving"], **q8_served["serving"],
+               "entry_twins": twins, "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "
         f"{served['p50_ms']:.2f} ms, escalations {served['escalations']}; IVF-PQ build "
         f"{scale['build_s']:.1f} s, IVF-PQ serving p50 {pq_served['p50_ms']:.2f} ms; int8 "
         f"serving p50 {q8_served['p50_ms']:.2f} ms, escalations {q8_served['escalations']}, "
         f"top-10 overlap with f32 {q8_served['overlap']:.4f}; chi2 serving p50 "
         f"{q8_served['chi2_p50_ms']:.2f} ms; bench twin {sixth['bench']['value']} QPS at Q = "
-        f"{BENCH_Q}")
+        f"{BENCH_Q}; QPS from 1 / {CLIENTS} clients, batching off and on: flat "
+        f"{qps_line(serving['flat'])}, IVF-PQ {qps_line(serving['ivfpq'])}")
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,13 +7,15 @@ package's (serving/http.py): ``POST /similar_images`` takes a multipart
 image upload and answers ``{"prediction": [[distance, base64_thumbnail,
 path], ...]}``; ``GET /healthz``, ``GET /stats`` and the upload UI at ``GET
 /`` come with it. Per request: host decode and resize, then one device
-dispatch (embed + the index family's search core, serving/fused.py), then
-thumbnails from the packed cache. BoVW, dHash, micro-batched and sharded
-serving wait for ROADMAP.md.
+dispatch (embed + the index family's search core, serving/fused.py; on a
+CUDA device a CUDA graph captured at prewarm and replayed), then thumbnails
+from the packed cache. ``--micro-batch on|auto`` coalesces concurrent
+requests into one padded batch (serving/batching.py). BoVW, dHash and
+sharded serving wait for ROADMAP.md.
 
 Usage:
     python -m image_search_engine_tpu_torch.engine --artifacts-dir artifacts \\
-        --device cuda --port 5000
+        --device cuda --port 5000 [--micro-batch [off|on|auto]] [--prewarm-wide-margin]
 """
 
 from __future__ import annotations
@@ -58,18 +60,81 @@ class QueryEngine:
             else:
                 log.warning("thumbnail cache has %d entries for %d paths; ignoring "
                             "(rebuild the index)", len(cache), len(self.paths))
+        # set by serving/fused.wrap_serving (micro-batching), read by
+        # prewarm and /stats
+        self._extra_prewarm = None
+        self._mb_calibrate = None
+        self._use_batcher = False
+        self._mb_calibrated = False
+        self._batcher = None
+        self.mb_calibration = None  # the auto calibration's figures, once it ran
         self._search = self._build(cfg)
         if prewarm:
             self.prewarm()
 
     def prewarm(self) -> None:
-        """One search on a blank image before the first request: loads the
-        kernel library (building it on first use) and warms cuDNN. Errors
-        propagate: a kernel that cannot build or launch stops the start."""
+        """Capture the serving programs before the first request: B = 1 at
+        the default k, B = ``micro_batch_max`` when batching is not off, and
+        the certificate's wide-margin retry with ``--prewarm-wide-margin``;
+        on a CUDA device each first call builds and loads the kernel
+        library, warms cuDNN, and captures the dispatch as a CUDA graph.
+        Then one timed warm search, and the ``--micro-batch auto``
+        calibration.
+
+        Errors propagate, unlike the JAX engine, which logs a failed
+        prewarm or calibration and serves on: here a kernel that cannot
+        build or launch, a dispatch that cannot be captured, or a failed
+        calibration (whose programs have all run by then, so its failure
+        is a kernel or capture fault) stops the start."""
+        from image_search_engine_tpu_torch.index.flat import WIDE_MARGIN
+
         t0 = time.time()
         dummy = np.zeros((self.cfg.resize_size, self.cfg.resize_size, 3), np.float32)
-        self._search(dummy, min(self.cfg.num_images_to_return, self.index.ntotal))
-        log.info("prewarm finished in %.1fs", time.time() - t0)
+        # the real default k, so the program matches the first request's
+        # (another k is another program)
+        k_warm = min(self.cfg.num_images_to_return, self.index.ntotal)
+        self._search(dummy, k_warm)
+        if self._extra_prewarm is not None:
+            self._extra_prewarm(k_warm)
+        if self.cfg.prewarm_wide:
+            # t_margin keys its own program: without this, the first
+            # certificate escalation captures inside the request path
+            self._on_device(self._batched_search.dispatch, dummy[None], k_warm, WIDE_MARGIN)
+            log.info("prewarmed the wide-margin (%d) escalation program", WIDE_MARGIN)
+        t1 = time.time()
+        self._search(dummy, k_warm)
+        progs = self._batched_search.programs.values()
+        log.info("prewarm finished in %.1fs: %d captured programs (eager warm runs %.1f ms, "
+                 "captures %.1f ms); first warm search %.1f ms", t1 - t0, len(progs),
+                 sum(p.warm_s for p in progs) * 1e3, sum(p.capture_s for p in progs) * 1e3,
+                 (time.time() - t1) * 1e3)
+        self._calibrate_micro_batch(k_warm)
+
+    def _calibrate_micro_batch(self, k_warm: int) -> None:
+        """``--micro-batch auto``: both programs are warm after prewarm, so
+        time independent B = 1 dispatches against one padded batch on this
+        host and route by the numbers (serving/batching.py)."""
+        calib = self._mb_calibrate
+        if calib is None:
+            return
+        from image_search_engine_tpu_torch.serving import batching
+
+        threaded_ms, batched_ms = batching.measure_micro_batch_gain(
+            calib["batched_search"], calib["image_shape"], k_warm, self.cfg.micro_batch_max)
+        self._use_batcher = batching.micro_batch_pays(threaded_ms, batched_ms)
+        self._mb_calibrated = True
+        self.mb_calibration = {"threaded_ms_per_query": threaded_ms,
+                               "batched_ms_per_query": batched_ms,
+                               "batching": self._use_batcher}
+        log.info("micro-batch auto-calibration: %.3f ms/query independent dispatches vs "
+                 "%.3f ms/query coalesced (B=%d) -> batching %s", threaded_ms, batched_ms,
+                 self.cfg.micro_batch_max, "ON" if self._use_batcher else "OFF")
+
+    def close(self) -> None:
+        """Stop the micro-batcher's worker and the device thread."""
+        if self._batcher is not None:
+            self._batcher.close()
+        self._device_thread.shutdown(wait=True)
 
     def _build(self, cfg: Config) -> Callable[[np.ndarray, int], Tuple[np.ndarray, np.ndarray]]:
         from image_search_engine_tpu_torch.index.ivf import IVFIndex, IVFPQIndex
@@ -78,19 +143,19 @@ class QueryEngine:
 
         self._check_embedder_provenance(cfg)
         warn_if_random_backbone(cfg, "serving queries")
-        embedder = CNNEmbedder(cfg.dnn_model.value, image_size=cfg.resize_size,
-                               batch_size=1, device=self.device,
-                               torch_weights=cfg.torch_weights)
+        self.embedder = CNNEmbedder(cfg.dnn_model.value, image_size=cfg.resize_size,
+                                    batch_size=1, device=self.device,
+                                    torch_weights=cfg.torch_weights)
         self.index = self._load_index(cfg.dnn_index_path, cfg, self.device)
-        prologue = fused.cnn_prologue(embedder, normalize=self.index.metric == "cosine")
+        prologue = fused.cnn_prologue(self.embedder, normalize=self.index.metric == "cosine")
         if type(self.index) is IVFPQIndex:
             family = fused.ivfpq_family(self.index)
         elif type(self.index) is IVFIndex:
             family = fused.ivf_family(self.index)
         else:
             family = fused.flat_family(self.index, stats=self.stats)
-        batched = fused.make_batched_search(prologue, *family)
-        return fused.wrap_serving(batched, cfg.resize_size, cfg)
+        self._batched_search = fused.make_batched_search(prologue, *family, device=self.device)
+        return fused.wrap_serving(self, self._batched_search, cfg.resize_size, cfg)
 
     @staticmethod
     def _load_index(path, cfg: Config, device):
@@ -179,11 +244,14 @@ def make_server(cfg: Config, device="cuda", prewarm: Optional[bool] = None):
 
 def serve(cfg: Config, device="cuda", prewarm: Optional[bool] = None) -> None:
     engine, httpd = make_server(cfg, device, prewarm)
-    log.info("serving %s on http://%s:%d (corpus: %d images, device %s)",
+    log.info("serving %s on http://%s:%d (corpus: %d images, device %s, micro-batch %s)",
              cfg.method.value, cfg.host, httpd.server_address[1], len(engine.paths),
-             engine.device)
-    with httpd:
-        httpd.serve_forever()
+             engine.device, cfg.micro_batch_mode())
+    try:
+        with httpd:
+            httpd.serve_forever()
+    finally:
+        engine.close()
 
 
 def parse_args(argv=None):
@@ -200,8 +268,19 @@ def parse_args(argv=None):
     ap.add_argument("--torch-weights", type=Path, default=None,
                     help="torchvision ResNet .pth to load as the backbone "
                          "(must match the indexer's)")
+    ap.add_argument("--micro-batch", nargs="?", const="on", default="off",
+                    choices=["off", "on", "auto"],
+                    help="batch concurrent queries into one device call; 'auto' measures "
+                         "at prewarm whether coalescing beats independent dispatches on "
+                         "this host and decides from the numbers (bare --micro-batch = "
+                         "'on')")
     ap.add_argument("--no-prewarm", action="store_true",
-                    help="skip the startup search that builds and loads the kernels")
+                    help="skip the startup searches that build and load the kernels and "
+                         "capture the serving programs (the first request does it then)")
+    ap.add_argument("--prewarm-wide-margin", action="store_true",
+                    help="also capture the wide-margin program the exactness "
+                         "certificate's escalation retries with (otherwise the first "
+                         "escalation captures it inside the request path)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (kernels) or cpu (plain versions)")
     a = ap.parse_args(argv)
@@ -209,8 +288,8 @@ def parse_args(argv=None):
         artifacts_dir=a.artifacts_dir, method=Method(a.method),
         index_type=IndexType(a.index_type), dnn_model=DnnModel(a.dnn_model),
         host=a.host, port=a.port, resize_size=a.resize_size,
-        torch_weights=a.torch_weights,
-        prewarm=not a.no_prewarm)
+        micro_batch=a.micro_batch, torch_weights=a.torch_weights,
+        prewarm=not a.no_prewarm, prewarm_wide=a.prewarm_wide_margin)
     return cfg, a.device
 
 

@@ -7,18 +7,24 @@ cast, resized and normalized on the device ahead of the backbone. The
 backbone computes in bfloat16 by default, as the JAX embedder does; in
 float32 the port turns TF32 off for cuDNN convolutions and cuBLAS
 matmuls, so f32 means IEEE f32.
+
+The weights file of ``save`` / ``load`` is the torch state dict
+(``torch.save``, read back by ``models/weights.read_state_dict``). The JAX
+embedder writes flax msgpack, which the port cannot read without flax; JAX
+parameters cross through ``models/weights.state_dict_from_flax``.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Mapping
+from typing import Iterable, Mapping
 
 import numpy as np
 import torch
 
 from image_search_engine_tpu_torch.models.resnet import ResNet18Thin, ResNet50
-from image_search_engine_tpu_torch.models.weights import load_state_dict, load_torch_weights
+from image_search_engine_tpu_torch.models.weights import (
+    load_state_dict, load_torch_weights, read_state_dict)
 from image_search_engine_tpu_torch.ops.image_ops import preprocess_for_cnn, to_unit_f32
 from image_search_engine_tpu_torch.utils.device import resolve_device
 from image_search_engine_tpu_torch.utils.unported import not_ported
@@ -88,3 +94,17 @@ class CNNEmbedder:
             chunk = torch.from_numpy(images[s:s + self.batch_size]).to(self.device)
             out[s:s + chunk.shape[0]] = self.embed(chunk).cpu().numpy()
         return out
+
+    def embed_iter(self, batches: Iterable[np.ndarray]) -> np.ndarray:
+        """Host image batches -> one (N, D) host float32 array."""
+        return np.concatenate([self.embed_batch(b) for b in batches])
+
+    def save(self, path: str | Path) -> None:
+        """Write the backbone's state dict as held (its dtype), on the CPU."""
+        torch.save({k: v.cpu() for k, v in self.model.state_dict().items()}, str(path))
+
+    def load(self, path: str | Path) -> "CNNEmbedder":
+        """Load a state dict written by :meth:`save` (or any
+        torchvision-layout checkpoint of this architecture)."""
+        load_state_dict(self.model, read_state_dict(path))
+        return self

@@ -14,6 +14,11 @@ import torch.nn.functional as F
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
+#: (device, dtype) -> (mean, std) tensors, made by the first eager call on
+#: that device: a dispatch captured as a CUDA graph may not upload them
+#: (a pageable host-to-device copy waits for the stream)
+_IMAGENET_TENSORS: dict = {}
+
 
 def to_unit_f32(img: torch.Tensor) -> torch.Tensor:
     """uint8 [0, 255] or float [0, 1] -> float32 [0, 1]. uint8 / 255 in f32
@@ -37,8 +42,11 @@ def resize(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
 
 def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std per channel, RGB in [0, 1], channels last."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device)
-    std = torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device)
+    key = (img.device, img.dtype)
+    if key not in _IMAGENET_TENSORS:
+        _IMAGENET_TENSORS[key] = (torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device),
+                                  torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device))
+    mean, std = _IMAGENET_TENSORS[key]
     return (img - mean) / std
 
 

@@ -1,23 +1,36 @@
 """Serving programs: feature prologue + search core + host epilogue.
 
 Port of the single-device part of ``image_search_engine_tpu/serving/
-fused.py``. Every request runs one prologue (upload, preprocess, backbone)
-and one search core on the device, then one host transfer in the epilogue.
+fused.py``. Every dispatch runs one prologue (preprocess, backbone) and one
+search core on the device, then one host transfer in the epilogue.
 Families: flat (the certified two-phase top-k over an f32, bf16 or int8
 store, or the chunked chi2 scan; the certificate retry re-runs the whole
-dispatch at the wide margin, as in the JAX package), IVF
-and IVF-PQ (the probed-scan kernel; IVF-PQ scans a reconstruction table
-built once at start, with an optional exact rerank in the same dispatch).
-PyTorch runs eagerly, so there is no program to compile and the device
-arrays ride in each core's closure. BoVW, micro-batching and the
-multi-host coordinator wait for ROADMAP.md (queue 1 items 5, 3 and 7).
+dispatch at the wide margin, as in the JAX package), IVF and IVF-PQ (the
+probed-scan kernel; IVF-PQ scans a reconstruction table built once at
+start, with an optional exact rerank in the same dispatch).
+
+On a CUDA device each dispatch is captured once as a CUDA graph and then
+replayed: the counterpart of the JAX package's jitted program, keyed on
+what its jit keys on (the batch shape, the family's statics and the
+certificate's margin). The first call of a key runs the dispatch eagerly
+once (the kernel library built and loaded, cuDNN's plans made on this
+thread, the allocator warm), then captures it reading a static device input
+buffer; every call copies its images into that buffer and replays. On the
+CPU the same dispatch runs eagerly. ``wrap_serving`` adds the host resize,
+the device thread and request micro-batching (serving/batching.py). BoVW
+and the multi-host coordinator wait for ROADMAP.md (queue 1 items 5 and 7).
 """
 
 from __future__ import annotations
 
+import importlib
+import inspect
 import logging
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Tuple
+from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -26,32 +39,187 @@ from image_search_engine_tpu_torch.index.flat import MAX_KERNEL_K, WIDE_MARGIN, 
 from image_search_engine_tpu_torch.ops.distances import l2_normalize
 from image_search_engine_tpu_torch.ops.ivf import ivf_probed_topk
 from image_search_engine_tpu_torch.parallel.topk import local_topk_with_norms
-from image_search_engine_tpu_torch.utils.unported import not_ported
 
 log = logging.getLogger(__name__)
 
-BatchedSearch = Callable[[np.ndarray, int], Tuple[np.ndarray, np.ndarray]]
+#: the ops modules whose kernel wrappers count their launches in
+#: ``<wrapper>.launches`` and ``<wrapper>.<route>_launches``
+COUNTED_MODULES = ("topk", "ivf", "kmeans", "topk_merged", "groupmin_variants",
+                   "rescore_variants")
 
 
-def make_batched_search(prologue: Callable, core: Callable,
-                        statics_fn: Callable[[int], int],
-                        epilogue: Callable) -> BatchedSearch:
-    """Compose ``prologue(images) -> feats`` and ``core(feats, k,
-    t_margin) -> out`` into one dispatch, wrapped by the family's
-    ``epilogue(out, k, retry) -> (d, i)``; ``statics_fn(k)`` clamps k to
-    the candidate pool."""
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counters: {(wrapper, attribute):
+    count} over :data:`COUNTED_MODULES`."""
+    counts = {}
+    for name in COUNTED_MODULES:
+        mod = importlib.import_module(f"image_search_engine_tpu_torch.ops.{name}")
+        for fn in vars(mod).values():
+            if inspect.isfunction(fn) and fn.__module__ == mod.__name__:
+                for attr, n in vars(fn).items():
+                    if attr.endswith("launches") and isinstance(n, int):
+                        counts[(fn, attr)] = n
+    return counts
+
+
+class CudaGraphs:
+    """How :class:`BatchedSearch` captures on a CUDA device: each program
+    warmed eagerly, then captured, on one side stream, every graph in one
+    memory pool. The warm run is on the capture's stream, so what the
+    kernels' wrappers keep per stream (the split select's ticket counters)
+    is made there outside the capture, in ordinary memory, and a later
+    graph's capture cannot place it where an earlier graph's scratch
+    lives."""
+
+    def __init__(self):
+        self.pool = None
+        self.stream = None
+
+    def warm(self, run: Callable) -> None:
+        """``run()`` once eagerly on the capture stream, waited for."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream()
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            run()
+        self.stream.synchronize()
+
+    def capture(self, run: Callable):
+        """(replay, outputs) of ``run()`` captured as one CUDA graph. A
+        dispatch that cannot be captured (a host read of a device value, a
+        pageable copy) raises here."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            out = run()
+        return graph.replay, out
+
+    def pool_bytes(self) -> int:
+        """Bytes the allocator holds in the graphs' pool."""
+        if self.pool is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
+
+
+@dataclass
+class Program:
+    """One captured dispatch: its static input buffer, its replay and
+    static outputs, the launches a replay makes ({(wrapper, attribute):
+    n}, recorded at capture), the warm run's and the capture's seconds, and
+    its replays."""
+
+    static_in: torch.Tensor
+    replay: Callable
+    out: tuple
+    launches: dict
+    warm_s: float
+    capture_s: float
+    replays: int = 0
+
+
+class BatchedSearch:
+    """``prologue(images) -> feats`` and ``core(feats, statics, t_margin)
+    -> out`` as one dispatch, wrapped by the family's ``epilogue(out, k,
+    retry) -> (d, i)``: ``self(images, k) -> (d, i)``. ``statics_fn(k)``
+    clamps k to the candidate pool (with IVF-PQ's rerank width).
+
+    With a capture backend (``graphs``; :class:`CudaGraphs` by default on
+    a CUDA device) each (batch, image shape, statics, t_margin) is
+    captured at its first call and replayed since (:attr:`programs`); a
+    capture raises rather than falling back to eager runs. A capture
+    launches nothing, so the kernels' launch counters it moved are put
+    back and each replay adds the launches the capture recorded: counts
+    stay per dispatch run. ``raw_dispatch`` is the eager, uncaptured
+    dispatch; ``dispatch`` the served one. ``replays`` and ``eager_runs``
+    count served dispatches by how they ran (the warm run before each
+    capture is an eager run; ``raw_dispatch`` counts in neither).
+    """
+
+    def __init__(self, prologue: Callable, core: Callable, statics_fn: Callable,
+                 epilogue: Callable, device, graphs=None):
+        self.device = torch.device(device)
+        self.graphs = CudaGraphs() if graphs is None and self.device.type == "cuda" else graphs
+        self._prologue, self._core, self._statics_fn = prologue, core, statics_fn
+        self._epilogue = epilogue
+        self.programs: dict = {}
+        self.eager_runs = 0
+        # one dispatch at a time: a replay's static buffers are reused
+        self._lock = threading.RLock()
+
+    @property
+    def replays(self) -> int:
+        return sum(p.replays for p in self.programs.values())
 
     @torch.inference_mode()
-    def dispatch(images: np.ndarray, k: int, t_margin=None):
-        return core(prologue(images), statics_fn(k), t_margin)
+    def _run(self, x: torch.Tensor, statics, t_margin):
+        return self._core(self._prologue(x), statics, t_margin)
 
-    def batched_search(images: np.ndarray, k: int):
-        def retry(t_margin=None):
-            return dispatch(images, k, t_margin)
+    def raw_dispatch(self, images: np.ndarray, k: int, t_margin=None):
+        """The dispatch run eagerly: upload, prologue, core."""
+        x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
+        return self._run(x, self._statics_fn(k), t_margin)
 
-        return epilogue(retry(), k, retry)
+    def dispatch(self, images: np.ndarray, k: int, t_margin=None):
+        """The served dispatch: the key's program replayed (captured at its
+        first call), or an eager run where there is no capture backend."""
+        if self.graphs is None:
+            with self._lock:
+                self.eager_runs += 1
+            return self.raw_dispatch(images, k, t_margin)
+        images = np.ascontiguousarray(images, np.float32)
+        statics = self._statics_fn(k)
+        key = (images.shape[0], images.shape[1:], statics, t_margin)
+        with self._lock:
+            prog = self.programs.get(key)
+            if prog is None:
+                prog = self.programs[key] = self._capture(images, statics, t_margin)
+            prog.static_in.copy_(torch.from_numpy(images))
+            prog.replay()
+            for (fn, attr), n in prog.launches.items():
+                setattr(fn, attr, getattr(fn, attr) + n)
+            prog.replays += 1
+            return prog.out
 
-    return batched_search
+    def _capture(self, images: np.ndarray, statics, t_margin) -> Program:
+        static_in = torch.empty(images.shape, dtype=torch.float32, device=self.device)
+        static_in.copy_(torch.from_numpy(images))
+
+        def run():
+            return self._run(static_in, statics, t_margin)
+
+        t0 = time.perf_counter()
+        self.graphs.warm(run)
+        self.eager_runs += 1
+        t1 = time.perf_counter()
+        before = launch_counters()
+        replay, out = self.graphs.capture(run)
+        after = launch_counters()
+        for (fn, attr), n in before.items():  # the capture launched nothing
+            setattr(fn, attr, n)
+        launches = {key: after[key] - n for key, n in before.items() if after[key] != n}
+        t2 = time.perf_counter()
+        log.info("captured the dispatch B=%d statics=%s t_margin=%s: warm run %.1f ms, "
+                 "capture %.1f ms", images.shape[0], statics, t_margin, (t1 - t0) * 1e3,
+                 (t2 - t1) * 1e3)
+        return Program(static_in, replay, out, launches, t1 - t0, t2 - t1)
+
+    def __call__(self, images: np.ndarray, k: int):
+        with self._lock:
+            def retry(t_margin=None):
+                return self.dispatch(images, k, t_margin)
+
+            return self._epilogue(retry(), k, retry)
+
+
+def make_batched_search(prologue: Callable, core: Callable, statics_fn: Callable,
+                        epilogue: Callable, device, graphs=None) -> BatchedSearch:
+    """Compose ``prologue(images) -> feats`` and ``core(feats, statics,
+    t_margin) -> out`` into one dispatch, wrapped by the family's
+    ``epilogue(out, k, retry) -> (d, i)``, replayed as CUDA graphs on a
+    CUDA device (:class:`BatchedSearch`)."""
+    return BatchedSearch(prologue, core, statics_fn, epilogue, device, graphs)
 
 
 def certificate_epilogue(descending: bool, stats=None, label: str = ""):
@@ -82,12 +250,13 @@ def certificate_epilogue(descending: bool, stats=None, label: str = ""):
 
 
 def cnn_prologue(embedder, normalize: bool):
-    """CNN embed prologue: upload -> preprocess -> backbone -> optional
-    l2-normalize. Images arrive resized to the index-build resolution
-    (``wrap_serving``)."""
+    """CNN embed prologue: preprocess -> backbone -> optional l2-normalize,
+    on the (B, H, W, 3) f32 images already on the embedder's device (the
+    dispatch's upload, or a captured program's static input). Images
+    arrive resized to the index-build resolution (``wrap_serving``)."""
 
-    def prologue(images: np.ndarray) -> torch.Tensor:
-        emb = embedder.embed(torch.as_tensor(images).to(embedder.device))
+    def prologue(images: torch.Tensor) -> torch.Tensor:
+        emb = embedder.embed(images)
         return l2_normalize(emb) if normalize else emb
 
     return prologue
@@ -177,21 +346,78 @@ def ivfpq_family(index):
     return core, statics_fn, finish_epilogue(index)
 
 
-def wrap_serving(batched_search: BatchedSearch, image_size: int, cfg):
+def wrap_serving(engine, batched_search: BatchedSearch, image_size: int, cfg):
     """The per-request ``search(image, k)``: host resize to the index-build
     resolution on the request's thread, then the dispatch on the device
-    thread."""
+    thread, either per request or, with ``--micro-batch``, through the
+    MicroBatcher, whose worker hands each padded batch to the device
+    thread. Sets on ``engine`` what prewarm and ``/stats`` read, with the
+    JAX package's names: ``_use_batcher``, ``_mb_calibrated``,
+    ``_batcher`` (built lazily on the first batched request),
+    ``_batcher_lock``, ``_mb_calibrate`` (auto mode) and
+    ``_extra_prewarm`` (captures B = ``micro_batch_max``); and
+    ``_on_device(fn, *args)``, which runs ``fn`` on the device thread."""
+    from image_search_engine_tpu_torch.serving.batching import MicroBatcher
     from image_search_engine_tpu_torch.serving.http import _resize_host
 
-    if cfg.micro_batch_mode() != "off":
-        raise not_ported(f"--micro-batch {cfg.micro_batch_mode()}", "serving")
+    s = image_size
     # Device work runs on one long-lived thread: PyTorch caches cuDNN
     # execution plans per thread, and the HTTP server starts a thread per
-    # request, which would re-plan every convolution each time.
+    # request, which would re-plan every convolution each time. Captures
+    # and replays run there too.
     device_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="device")
+    engine._device_thread = device_thread
+
+    def on_device(fn, *args):
+        return device_thread.submit(fn, *args).result()
+
+    def device_search(images: np.ndarray, k: int):
+        return on_device(batched_search, images, k)
+
+    engine._on_device = on_device
+    mb_mode = cfg.micro_batch_mode()
+    if mb_mode == "off":
+        def search(image: np.ndarray, k: int):
+            return device_search(_resize_host(image, s)[None], k)
+
+        return search
+
+    if mb_mode == "on":
+        log.warning(
+            "--micro-batch on: concurrent requests wait up to %.1f ms to share one padded "
+            "batch of %d. Independent dispatches also pipeline (the host prepares one "
+            "request while the device runs another), so whether coalescing pays depends "
+            "on the host; --micro-batch auto measures it at prewarm on this host",
+            cfg.micro_batch_wait_ms, cfg.micro_batch_max)
+    # "on": trust the flag. "auto": serve per request until prewarm's
+    # calibration measures that coalescing beats independent dispatches
+    # here; with --no-prewarm nothing measures, so auto stays off, and
+    # says so instead of reporting "auto" with no calibration run.
+    if mb_mode == "auto" and not cfg.prewarm:
+        log.warning(
+            "--micro-batch auto needs prewarm to calibrate; with --no-prewarm "
+            "calibration never runs and queries serve UNBATCHED (drop --no-prewarm, "
+            "or pass --micro-batch on/off explicitly)")
+    engine._mb_calibrated = False  # surfaced via /stats ("calibrated")
+    engine._use_batcher = mb_mode == "on"
+    engine._batcher = None
+    engine._batcher_lock = threading.Lock()
+    if mb_mode == "auto":
+        engine._mb_calibrate = dict(batched_search=device_search, image_shape=(s, s, 3))
+    # capture B = micro_batch_max at prewarm too: the first concurrent
+    # burst must not pay a capture
+    engine._extra_prewarm = lambda k: device_search(
+        np.zeros((cfg.micro_batch_max, s, s, 3), np.float32), k)
 
     def search(image: np.ndarray, k: int):
-        images = _resize_host(image, image_size)[None]
-        return device_thread.submit(batched_search, images, k).result()
+        if engine._use_batcher:
+            if engine._batcher is None:
+                with engine._batcher_lock:
+                    if engine._batcher is None:
+                        engine._batcher = MicroBatcher(
+                            device_search, max_batch=cfg.micro_batch_max,
+                            max_wait_ms=cfg.micro_batch_wait_ms)
+            return engine._batcher.search(_resize_host(image, s), k)
+        return device_search(_resize_host(image, s)[None], k)
 
     return search

@@ -4,7 +4,8 @@ The JAX package's HTTP contract (its ``engine.py``), kept in the port's own
 copy: ``POST /similar_images`` takes a multipart image upload and answers
 ``{"prediction": [[distance, base64_thumbnail, path], ...]}``; ``GET
 /healthz`` reports the corpus size, ``GET /stats`` the serving counters
-and ``GET /`` the packaged upload page (``frontend/index.html``). An empty
+(with a ``micro_batch`` block of the routing when ``--micro-batch`` is
+not off) and ``GET /`` the packaged upload page (``frontend/index.html``). An empty
 POST or an undecodable upload answers 400, a failed query 500.
 """
 
@@ -91,7 +92,7 @@ def _parse_multipart(headers, body: bytes) -> Optional[bytes]:
 
 def make_handler(engine):
     """A ``BaseHTTPRequestHandler`` class serving ``engine`` (anything with
-    ``paths``, ``stats`` and ``query(image)``)."""
+    ``paths``, ``stats``, ``cfg`` and ``query(image)``)."""
 
     class Handler(BaseHTTPRequestHandler):
         def _json(self, code: int, payload) -> None:
@@ -108,7 +109,20 @@ def make_handler(engine):
                 self._json(200, {"status": "ok", "corpus": len(engine.paths)})
                 return
             if self.path == "/stats":
-                self._json(200, engine.stats.snapshot())
+                snap = engine.stats.snapshot()
+                mb = engine.cfg.micro_batch_mode()
+                if mb != "off":
+                    # the (possibly auto-calibrated) routing, so an operator
+                    # sees which path requests take, including "auto" whose
+                    # calibration never ran (--no-prewarm: unbatched)
+                    snap["micro_batch"] = {
+                        "mode": mb,
+                        "active": bool(getattr(engine, "_use_batcher", False)),
+                    }
+                    if mb == "auto":
+                        snap["micro_batch"]["calibrated"] = bool(
+                            getattr(engine, "_mb_calibrated", False))
+                self._json(200, snap)
                 return
             if self.path not in ("/", "/index.html"):
                 self._json(404, {"error": "unknown endpoint"})
