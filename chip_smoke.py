@@ -134,17 +134,36 @@ Phases (each raises on failure; the script then exits non-zero):
      ``group_order``) and the production ``rescore``, ptxas registers and
      spills of the group route's instantiations; and an empty batch and k
      = 0 through ``FlatIndex.search`` on each store dtype and metric
-     (shapes and dtypes as the JAX package's).
+     (shapes and dtypes as the JAX package's);
+  8. descriptors, BoVW and dHash, on phase 2's PNGs (run before phase 5,
+     while they exist): every descriptor kind (ORB, SIFT, BRISK at 256
+     keypoints over 4 octaves, DAISY, HOG, colour, dHash) on the card,
+     with TF32 allowed by the global flags, against the same function on
+     the CPU for 8 images (keypoints and valid masks equal; floats within
+     1e-5; a binary test, a dHash bit, an orientation or gradient bin may
+     differ only at a tie, each case counted) and timed in ms per image at
+     B = 32; ``--method dhash`` through the indexer CLI and the HTTP server
+     (8 queries, each its own file first at Hamming distance 0, one replay a
+     request, none eager, replays = eager dispatches at B = 1 and 8,
+     server-side latency at B = 1); ``--method bovw`` with DAISY (k = 200)
+     the same way, each request launching the k-means assignment and the
+     flat search's three kernels once, then the assignment over the
+     codebook's 102,400 x 136 rows and the flat kernels over the 4,096 x 200
+     histograms (Q = 1 and 8) against their plain versions; BoVW with ORB
+     (~1M x 256 descriptors into the codebook) built and served in process,
+     its replay = eager at B = 1; build, codebook and phase wall times.
 
 Before its last three lines it prints a JSON object of the serving
 figures (per family: replays and eager runs of the served queries, the
 replay checks, latencies, QPS with batching off and on, the batched run's
 launches and agreement, the captured programs and their graph pool; the
-auto calibration; the entry-point twins). Before its last two lines it
-prints a JSON object describing the 16 kernels (launches, errors, times, bounds; ``groupmin`` and ``rescore``
-per store dtype and, for f32, per route; the extract-min select's launches
-in each main-path run, which must be 0) and the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
+auto calibration; the entry-point twins; phase 8's figures). Before its
+last two lines it prints a JSON object describing the 16 kernels
+(launches, errors, times, bounds; ``groupmin`` and ``rescore`` per store
+dtype and, for f32, per route; the extract-min select's launches in each
+main-path run, which must be 0; for ``groupmin``, ``select_topt``,
+``rescore`` and ``kmeans_assign`` their launches while serving BoVW and
+their errors at its shapes) and the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
 """
 
@@ -1049,29 +1068,34 @@ def index_corpus(workdir: Path, name: str, *flags: str) -> Path:
 
 
 def serve_and_query(art: Path, index_type: str, paths: list, label: str,
-                    own_first: bool = True, flags: tuple = (), load: bool = False) -> dict:
+                    own_first: bool = True, flags: tuple = (), load: bool = False,
+                    tie_first: bool = False, latency: bool = False) -> dict:
     """The port's HTTP server on ``art`` (extra CLI ``flags``), 8 corpus
     images posted one at a time: each answers 200 with K finite ascending
     distances and the query's own file first (``own_first``) or among the
-    K; a garbage upload answers 400 and /healthz counts the corpus. The
-    kernels' launch counts are set to 0 just before the 8 requests and read
-    just after; each request must be one replay of the program prewarm
+    K (with ``tie_first``, first or tied with the first's distance: a
+    histogram index may hold twins); a garbage upload answers 400 and
+    /healthz counts the corpus. The kernels' launch counts are set to 0 just
+    before the 8 requests and read just after; each request must be one replay of the program prewarm
     captured, none an eager run. Then the served dispatch against
     ``raw_dispatch`` at B = 1 and 8 (check_replays; also at the wide margin
     when the server prewarmed it) and, with ``load``, the server's
-    latencies and QPS (serving_load). Returns {engine, launches, p50_ms,
+    latencies and QPS (serving_load), with ``latency`` its latencies alone
+    (search_latency). Returns {engine, launches, p50_ms,
     first, escalations, replays, programs, ...}."""
+    from image_search_engine_tpu_torch.ops import kmeans as KM
     from image_search_engine_tpu_torch.ops import topk as T
 
     extra = {}
     with running_server(art, index_type, *flags) as (engine, base):
-        if engine.index.ntotal != len(paths):
-            raise AssertionError(f"{label}: engine loaded {engine.index.ntotal} rows")
+        if engine._index_n != len(paths):
+            raise AssertionError(f"{label}: engine loaded {engine._index_n} rows")
         bs = engine._batched_search
         T.reset_launch_counts()
         reset_scan_counts()
+        KM.assign.launches = 0
         replays0, eager0 = bs.replays, bs.eager_runs
-        first, lat = 0, []
+        first, first_distance, lat = 0, 0.0, []
         for i in np.linspace(0, len(paths) - 1, 8).astype(int):
             t0 = time.perf_counter()
             status, js = post_image(base + "/similar_images", paths[i].read_bytes())
@@ -1080,11 +1104,12 @@ def serve_and_query(art: Path, index_type: str, paths: list, label: str,
                 raise AssertionError(f"{label} query {i}: HTTP {status} {js}")
             pred = js["prediction"]
             dists, names = [p[0] for p in pred], [p[2] for p in pred]
-            if len(pred) != K or str(paths[i]) not in names[:1 if own_first else K]:
+            if len(pred) != K or not answered(pred, str(paths[i]), own_first, tie_first):
                 raise AssertionError(f"{label} query {i}: {len(pred)} results, top-1 {names[0]}")
             if not (np.all(np.isfinite(dists)) and dists == sorted(dists)):
                 raise AssertionError(f"{label} query {i}: distances not finite ascending: {dists}")
             first += names[0] == str(paths[i])
+            first_distance = max(first_distance, dists[0])
         counts = served_counts()
         note_extract_min(f"{label} serving")
         replays, eager = bs.replays - replays0, bs.eager_runs - eager0
@@ -1103,20 +1128,36 @@ def serve_and_query(art: Path, index_type: str, paths: list, label: str,
         replay_check = check_replays(label, bs, corpus_batch(paths, rows),
                                      wide="--prewarm-wide-margin" in flags, run=engine._on_device)
         if load:
-            extra = serving_load(engine, base, paths, label, own_first)
+            extra = serving_load(engine, base, paths, label, own_first, tie_first)
+        elif latency:
+            extra = {"latency": search_latency(engine, corpus_batch(paths, rows[:1]))}
     log(f"  {label}: 8 served queries = 8 graph replays, 0 eager dispatches; "
         f"{programs_line(bs)}")
     return {"engine": engine, "launches": counts, "p50_ms": float(np.median(lat)) * 1e3,
-            "first": first, "escalations": escalations, "replays": replays, "eager": eager,
+            "first": first, "first_distance": first_distance, "escalations": escalations,
+            "replays": replays, "eager": eager,
             "replay_check": replay_check, "programs": programs_summary(bs), **extra}
+
+
+def answered(pred: list, own: str, own_first: bool, tie_first: bool = False) -> bool:
+    """The query's own file ``own`` first among the [distance, thumbnail,
+    path] answers (with ``tie_first``, or at the first's distance), or
+    anywhere among them when not ``own_first``."""
+    names = [p[2] for p in pred]
+    if not own_first:
+        return own in names
+    return own == names[0] or (tie_first and own in names
+                               and pred[names.index(own)][0] == pred[0][0])
 
 
 def served_counts() -> dict:
     """The serving kernels' launch counts (counted per replay)."""
     from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import kmeans as KM
     from image_search_engine_tpu_torch.ops import topk as T
 
-    return {**T.launch_counts(), "select_topt_radix": T.select_topt.radix_launches,
+    return {**T.launch_counts(), "kmeans_assign": KM.assign.launches,
+            "select_topt_radix": T.select_topt.radix_launches,
             "group_order": T.group_order.launches, "probed_scan": IV.probed_scan.launches,
             "probed_scan_slot": IV.probed_scan.slot_launches,
             "probed_scan_bucket": IV.probed_scan.bucket_launches}
@@ -1170,19 +1211,21 @@ def corpus_batch(paths: list, rows) -> np.ndarray:
     return np.stack([_resize_host(load_image(paths[i]), 224) for i in rows])
 
 
-def check_replays(label: str, bs, images: np.ndarray, wide: bool = False, run=None) -> dict:
-    """At B = 1 and 8 (and at the wide margin with ``wide``): the served
-    dispatch (the key's CUDA graph, captured now if prewarm did not)
-    against ``raw_dispatch`` on the same images: every output (distances,
-    ids, certificate or valid mask) equal bit for bit. ``run(fn, *args)``
-    runs each on the serving path's device thread. Returns {case: True}."""
+def check_replays(label: str, bs, images: np.ndarray, wide: bool = False, run=None,
+                  batches: tuple = (1, 8)) -> dict:
+    """At each batch size of ``batches`` (and at the wide margin with
+    ``wide``): the served dispatch (the key's CUDA graph, captured now if
+    prewarm did not) against ``raw_dispatch`` on the same images: every
+    output (distances, ids, and a certificate or valid mask where the
+    family has one) equal bit for bit. ``run(fn, *args)`` runs each on the
+    serving path's device thread. Returns {case: True}."""
     import torch
 
     from image_search_engine_tpu_torch.index.flat import WIDE_MARGIN
 
     run = run or (lambda fn, *a: fn(*a))
     cases = {}
-    for b in (1, 8):
+    for b in batches:
         for t_margin in ((None, WIDE_MARGIN) if wide else (None,)):
             case = f"B={b}" + (f" t_margin={t_margin}" if t_margin else "")
             got = run(lambda: [t.clone() for t in bs.dispatch(images[:b], K, t_margin)])
@@ -1195,8 +1238,9 @@ def check_replays(label: str, bs, images: np.ndarray, wide: bool = False, run=No
                 raise AssertionError(f"{label} {case}: the replay differs from the eager "
                                      f"dispatch (max abs differences by output {diffs})")
             cases[case] = True
-    log(f"  {label}: replay = eager dispatch bit for bit at {', '.join(cases)} "
-        f"(distances, ids, {'certificates' if got[2].dim() == 1 else 'valid masks'})")
+    outputs = "distances, ids" + ("" if len(got) == 2 else ", certificates"
+                                  if got[2].dim() == 1 else ", valid masks")
+    log(f"  {label}: replay = eager dispatch bit for bit at {', '.join(cases)} ({outputs})")
     return cases
 
 
@@ -1260,11 +1304,12 @@ def quiet_queries():
         lg.setLevel(level)
 
 
-def check_answers(label: str, paths: list, res: dict, own_first: bool) -> None:
+def check_answers(label: str, paths: list, res: dict, own_first: bool,
+                  tie_first: bool = False) -> None:
     for i, pred in res.items():
-        names = [p[2] for p in pred]
-        if len(pred) != K or str(paths[i]) not in names[:1 if own_first else K]:
-            raise AssertionError(f"{label} query {i}: {len(pred)} results, top-1 {names[:1]}")
+        if len(pred) != K or not answered(pred, str(paths[i]), own_first, tie_first):
+            raise AssertionError(f"{label} query {i}: {len(pred)} results, top-1 "
+                                 f"{[p[2] for p in pred[:1]]}")
 
 
 def compare_answers(label: str, res: dict, ref: dict) -> dict:
@@ -1365,7 +1410,8 @@ def host_breakdown(engine, data: bytes) -> dict:
     return {key: float(np.median(v)) * 1e3 for key, v in parts.items()}
 
 
-def serving_load(engine, base: str, paths: list, label: str, own_first: bool) -> dict:
+def serving_load(engine, base: str, paths: list, label: str, own_first: bool,
+                 tie_first: bool = False) -> dict:
     """The unbatched server under load: server-side latency at B = 1
     (search_latency), then LOAD_REQUESTS corpus images from 1 client and
     from CLIENTS, each answered with its own file; returns the latencies,
@@ -1377,7 +1423,7 @@ def serving_load(engine, base: str, paths: list, label: str, own_first: bool) ->
     with quiet_queries():
         for clients in (1, CLIENTS):
             res, secs = post_many(base, paths, rows, clients)
-            check_answers(f"{label} unbatched", paths, res, own_first)
+            check_answers(f"{label} unbatched", paths, res, own_first, tie_first)
             qps[clients] = LOAD_REQUESTS / secs
             answers = answers or res
     log(f"  {label} unbatched: server-side search p50 at B=1 eager "
@@ -2509,7 +2555,8 @@ def phase4_entry(workdir: Path, paths: list, flat_art: Path) -> dict:
     q8 = serve_and_query(art, "l2", paths, "int8", flags=("--prewarm-wide-margin",))
     idx8 = q8["engine"].index
     want = {"groupmin": 0, "select_topt": 8, "rescore": 0, "groupmin_q8": 8, "rescore_q8": 8,
-            "group_order": 0, "topk_running": 0, "select_topt_radix": 8, "probed_scan": 0,
+            "group_order": 0, "topk_running": 0, "kmeans_assign": 0, "select_topt_radix": 8,
+            "probed_scan": 0,
             "probed_scan_slot": 0, "probed_scan_bucket": 0}
     if idx8.dtype != "int8" or q8["launches"] != want or q8["escalations"] != 0:
         raise AssertionError(f"int8 serving: store {idx8.dtype}, launches {q8['launches']} (want "
@@ -3922,6 +3969,370 @@ def phase7(store) -> dict:
     return {"kernels": kernels, "times": times, "recalls": recalls, "rescore_bf16": rescore_bf16}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: descriptors, BoVW and dHash
+# ---------------------------------------------------------------------------
+
+#: the descriptor kinds phase 8 runs on the card and on the CPU; the BoVW
+#: builds: DAISY (the indexer's default) and ORB at the reference's widths
+#: (256 keypoints over 4 octaves, a 200-word codebook)
+DESCRIBE_KINDS = ("orb", "sift", "brisk", "daisy", "hog", "color", "dhash")
+CORNER_FLAGS = ("--max-keypoints", "256", "--corner-n-levels", "4", "--num-clusters", "200")
+DESCRIBE_B = 32  # the indexer's BoVW batch
+# tolerances of a descriptor on the card against the same function on the
+# CPU: floats (DAISY, HOG, colour, SIFT) 1e-5; an orientation may take the
+# neighbouring bin where 32 theta / 2 pi lies within 1e-3 of a half
+# integer, a SIFT or HOG gradient sample its neighbouring bin where its
+# angle lies within 1e-5 bins of a bin edge (atan2 differs by ulps between
+# the card and the CPU: the bins are computed on both, and the entries of a
+# keypoint or HOG block whose bins differ are left out of the float
+# comparison, and counted), a binary test flip where its
+# two samples lie within 1e-5, a dHash bit where its two thumbnail samples
+# lie within 1e-6; keypoint positions and valid masks equal
+DESC_FLOAT_TOL, ORIENT_EDGE, GRAD_EDGE, BIT_GAP, DHASH_GAP = 1e-5, 1e-3, 1e-5, 1e-5, 1e-6
+
+
+def make_descriptors(device: str) -> dict:
+    """Each of DESCRIBE_KINDS at the reference's parameters on ``device``."""
+    from image_search_engine_tpu_torch import descriptors as D
+
+    corners = {kind: D.CornerDescriptor(kind, 256, n_levels=4, device=device)
+               for kind in ("orb", "sift", "brisk")}
+    return {**corners, "daisy": D.DaisyDescriptor(device=device),
+            "hog": D.HOGDescriptor(device=device), "color": D.ColorDescriptor(device=device),
+            "dhash": D.DHashDescriptor(device=device)}
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """cuDNN's and cuBLAS's TF32 on for the duration: the descriptors must
+    not depend on these flags (their filters are float64 products)."""
+    import torch
+
+    keep = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = keep
+
+
+def gradient_bins(x, nbins: int):
+    """(bin, distance to the nearest bin edge) of angles ``x`` in bin units,
+    binned as the SIFT and HOG descriptors bin them."""
+    import torch
+
+    return torch.clamp(x.to(torch.int32), 0, nbins - 1), (x - x.round()).abs()
+
+
+def corner_levels(gray, kind: str):
+    """Per pyramid level of a 256-keypoint, 4-octave corner descriptor: its
+    keypoints and, for the binary kinds, |I(p1) - I(p2)| of each test; for
+    SIFT the (bin, distance to a bin edge) of each gradient sample."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import corners as C
+
+    out = []
+    for (h, w), k in C.pyramid_levels(*gray.shape[1:], 256, 4):
+        g = C.resize_gray(gray, h, w)
+        kp = C.detect(g, k)
+        if kind == "sift":
+            patches = C._extract_patches(C.gaussian_blur(g, 1.0), kp.ys, kp.xs)
+            grid = C._oriented_patch_values(patches, kp.theta, "sift", C._sift_points)
+            grid = grid.reshape(*grid.shape[:2], 18, 18)
+            dx = grid[..., 1:-1, 2:] - grid[..., 1:-1, :-2]
+            dy = grid[..., 2:, 1:-1] - grid[..., :-2, 1:-1]
+            ang = torch.remainder(torch.atan2(dy, dx), 2 * math.pi)
+            gap = gradient_bins(ang / (2 * math.pi) * 8, 8)  # ops/corners.sift_describe's
+        else:
+            patches = C._extract_patches(C.gaussian_blur(g, 2.0), kp.ys, kp.xs)
+            pts, pairs = ((C._brief_points(256, C._RADIUS), C._orb_pairs(256)) if kind == "orb"
+                          else C._brisk_points_pairs(C._RADIUS))
+            v = C._oriented_patch_values(patches, kp.theta, "chip_smoke_" + kind, lambda: pts)
+            pairs = torch.as_tensor(pairs, device=g.device).long()
+            gap = (v[..., pairs[:, 0]] - v[..., pairs[:, 1]]).abs()
+        out.append((kp, gap))
+    return out
+
+
+def check_corner_kind(kind: str, gray_card, gray_cpu, card, cpu) -> dict:
+    """A corner descriptor on the card against the CPU: every level's
+    keypoints (positions, valid) equal, orientations within 1e-4 rad, and
+    the descriptors equal but at a keypoint whose orientation sits at a bin
+    edge or, for a binary test, where its two samples nearly tie."""
+    import torch
+
+    lv_card, lv_cpu = corner_levels(gray_card, kind), corner_levels(gray_cpu, kind)
+    for (kc, _), (kh, _) in zip(lv_card, lv_cpu):
+        for name in ("ys", "xs", "valid"):
+            if not torch.equal(getattr(kc, name).cpu(), getattr(kh, name)):
+                raise AssertionError(f"{kind}: keypoint {name} differ between the card and the "
+                                     f"CPU")
+        terr = float((kc.theta.cpu() - kh.theta).abs().max())
+        if terr > 1e-4:
+            raise AssertionError(f"{kind}: orientations differ by {terr} rad")
+    theta = torch.cat([kh.theta for kh, _ in lv_cpu], dim=1).numpy()
+    frac = theta * 32 / (2 * math.pi)
+    keep = np.abs(frac - np.floor(frac) - 0.5) >= ORIENT_EDGE
+    (dc, vc), (dh, vh) = card, cpu
+    if not np.array_equal(vc, vh):
+        raise AssertionError(f"{kind}: valid masks differ between the card and the CPU")
+    if kind == "sift":
+        bins_card = torch.cat([g[0] for _, g in lv_card], dim=1).cpu()
+        bins_cpu = torch.cat([g[0] for _, g in lv_cpu], dim=1)
+        edge = torch.cat([g[1] for _, g in lv_cpu], dim=1)
+        moved = bins_card != bins_cpu
+        if (edge[moved] >= GRAD_EDGE).any():
+            raise AssertionError("sift: a gradient bin differs away from a bin edge")
+        moved = moved.flatten(2).any(-1).numpy()
+        keep &= ~moved
+        err = float(np.abs(dc[keep] - dh[keep]).max())
+        if err > DESC_FLOAT_TOL:
+            raise AssertionError(f"sift: the card differs from the CPU by {err}")
+        return {"max_abs_err": err, "edge_keypoints": int((~keep).sum()),
+                "keypoints_with_a_gradient_bin_moved": int(moved.sum()),
+                "max_abs_err_all": float(np.abs(dc - dh).max())}
+    flips = (dc != dh) & keep[..., None]
+    gap = torch.cat([g for _, g in lv_cpu], dim=1).numpy()
+    if (gap[flips] > BIT_GAP).any():
+        raise AssertionError(f"{kind}: {int((gap[flips] > BIT_GAP).sum())} bits differ between "
+                             f"the card and the CPU away from a tie")
+    return {"bits_flipped_at_ties": int(flips.sum()), "edge_keypoints": int((~keep).sum())}
+
+
+def check_descriptors(paths: list) -> dict:
+    """Each descriptor kind on the card (TF32 allowed by the global flags)
+    against the same function on the CPU, for 8 corpus images, within the
+    tolerances above."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops.filters import gradients
+    from image_search_engine_tpu_torch.ops.image_ops import resize_gray, rgb_to_gray, to_unit_f32
+    from image_search_engine_tpu_torch.utils.imageio import load_image_u8
+
+    images = np.stack([load_image_u8(paths[i]) for i in np.linspace(0, len(paths) - 1, 8)
+                       .astype(int)])
+    with tf32_allowed():
+        card = {k: d.describe_batch(images) for k, d in make_descriptors("cuda").items()}
+    cpu = {k: d.describe_batch(images) for k, d in make_descriptors("cpu").items()}
+    # each device's own gray, as its describe_batch computed it
+    gray_cpu = rgb_to_gray(to_unit_f32(torch.from_numpy(images)))
+    gray_card = rgb_to_gray(to_unit_f32(torch.from_numpy(images).cuda()))
+    res = {}
+    for kind in DESCRIBE_KINDS:
+        (fc, vc), (fh, vh) = card[kind], cpu[kind]
+        if fc.shape != fh.shape or fc.dtype != fh.dtype or not np.isfinite(fc).all():
+            raise AssertionError(f"{kind}: card {fc.shape} {fc.dtype} vs CPU {fh.shape}")
+        if kind in ("orb", "sift", "brisk"):
+            res[kind] = check_corner_kind(kind, gray_card, gray_cpu, card[kind], cpu[kind])
+        elif kind == "dhash":
+            small = resize_gray(gray_cpu, 8, 9)
+            gap = (small[:, :, 1:] - small[:, :, :-1]).abs().reshape(8, 64).numpy()
+            flips = fc != fh
+            if (gap[flips] > DHASH_GAP).any():
+                raise AssertionError("dhash: bits differ between the card and the CPU")
+            res[kind] = {"bits_flipped_at_ties": int(flips.sum())}
+        elif kind == "hog":
+            # the blocks whose cells hold a pixel binned apart on the card
+            (bc, _), (bh, eh) = (gradient_bins(torch.remainder(torch.rad2deg(torch.atan2(
+                *gradients(g))), 180.0) / (180.0 / 9), 9) for g in (gray_card, gray_cpu))
+            moved = bc.cpu() != bh
+            if (eh[moved] >= GRAD_EDGE).any():
+                raise AssertionError("hog: a gradient bin differs away from a bin edge")
+            cell = moved.reshape(8, 7, 32, 7, 32).any(dim=4).any(dim=2)
+            edge = (cell[:, :-1, :-1] | cell[:, 1:, :-1] | cell[:, :-1, 1:]
+                    | cell[:, 1:, 1:]).numpy()
+            diff = np.abs(fc - fh).reshape(8, 6, 6, 36)
+            err = float(diff[~edge].max()) if (~edge).any() else 0.0
+            if err > DESC_FLOAT_TOL:
+                raise AssertionError(f"hog: the card differs from the CPU by {err}")
+            res[kind] = {"max_abs_err": err, "blocks_with_a_bin_moved": int(edge.sum()),
+                         "max_abs_err_all": float(diff.max())}
+        else:
+            err = float(np.abs(fc - fh).max())
+            if err > DESC_FLOAT_TOL or (vc is not None and not np.array_equal(vc, vh)):
+                raise AssertionError(f"{kind}: the card differs from the CPU by {err}")
+            res[kind] = {"max_abs_err": err}
+        res[kind]["shape"] = list(fc.shape)
+    # why to_unit_f32 reads a table: the card divides by a host scalar as a
+    # product with its reciprocal
+    u8 = torch.arange(256, dtype=torch.uint8)
+    exact = torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0))
+    res["uint8_over_255_on_the_card_differ"] = int((u8.cuda().float() / 255.0).cpu().ne(exact)
+                                                   .sum())
+    res["to_unit_f32_differ"] = int(to_unit_f32(u8.cuda()).cpu().ne(exact).sum())
+    if res["to_unit_f32_differ"]:
+        raise AssertionError("to_unit_f32 on the card differs from the host decoder's values")
+    log(f"  descriptors of 8 corpus images on the card (TF32 allowed by the global flags) "
+        f"against the CPU: {res}")
+    return res
+
+
+def describe_timings(paths: list, card: str) -> dict:
+    """Each kind's describe on the card at B = DESCRIBE_B (224-px corpus
+    images on the device): CUDA-event median over 5 runs, in ms per image."""
+    import torch
+
+    from image_search_engine_tpu_torch.utils.imageio import load_image_u8
+
+    x = torch.from_numpy(np.stack([load_image_u8(p) for p in paths[:DESCRIBE_B]])).cuda()
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        for kind, d in make_descriptors("cuda").items():
+            out[kind] = median_ms(lambda: d._describe(x), flush, reps=5) / DESCRIBE_B
+    log(f"  describe ms per image at B={DESCRIBE_B} on {card}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def index_method(workdir: Path, name: str, *flags: str) -> tuple:
+    """The port's indexer CLI over the corpus PNGs into ``workdir / name``
+    with ``flags``, on the card; returns (artifacts dir, wall seconds)."""
+    from image_search_engine_tpu_torch import indexer as port_indexer
+
+    art = workdir / name
+    t0 = time.perf_counter()
+    port_indexer.cli_main(["--data-dir", str(workdir / "images"), "--artifacts-dir", str(art),
+                           *flags, "--device", "cuda"])
+    return art, time.perf_counter() - t0
+
+
+def latency_line(lat: dict) -> str:
+    return (f"server-side search p50 at B=1 eager {lat['eager_search_p50_ms']:.4f} ms, replay "
+            f"{lat['replay_search_p50_ms']:.4f} ms; one replay {lat['replay_device_ms']:.4f} ms on "
+            f"the device, the eager dispatch {lat['eager_issue_ms']:.4f} ms to issue on the host")
+
+
+def codebook_seconds(art: Path, kind: str) -> tuple:
+    """The codebook's training alone, timed on the card: the k-means of the
+    built pipeline (k = 200, 25 iterations, 3 restarts, spherical) over the
+    build's cached descriptions. Returns (seconds, the (T, D) rows)."""
+    import torch
+
+    from image_search_engine_tpu_torch.bovw.pipeline import flatten_valid_descriptors
+    from image_search_engine_tpu_torch.ops.kmeans import KMeans
+
+    with np.load(art / f"descriptions_{kind}.npz") as z:
+        rows = flatten_valid_descriptors(z["features"], z["valid"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    KMeans(200, device="cuda").fit(rows)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, rows
+
+
+def check_bovw_kernels(index, rows, centroids) -> dict:
+    """The BoVW path's kernels against their plain versions at its shapes:
+    the assignment over the codebook's training rows (spherical, so
+    normalized) against its 200 centroids, and the flat search's three
+    kernels over the histogram index at Q = 1 (CUDA cores) and Q = 8
+    (tensor cores)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops.distances import l2_normalize
+
+    x = l2_normalize(torch.as_tensor(rows, device="cuda").float())
+    c = torch.as_tensor(centroids, device="cuda")
+    a_err, a_tol, a_codes = check_assign("BoVW codebook", x, c)
+    errs = {"kmeans_assign": a_err}
+    vals = index.store.values()
+    for nq in (1, 8):
+        q = vals[torch.arange(0, index.ntotal, index.ntotal // nq, device="cuda")[:nq]]
+        _, qf, knorms, tol = check_search(f"BoVW histograms Q={nq}", index, q)
+        e, _, _, _ = check_kernels(f"BoVW histograms Q={nq}", qf, index.store.vectors, knorms, tol)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    log(f"  BoVW kernels against their plain versions: assign over {x.shape[0]:,} x "
+        f"{x.shape[1]} against {c.shape[0]} centroids, error {a_err:.3g} (tolerance {a_tol:.3g}), "
+        f"{a_codes} codes differ at ties; groupmin, select_topt, rescore over the "
+        f"{index.ntotal:,} x {index.store.vectors.shape[1]} histograms at Q = 1 and 8: {errs}")
+    return errs
+
+
+def phase8(workdir: Path, paths: list, card: str) -> dict:
+    """Descriptors, BoVW and dHash on the card: each descriptor against the
+    CPU; dHash and BoVW (DAISY) through the indexer CLI and the HTTP server
+    (own file first, one replay a request, replays = eager dispatches at B
+    = 1 and 8, latencies); the BoVW path's kernels at its shapes; BoVW over
+    ORB (256 keypoints, 4 octaves: ~1M descriptors into the codebook)
+    served in process; timings."""
+    from image_search_engine_tpu_torch import engine as port_engine
+    from image_search_engine_tpu_torch.bovw.pipeline import BoVWPipeline
+    from image_search_engine_tpu_torch.ops import kmeans as KM
+
+    log("phase 8: descriptors, BoVW and dHash")
+    t0 = time.perf_counter()
+    res = {"descriptors": check_descriptors(paths), "describe_ms_per_image":
+           describe_timings(paths, card)}
+
+    art, build_s = index_method(workdir, "dhash", "--method", "dhash", "--no-thumbnails")
+    out = serve_and_query(art, "l2", paths, "dHash", flags=("--method", "dhash"), latency=True)
+    if out["engine"].index is not None or any(out["launches"].values()):
+        raise AssertionError(f"dHash serving launched kernels: {out['launches']}")
+    res["dhash"] = {"build_s": build_s, "served_queries": {"replays": out["replays"],
+                                                           "eager": out["eager"]},
+                    "replay_equals_eager": out["replay_check"], "latency": out["latency"],
+                    "programs": out["programs"]}
+    log(f"  dHash: {len(paths)} hashes in {build_s:.1f} s; 8 queries each its own file first "
+        f"(Hamming distance {out['first_distance']}); {out['replays']} replays, {out['eager']} "
+        f"eager; no kernel; {latency_line(out['latency'])}")
+    if out["first_distance"] != 0:
+        raise AssertionError(f"dHash: a query's first answer at distance {out['first_distance']}")
+
+    KM.assign.launches = 0
+    art, build_s = index_method(workdir, "bovw_daisy", "--method", "bovw", "--no-thumbnails",
+                                "--corner-descriptor", "daisy", "--num-clusters", "200")
+    build_assign = KM.assign.launches
+    if not build_assign:
+        raise AssertionError("the BoVW build trained its codebook without the assignment kernel")
+    codebook_s, rows = codebook_seconds(art, "daisy")
+    out = serve_and_query(art, "l2", paths, "BoVW DAISY", flags=("--method", "bovw"),
+                          latency=True, tie_first=True)
+    used = ("groupmin", "select_topt", "rescore", "kmeans_assign", "select_topt_radix")
+    counts = {k: out["launches"][k] for k in used}
+    if any(counts[k] != out["replays"] for k in used):
+        raise AssertionError(f"BoVW serving: a kernel did not launch once a replay: {counts}")
+    pipe = BoVWPipeline.load(art / "bovw_pipeline.npz", device="cuda")
+    errs = check_bovw_kernels(out["engine"].index, rows, pipe.kmeans.cluster_centers_)
+    res["bovw_daisy"] = {"build_s": build_s, "codebook_s": codebook_s,
+                         "descriptors": list(rows.shape), "launches": counts,
+                         "build_assign_launches": build_assign,
+                         "kernel_errors": errs,
+                         "served_queries": {"replays": out["replays"], "eager": out["eager"]},
+                         "replay_equals_eager": out["replay_check"], "latency": out["latency"],
+                         "programs": out["programs"]}
+    log(f"  BoVW DAISY: built in {build_s:.1f} s (codebook {codebook_s:.2f} s over "
+        f"{rows.shape[0]:,} x {rows.shape[1]}, {build_assign} assign launches in the build); 8 "
+        f"queries each its own file first; launches "
+        f"while serving {counts}; {latency_line(out['latency'])}")
+
+    art, build_s = index_method(workdir, "bovw_orb", "--method", "bovw", "--no-thumbnails",
+                                "--corner-descriptor", "orb", *CORNER_FLAGS)
+    codebook_s, rows = codebook_seconds(art, "orb")
+    cfg, _ = port_engine.parse_args(["--artifacts-dir", str(art), "--method", "bovw"])
+    engine = port_engine.QueryEngine(cfg, device="cuda")
+    try:
+        sample = np.linspace(0, len(paths) - 1, 8).astype(int)
+        images = corpus_batch(paths, sample)
+        replays = check_replays("BoVW ORB", engine._batched_search, images,
+                                run=engine._on_device, batches=(1,))
+        for i, img in zip(sample, images):
+            pred = engine.query(img)
+            if not answered(pred, str(paths[i]), True, tie_first=True):
+                raise AssertionError(f"BoVW ORB query {i}: top-1 {pred[0][2]}")
+    finally:
+        engine.close()
+    res["bovw_orb"] = {"build_s": build_s, "codebook_s": codebook_s,
+                       "descriptors": list(rows.shape), "replay_equals_eager": replays}
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"  BoVW ORB (256 keypoints, 4 octaves): built in {build_s:.1f} s (codebook "
+        f"{codebook_s:.2f} s over {rows.shape[0]:,} x {rows.shape[1]}); 8 queries in process "
+        f"each its own file first; phase 8 took {res['wall_s']:.1f} s on {card}")
+    return res
+
+
 def qps_line(fam: dict) -> str:
     q = fam["qps"]
     return (f"off {q['off'][1]:.2f} / {q['off'][CLIENTS]:.2f}, on {q['on'][1]:.2f} / "
@@ -3964,6 +4375,7 @@ def main() -> int:
         q8_served = phase4_entry(workdir, served["paths"], served["art"])
         log("phase 4 (continued): the entry-point twins")
         twins = check_entry_twins(workdir)
+        eighth = phase8(workdir, served["paths"], card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     last = phase5()
@@ -4143,8 +4555,19 @@ def main() -> int:
     merged["ptxas"] = last["merged_ptxas"]
     kernels.extend(sixth["kernels"])
     kernels.extend(seventh["kernels"])
+    bovw = eighth["bovw_daisy"]
+    for entry in kernels:
+        if entry["name"] in bovw["launches"]:
+            entry["bovw_daisy_serving"] = {
+                "launches": bovw["launches"][entry["name"]],
+                **({"build_launches": bovw["build_assign_launches"]}
+                   if entry["name"] == "kmeans_assign" else {}),
+                "max_abs_err": bovw["kernel_errors"][entry["name"]],
+                "shape": (f"N={bovw['descriptors'][0]:,} K=200 d={bovw['descriptors'][1]} f32 "
+                          "(the codebook's rows)" if entry["name"] == "kmeans_assign" else
+                          "Q=1 and 8 N=4,096 d=200 f32 l2 k=20 (the histogram index)")}
     serving = {**served["serving"], "ivfpq": pq_served["serving"], **q8_served["serving"],
-               "entry_twins": twins, "card": card}
+               "entry_twins": twins, "descriptors_bovw_dhash": eighth, "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "
         f"{served['p50_ms']:.2f} ms, escalations {served['escalations']}; IVF-PQ build "
         f"{scale['build_s']:.1f} s, IVF-PQ serving p50 {pq_served['p50_ms']:.2f} ms; int8 "

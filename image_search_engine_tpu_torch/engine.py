@@ -1,17 +1,20 @@
-"""Query engine: HTTP serving of a DNN index on a torch device.
+"""Query engine: HTTP serving of an index on a torch device.
 
-Port of the single-device DNN part of ``image_search_engine_tpu/engine.py``
-for flat (l2, cosine or chi2; f32, bf16 or int8 store, as the index file
-says), cell-probe (IVF) and IVF-PQ indexes. The HTTP contract is the JAX
+Port of the single-device part of ``image_search_engine_tpu/engine.py``:
+the dnn method over flat (l2, cosine or chi2; f32, bf16 or int8 store, as
+the index file says), cell-probe (IVF) and IVF-PQ indexes; the bovw method
+(the descriptor the pipeline artifact names, its codebook and BM25, then
+the flat index over the histograms); the dhash method (a Hamming scan of
+the stored bits). The HTTP contract is the JAX
 package's (serving/http.py): ``POST /similar_images`` takes a multipart
 image upload and answers ``{"prediction": [[distance, base64_thumbnail,
 path], ...]}``; ``GET /healthz``, ``GET /stats`` and the upload UI at ``GET
 /`` come with it. Per request: host decode and resize, then one device
-dispatch (embed + the index family's search core, serving/fused.py; on a
-CUDA device a CUDA graph captured at prewarm and replayed), then thumbnails
-from the packed cache. ``--micro-batch on|auto`` coalesces concurrent
-requests into one padded batch (serving/batching.py). BoVW, dHash and
-sharded serving wait for ROADMAP.md.
+dispatch (the method's prologue + the index family's search core,
+serving/fused.py; on a CUDA device a CUDA graph captured at prewarm and
+replayed), then thumbnails from the packed cache. ``--micro-batch
+on|auto`` coalesces concurrent requests into one padded batch
+(serving/batching.py). Sharded serving waits for ROADMAP.md.
 
 Usage:
     python -m image_search_engine_tpu_torch.engine --artifacts-dir artifacts \\
@@ -30,7 +33,8 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
-from image_search_engine_tpu_torch.config import Config, DnnModel, IndexType, Method
+from image_search_engine_tpu_torch.config import (
+    Config, CornerDescriptorKind, DnnModel, IndexType, Method)
 from image_search_engine_tpu_torch.serving.http import make_handler
 from image_search_engine_tpu_torch.utils.imageio import ThumbnailCache, load_paths_csv, thumbnail_b64
 from image_search_engine_tpu_torch.utils.profiling import ServingStats
@@ -92,7 +96,7 @@ class QueryEngine:
         dummy = np.zeros((self.cfg.resize_size, self.cfg.resize_size, 3), np.float32)
         # the real default k, so the program matches the first request's
         # (another k is another program)
-        k_warm = min(self.cfg.num_images_to_return, self.index.ntotal)
+        k_warm = min(self.cfg.num_images_to_return, self._index_n)
         self._search(dummy, k_warm)
         if self._extra_prewarm is not None:
             self._extra_prewarm(k_warm)
@@ -137,6 +141,57 @@ class QueryEngine:
         self._device_thread.shutdown(wait=True)
 
     def _build(self, cfg: Config) -> Callable[[np.ndarray, int], Tuple[np.ndarray, np.ndarray]]:
+        """The method's serving dispatch; sets ``index`` (None for dhash),
+        ``_index_n`` (the rows served) and ``_batched_search``."""
+        build = {Method.DNN: self._build_dnn, Method.BOVW: self._build_bovw,
+                 Method.DHASH: self._build_dhash}[cfg.method]
+        prologue, family, size = build(cfg)
+        from image_search_engine_tpu_torch.serving import fused
+
+        self._batched_search = fused.make_batched_search(prologue, *family, device=self.device)
+        return fused.wrap_serving(self, self._batched_search, size, cfg)
+
+    def _build_bovw(self, cfg: Config):
+        """Rebuild the descriptor the pipeline artifact records (another
+        descriptor family would be a shape error), at the image size the
+        index was built with; then the flat family over the histograms."""
+        from image_search_engine_tpu_torch.bovw.pipeline import BoVWPipeline
+        from image_search_engine_tpu_torch.descriptors import make_descriptor
+        from image_search_engine_tpu_torch.index.flat import FlatIndex
+        from image_search_engine_tpu_torch.serving import fused
+
+        pipeline = BoVWPipeline.load(cfg.bovw_pipeline_path, device=self.device)
+        size = cfg.resize_size
+        art_cfg = cfg
+        if pipeline.descriptor_kind:
+            dp = pipeline.descriptor_params or {}
+            art_cfg = Config(
+                method=Method.BOVW,
+                corner_descriptor=CornerDescriptorKind(pipeline.descriptor_kind),
+                max_descriptors_per_image=int(dp.get("max_keypoints", 256)),
+                daisy_step=int(dp.get("daisy_step", 32)),
+                daisy_radius=int(dp.get("daisy_radius", 32)),
+                # an artifact without a pyramid depth predates the pyramid:
+                # single-scale, the geometry that built its codebook
+                corner_n_levels=int(dp.get("n_levels", 1)),
+                corner_scale_step=float(dp.get("scale_step", 1.25)))
+            size = int(dp.get("resize_size", cfg.resize_size))
+        descriptor = make_descriptor(art_cfg, device=self.device)
+        self.index = FlatIndex.load(cfg.bovw_index_path, device=self.device)
+        self._index_n = max(1, self.index.ntotal)
+        prologue = fused.bovw_prologue(descriptor, pipeline,
+                                       normalize=self.index.metric == "cosine")
+        return prologue, fused.flat_family(self.index, stats=self.stats, label="BoVW "), size
+
+    def _build_dhash(self, cfg: Config):
+        from image_search_engine_tpu_torch.serving import fused
+
+        bits = np.load(cfg.dhash_store_path, allow_pickle=False)["bits"]
+        self.index = None
+        self._index_n = max(1, bits.shape[0])
+        return fused.dhash_prologue(), fused.dhash_family(bits, self.device), cfg.resize_size
+
+    def _build_dnn(self, cfg: Config):
         from image_search_engine_tpu_torch.index.ivf import IVFIndex, IVFPQIndex
         from image_search_engine_tpu_torch.models.embedder import CNNEmbedder
         from image_search_engine_tpu_torch.serving import fused
@@ -147,6 +202,7 @@ class QueryEngine:
                                     batch_size=1, device=self.device,
                                     torch_weights=cfg.torch_weights)
         self.index = self._load_index(cfg.dnn_index_path, cfg, self.device)
+        self._index_n = max(1, self.index.ntotal)
         prologue = fused.cnn_prologue(self.embedder, normalize=self.index.metric == "cosine")
         if type(self.index) is IVFPQIndex:
             family = fused.ivfpq_family(self.index)
@@ -154,8 +210,7 @@ class QueryEngine:
             family = fused.ivf_family(self.index)
         else:
             family = fused.flat_family(self.index, stats=self.stats)
-        self._batched_search = fused.make_batched_search(prologue, *family, device=self.device)
-        return fused.wrap_serving(self, self._batched_search, cfg.resize_size, cfg)
+        return prologue, family, cfg.resize_size
 
     @staticmethod
     def _load_index(path, cfg: Config, device):
@@ -235,11 +290,21 @@ class QueryEngine:
         return out
 
 
+class QueryHTTPServer(ThreadingHTTPServer):
+    """The query server: a thread per connection, and a listen backlog
+    that holds a burst of concurrent clients. At socketserver's default
+    backlog of 5, the connections that arrive while the accept thread
+    waits for the interpreter lock overflow the kernel's queue: their
+    handshakes are dropped and retried a second later, or reset."""
+
+    request_queue_size = 1024
+
+
 def make_server(cfg: Config, device="cuda", prewarm: Optional[bool] = None):
-    """(engine, ThreadingHTTPServer bound to cfg.host:cfg.port)."""
+    """(engine, QueryHTTPServer bound to cfg.host:cfg.port)."""
     prewarm = cfg.prewarm if prewarm is None else prewarm
     engine = QueryEngine(cfg, device=device, prewarm=prewarm)
-    return engine, ThreadingHTTPServer((cfg.host, cfg.port), make_handler(engine))
+    return engine, QueryHTTPServer((cfg.host, cfg.port), make_handler(engine))
 
 
 def serve(cfg: Config, device="cuda", prewarm: Optional[bool] = None) -> None:

@@ -5,7 +5,8 @@ small synthetic corpus if you don't pass one. Runs on the card unless
 ``--device cpu`` is given.
 
     python -m image_search_engine_tpu_torch.examples.quickstart \\
-        [--data-dir photos/] [--model resnet50] [--device cuda|cpu]
+        [--data-dir photos/] [--method dnn|bovw|dhash] [--model resnet50] \\
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ from image_search_engine_tpu_torch.config import Config, DnnModel, IndexType, Me
 from image_search_engine_tpu_torch.engine import QueryEngine
 from image_search_engine_tpu_torch.indexer import main as build_index
 from image_search_engine_tpu_torch.utils.imageio import load_image
-from image_search_engine_tpu_torch.utils.unported import not_ported
 
 
 def synthetic_corpus(root: Path, groups=4, per_group=5, size=96) -> Path:
@@ -54,8 +54,6 @@ def main(argv=None):
     ap.add_argument("--work-dir", type=Path, default=None,
                     help="where the corpus and artifacts go (default: a new temp dir)")
     args = ap.parse_args(argv)
-    if args.method != "dnn":
-        raise not_ported(f"--method {args.method}", "bovw")
 
     work = args.work_dir or Path(tempfile.mkdtemp(prefix="ise_quickstart_"))
     data_dir = args.data_dir or synthetic_corpus(work)

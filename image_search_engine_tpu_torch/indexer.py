@@ -1,17 +1,25 @@
 """Offline indexer CLI: corpus images -> on-disk index artifacts.
 
-Port of the DNN half of ``image_search_engine_tpu/indexer.py``: decode
+Port of ``image_search_engine_tpu/indexer.py`` (single device): decode
 the corpus in a host thread pool (``utils/imageio.load_images_batched``),
-embed it in batches on the device, build a flat, cell-probe (IVF) or IVF-PQ
-index and write it as an ``.npz`` in the JAX package's format, with the
-``images.csv`` id -> path sidecar, the packed thumbnails and the
-``embedder.json`` provenance. A flat index takes l2, ip, cosine or chi2,
-and (but for chi2, f32 only) an f32, bf16 or int8 store. BoVW and dHash
-builds wait for ROADMAP.md (queue 1 item 5).
+describe it in batches on the device, and write the artifacts in the JAX
+package's formats, with the ``images.csv`` id -> path sidecar and the
+packed thumbnails. Per method:
+
+  * dnn: CNN embeddings -> a flat (l2, ip, cosine or chi2; an f32, bf16 or
+    int8 store, chi2 f32 only), cell-probe (IVF) or IVF-PQ index, with the
+    ``embedder.json`` provenance;
+  * bovw: corner (ORB, SIFT, BRISK) or DAISY descriptors -> k-means
+    codebook -> BM25-weighted codeword histograms -> a flat index
+    (``bovw_pipeline.npz``, ``bovw.index.npz``, the descriptions cached in
+    ``descriptions_<kind>.npz``);
+  * dhash: 64-bit difference hashes -> a bit matrix (``dhash.npz``).
 
 Usage:
     python -m image_search_engine_tpu_torch.indexer --data-dir photos/ \\
         --method dnn --index-type ivfpq --pq-rerank 64 --device cuda
+    python -m image_search_engine_tpu_torch.indexer --data-dir photos/ \\
+        --method bovw --corner-descriptor orb --num-clusters 200 --device cuda
 """
 
 from __future__ import annotations
@@ -25,7 +33,10 @@ from pathlib import Path
 
 import numpy as np
 
-from image_search_engine_tpu_torch.config import Config, DnnModel, IndexType, Method
+from image_search_engine_tpu_torch.config import (
+    Config, CornerDescriptorKind, DnnModel, IndexType, Method)
+from image_search_engine_tpu_torch.descriptors import (
+    DHashDescriptor, describe_dataset, make_descriptor)
 from image_search_engine_tpu_torch.utils.imageio import (
     ThumbnailCache, get_image_paths, load_images_batched, load_paths_csv, save_paths_csv)
 from image_search_engine_tpu_torch.utils.unported import not_ported
@@ -65,8 +76,6 @@ def warn_if_random_backbone(cfg: Config, doing: str) -> bool:
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for what the port does not serve yet."""
-    if cfg.method != Method.DNN:
-        raise not_ported(f"method {cfg.method.value!r}", "bovw")
     if cfg.shard_devices is not None or cfg.dcn_coordinator is not None:
         raise not_ported("--sharded / --dcn-*", "multi-device")
 
@@ -129,6 +138,55 @@ def _save_embedder_provenance(cfg: Config) -> None:
     }))
 
 
+def build_bovw_index(cfg: Config, paths, device="cuda", use_native: bool = False) -> None:
+    from image_search_engine_tpu_torch.bovw.pipeline import BoVWPipeline, sweep_num_clusters
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+
+    desc = make_descriptor(cfg, device=device)
+    cache = cfg.artifacts_dir / f"descriptions_{cfg.corner_descriptor.value}.npz"
+    feats, valid, kept = describe_dataset(desc, paths, image_size=cfg.resize_size,
+                                          batch_size=32, cache_path=cache,
+                                          use_native=use_native)
+    if not kept.size:
+        raise SystemExit("no image could be decoded")
+    n_clusters = cfg.num_clusters
+    if cfg.use_cluster_grid_search:
+        candidates = np.unique(np.linspace(cfg.min_num_clusters, cfg.max_num_clusters,
+                                           cfg.num_cluster_grid_points, dtype=int))
+        n_clusters, scores = sweep_num_clusters(
+            feats, valid, candidates, sample_size=cfg.cluster_score_sample_size,
+            repeats=cfg.cluster_score_repeats, device=device)
+        log.info("cluster sweep %s -> best k=%d", scores, n_clusters)
+
+    pipeline = BoVWPipeline(
+        n_clusters=n_clusters, kmeans_niter=cfg.kmeans_niter, kmeans_nredo=cfg.kmeans_nredo,
+        kmeans_seed=cfg.kmeans_seed, spherical=cfg.kmeans_spherical,
+        bm25_k1=cfg.bm25_k1, bm25_k2=cfg.bm25_k2, bm25_b=cfg.bm25_b,
+        descriptor_kind=cfg.corner_descriptor.value,
+        descriptor_params={
+            "max_keypoints": cfg.max_descriptors_per_image,
+            "daisy_step": cfg.daisy_step, "daisy_radius": cfg.daisy_radius,
+            "resize_size": cfg.resize_size, "n_levels": cfg.corner_n_levels,
+            "scale_step": cfg.corner_scale_step,
+        },
+        device=device)
+    hists = pipeline.fit_transform(feats, valid)
+    pipeline.save(cfg.bovw_pipeline_path)
+    metric = {"cosine": "cosine", "chi2": "chi2"}.get(cfg.index_type.value, "l2")
+    FlatIndex(metric, dtype=cfg.store_dtype, device=device).add(hists).save(cfg.bovw_index_path)
+    save_paths_csv([paths[i] for i in kept], cfg.paths_file)
+    log.info("BoVW index: %d images, k=%d -> %s", len(kept), n_clusters, cfg.bovw_index_path)
+
+
+def build_dhash_index(cfg: Config, paths, device="cuda", use_native: bool = False) -> None:
+    feats, _, kept = describe_dataset(DHashDescriptor(device=device), paths,
+                                      image_size=cfg.resize_size, batch_size=64,
+                                      use_native=use_native)
+    np.savez_compressed(cfg.dhash_store_path, bits=feats.astype(bool))
+    save_paths_csv([paths[i] for i in kept], cfg.paths_file)
+    log.info("dHash store: %d hashes -> %s", len(kept), cfg.dhash_store_path)
+
+
 def build_thumbnails(cfg: Config) -> None:
     """Pack result thumbnails once at index time."""
     kept_paths = load_paths_csv(cfg.paths_file)
@@ -149,7 +207,8 @@ def main(cfg: Config, device="cuda", use_native: bool = False) -> None:
     if not paths:
         raise SystemExit(f"no images found under {cfg.data_dir}")
     log.info("indexing %d images with method=%s", len(paths), cfg.method.value)
-    build_dnn_index(cfg, paths, device, use_native)
+    {Method.DNN: build_dnn_index, Method.BOVW: build_bovw_index,
+     Method.DHASH: build_dhash_index}[cfg.method](cfg, paths, device, use_native)
     if cfg.precompute_thumbnails:
         build_thumbnails(cfg)
     log.info("index build finished in %.1fs", time.time() - t0)
@@ -164,6 +223,15 @@ def parse_args(argv=None):
     ap.add_argument("--method", choices=[m.value for m in Method], default="dnn")
     ap.add_argument("--index-type", choices=[t.value for t in IndexType], default="l2")
     ap.add_argument("--dnn-model", choices=[m.value for m in DnnModel], default="resnet50")
+    ap.add_argument("--corner-descriptor",
+                    choices=[c.value for c in CornerDescriptorKind], default="daisy")
+    ap.add_argument("--num-clusters", type=int, default=200)
+    ap.add_argument("--max-keypoints", type=int, default=256,
+                    help="total keypoint budget across pyramid octaves")
+    ap.add_argument("--corner-n-levels", type=int, default=4,
+                    help="keypoint scale-pyramid depth (1 = single-scale)")
+    ap.add_argument("--corner-scale-step", type=float, default=1.25)
+    ap.add_argument("--cluster-grid-search", action="store_true")
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--resize-size", type=int, default=224)
     ap.add_argument("--torch-weights", type=Path, default=None,
@@ -183,6 +251,9 @@ def parse_args(argv=None):
                     help="cells probed per query (reference nprobe=5)")
     ap.add_argument("--pq-m", type=int, default=16,
                     help="ivfpq subquantizers (reference m=16)")
+    ap.add_argument("--daisy-step", type=int, default=32,
+                    help="daisy grid step (reference descriptors.py:238-254)")
+    ap.add_argument("--daisy-radius", type=int, default=32)
     ap.add_argument("--native-loader", action="store_true",
                     help="decode+resize with the C++ loader (native/)")
     ap.add_argument("--no-thumbnails", action="store_true",
@@ -193,10 +264,15 @@ def parse_args(argv=None):
     cfg = Config(
         data_dir=a.data_dir, artifacts_dir=a.artifacts_dir, method=Method(a.method),
         index_type=IndexType(a.index_type), dnn_model=DnnModel(a.dnn_model),
+        corner_descriptor=CornerDescriptorKind(a.corner_descriptor),
+        num_clusters=a.num_clusters, use_cluster_grid_search=a.cluster_grid_search,
+        max_descriptors_per_image=a.max_keypoints, corner_n_levels=a.corner_n_levels,
+        corner_scale_step=a.corner_scale_step,
         embed_batch_size=a.batch_size, resize_size=a.resize_size,
         precompute_thumbnails=not a.no_thumbnails, store_dtype=a.store_dtype,
         torch_weights=a.torch_weights, pq_rerank=a.pq_rerank, ivf_nlist=a.ivf_nlist,
-        ivf_nprobe=a.ivf_nprobe, pq_m=a.pq_m)
+        ivf_nprobe=a.ivf_nprobe, pq_m=a.pq_m, daisy_step=a.daisy_step,
+        daisy_radius=a.daisy_radius)
     return cfg, a.device, a.native_loader
 
 

@@ -55,7 +55,9 @@ def _batched(x: torch.Tensor, centroids: torch.Tensor):
     return x, centroids, True
 
 
-def assign(x: torch.Tensor, centroids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def assign(x: torch.Tensor, centroids: torch.Tensor,
+           split: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest-centroid assignment: (codes int32, squared distances f32),
     shape (N,) for x (N, d) against centroids (K, d), or (B, N) for a batch
     of B independent problems, x (B, N, d) against centroids (B, K, d).
@@ -84,7 +86,9 @@ def assign(x: torch.Tensor, centroids: torch.Tensor) -> Tuple[torch.Tensor, torc
     residuals' (m, N, dsub) view of an (N, m, dsub) tensor); centroids are
     made contiguous. The kernel's tensor maps take rows of whole 16-byte
     units: other widths are copied zero-padded to d % 4 == 0, which adds
-    exactly 0 to every product.
+    exactly 0 to every product. ``split``, :func:`centroid_split` of
+    ``centroids``, spares the kernel route splitting them again (a serving
+    dispatch keeps its codebook's); the plain version ignores it.
     """
     xb, cb, batched = _batched(x, centroids)
     xb = xb.float()
@@ -92,7 +96,7 @@ def assign(x: torch.Tensor, centroids: torch.Tensor) -> Tuple[torch.Tensor, torc
     if not _on_cuda(xb, cb):
         codes, dists = assign_ref(xb, cb)
     else:
-        codes, partial = _assign_kernel(xb, cb)
+        codes, partial = _assign_kernel(xb, cb, split)
         dists = torch.clamp(partial + _row_sq_norms(xb), min=0.0)
     return (codes, dists) if batched else (codes[0], dists[0])
 
@@ -106,7 +110,23 @@ def _row_sq_norms(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _assign_kernel(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _kernel_pad(d: int) -> int:
+    """Zero columns that bring a row width d to whole 16-byte units (d % 4
+    == 0, at least 4): the kernel's tensor maps take no other rows."""
+    return max(4, -(-d // 4) * 4) - d
+
+
+def centroid_split(centroids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the assignment kernel reads of (K, d) or (B, K, d) centroids:
+    (hi, lo) of their 3xTF32 split, zero-padded as :func:`_kernel_pad`
+    says, and their squared norms."""
+    c = centroids.float()
+    cn = (c * c).sum(-1).contiguous()
+    return (*tf32_split(F.pad(c, (0, _kernel_pad(c.shape[-1])))), cn)
+
+
+def _assign_kernel(x: torch.Tensor, c: torch.Tensor,
+                   split=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel: (codes (B, N) int32, partial mins (B, N) f32,
     ``||c||^2 - 2 x.c`` without the ``||x||^2`` term)."""
     nb, n, d = x.shape
@@ -115,7 +135,7 @@ def _assign_kernel(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torc
         raise ValueError("no centroids")
     if x.stride(2) != 1:
         raise ValueError("x's last dimension must be contiguous")
-    cn = (c * c).sum(-1).contiguous()
+    chi, clo, cn = centroid_split(c) if split is None else split
     codes = torch.empty((nb, n), dtype=torch.int32, device=x.device)
     mins = torch.empty((nb, n), dtype=torch.float32, device=x.device)
     if n == 0 or nb == 0:
@@ -123,12 +143,11 @@ def _assign_kernel(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torc
     # the kernel's tensor maps need d and both strides in whole 16-byte units
     # and 16-byte aligned rows: other shapes go zero-padded to d % 4 == 0,
     # which adds exactly 0 to every product
-    pad = max(4, -(-d // 4) * 4) - d
+    pad = _kernel_pad(d)
     if pad:
-        x, c = F.pad(x, (0, pad)), F.pad(c, (0, pad))
+        x = F.pad(x, (0, pad))
     elif x.stride(0) % 4 or x.stride(1) % 4 or x.data_ptr() % 16:
         x = x.clone(memory_format=torch.contiguous_format)
-    chi, clo = tf32_split(c)
     with torch.cuda.device(x.device):
         err = _kernels.library().ise_kmeans_assign(
             x.data_ptr(), chi.data_ptr(), clo.data_ptr(), cn.data_ptr(), codes.data_ptr(),

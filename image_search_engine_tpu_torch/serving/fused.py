@@ -17,8 +17,12 @@ once (the kernel library built and loaded, cuDNN's plans made on this
 thread, the allocator warm), then captures it reading a static device input
 buffer; every call copies its images into that buffer and replays. On the
 CPU the same dispatch runs eagerly. ``wrap_serving`` adds the host resize,
-the device thread and request micro-batching (serving/batching.py). BoVW
-and the multi-host coordinator wait for ROADMAP.md (queue 1 items 5 and 7).
+the device thread and request micro-batching (serving/batching.py). The
+BoVW method serves through the flat family with its own prologue (describe,
+quantize, histogram, BM25); dHash through a Hamming-scan core (the JAX
+engine runs dHash eagerly per request; here it is one captured dispatch
+like the others). The multi-host coordinator waits for ROADMAP.md (queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -260,6 +264,78 @@ def cnn_prologue(embedder, normalize: bool):
         return l2_normalize(emb) if normalize else emb
 
     return prologue
+
+
+def bovw_prologue(descriptor, pipeline, normalize: bool):
+    """BoVW prologue on the (B, H, W, 3) images on the device: describe
+    (``descriptor.describe_device``) -> spherical normalize -> nearest
+    codeword (``ops/kmeans.assign``: the k-means kernel on the card) ->
+    histogram -> BM25 (with the corpus's avgdl, as the pipeline's
+    transform) -> optional idf -> optional l2-normalize. The codebook, its
+    3xTF32 split and the idf go to the device here, once, before any
+    capture."""
+    from image_search_engine_tpu_torch.ops.bm25 import bm25_transform
+    from image_search_engine_tpu_torch.ops.histogram import batched_histograms
+    from image_search_engine_tpu_torch.ops.kmeans import assign, centroid_split
+
+    dev = pipeline.kmeans.device  # the engine loads both on its device
+    cents = torch.as_tensor(pipeline.kmeans.cluster_centers_, dtype=torch.float32, device=dev)
+    split = centroid_split(cents) if dev.type == "cuda" else None
+    bm = pipeline.bm25
+    idf = (torch.as_tensor(bm.idf_, dtype=torch.float32, device=dev)
+           if bm.apply_idf and bm.idf_ is not None else None)
+    avgdl = bm.avgdl_ if (bm.use_train_avgdl and bm.avgdl_) else None
+    n_clusters, spherical = pipeline.n_clusters, pipeline.spherical
+
+    def prologue(images: torch.Tensor) -> torch.Tensor:
+        feats, valid = descriptor.describe_device(images)
+        b, kp, dd = feats.shape
+        # the assignment kernel reads rows of contiguous columns: DAISY's
+        # come out of a permute
+        rows = feats.reshape(-1, dd).to(torch.float32).contiguous()
+        if spherical:
+            rows = l2_normalize(rows)
+        codes, _ = assign(rows, cents, split)
+        w = bm25_transform(batched_histograms(codes.reshape(b, kp), valid, n_clusters),
+                           bm.k1, bm.k2, bm.b, avgdl=avgdl)
+        if idf is not None:
+            w = w * idf[None, :]
+        return l2_normalize(w) if normalize else w
+
+    return prologue
+
+
+def dhash_prologue():
+    """dHash prologue: the (B, 64) 0/1 bits of the (B, H, W, 3) images."""
+    from image_search_engine_tpu_torch.ops.dhash import dhash_bits
+    from image_search_engine_tpu_torch.ops.image_ops import rgb_to_gray
+
+    def prologue(images: torch.Tensor) -> torch.Tensor:
+        return dhash_bits(rgb_to_gray(images)).to(torch.float32)
+
+    return prologue
+
+
+def dhash_family(bits: np.ndarray, device):
+    """dHash search over the (N, 64) bool store: the Hamming distances and
+    the k nearest, equal distances in index order (ops/dhash.hamming_topk;
+    no kernel, as the JAX package's XLA scan). Returns (core, statics_fn,
+    epilogue); the epilogue is one host transfer of (distances int32, ids
+    int32)."""
+    from image_search_engine_tpu_torch.ops.dhash import hamming_topk
+
+    db = torch.as_tensor(np.asarray(bits, bool), device=device).to(torch.float32)
+    n = db.shape[0]
+
+    def core(qbits, k, t_margin):
+        del t_margin
+        return hamming_topk(qbits, db, k)
+
+    def epilogue(out, k: int, retry):
+        del k, retry
+        return tuple(t.cpu().numpy() for t in out)
+
+    return core, lambda k: min(k, n), epilogue
 
 
 def flat_family(index, stats=None, label: str = ""):

@@ -1,7 +1,6 @@
 """What the port does not do yet, and the ROADMAP.md item that brings it."""
 
 ROADMAP_ITEMS = {
-    "bovw": "queue 1 item 5, descriptors, BoVW and dHash",
     "backbone": "queue 1 item 6, other backbones and training",
     "multi-device": "queue 1 item 7, multi-device",
 }

@@ -34,13 +34,14 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     """Not even the JAX package's jax-free host modules: the port keeps its
     own copies (config, image I/O, native loader, serving stats, the HTTP
-    handler and its page, the micro-batcher), and its own entry-point twins
-    (graft_entry, the quickstart). Lazy imports are reached too: the upload
+    handler and its page, the micro-batcher, the descriptors, the BoVW
+    pipeline, the corner ops), and its own entry-point twins (graft_entry,
+    the quickstart). Lazy imports are reached too: the upload
     page and the native loader's bindings."""
     mods = port_modules()
     for own in ("config", "utils.imageio", "utils.native_loader", "utils.profiling",
                 "serving.http", "serving.batching", "frontend", "graft_entry",
-                "examples.quickstart"):
+                "examples.quickstart", "descriptors", "bovw.pipeline", "ops.corners"):
         assert f"image_search_engine_tpu_torch.{own}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke', 'probed_scan_sweep']!r}:\n"

@@ -402,9 +402,8 @@ def test_cli_flags_match_the_jax_engines(argv, tmp_path):
 
 
 def test_nothing_raises_not_ported_for_serving():
-    assert "serving" not in ROADMAP_ITEMS
-    assert ROADMAP_ITEMS == {"bovw": "queue 1 item 5, descriptors, BoVW and dHash",
-                             "backbone": "queue 1 item 6, other backbones and training",
+    assert "serving" not in ROADMAP_ITEMS and "bovw" not in ROADMAP_ITEMS
+    assert ROADMAP_ITEMS == {"backbone": "queue 1 item 6, other backbones and training",
                              "multi-device": "queue 1 item 7, multi-device"}
 
 
@@ -515,5 +514,8 @@ def test_quickstart_twin_on_the_cpu(tmp_path, capsys):
     first = sorted((tmp_path / "images").glob("*.png"))[0]
     assert len(results) == 5 and results[0][2] == str(first) and results[0][0] == 0.0
     assert f"querying with {first}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 5"):
-        quickstart.main(["--device", "cpu", "--method", "bovw", "--work-dir", str(tmp_path)])
+    # --method dhash runs too: the first image's hash first, at distance 0
+    results = quickstart.main(["--device", "cpu", "--method", "dhash", "--work-dir",
+                               str(tmp_path / "dhash")])
+    first = sorted((tmp_path / "dhash" / "images").glob("*.png"))[0]
+    assert len(results) == 5 and results[0][2] == str(first) and results[0][0] == 0

@@ -127,7 +127,9 @@ def test_index_and_serve_matches_jax(tmp_path):
 
 
 def test_engine_refuses_unported_modes(tmp_path):
-    cfg = port_config.Config(artifacts_dir=tmp_path, method=port_config.Method.BOVW)
+    # every method is ported; sharded serving is not
+    cfg = port_config.Config(artifacts_dir=tmp_path, method=port_config.Method.BOVW,
+                             shard_devices=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_engine.QueryEngine(cfg, device="cpu")
     # int8 is a flat-store precision only, in both packages
