@@ -331,8 +331,8 @@ def parse_args(argv=None):
     ap.add_argument("--port", type=int, default=5000)
     ap.add_argument("--resize-size", type=int, default=224)
     ap.add_argument("--torch-weights", type=Path, default=None,
-                    help="torchvision ResNet .pth to load as the backbone "
-                         "(must match the indexer's)")
+                    help="backbone checkpoint (torchvision ResNet / DenseNet, HF "
+                         "BiT) to load; must match the indexer's")
     ap.add_argument("--micro-batch", nargs="?", const="on", default="off",
                     choices=["off", "on", "auto"],
                     help="batch concurrent queries into one device call; 'auto' measures "

@@ -69,7 +69,7 @@ def warn_if_random_backbone(cfg: Config, doing: str) -> bool:
     log.warning(
         "%s with a RANDOMLY INITIALIZED %s backbone (no --torch-weights): "
         "embeddings carry no semantics and retrieval quality will be near "
-        "chance. Pass --torch-weights <torchvision checkpoint.pth>.",
+        "chance. Pass --torch-weights <checkpoint.pth>.",
         doing, cfg.dnn_model.value)
     return True
 
@@ -235,7 +235,8 @@ def parse_args(argv=None):
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--resize-size", type=int, default=224)
     ap.add_argument("--torch-weights", type=Path, default=None,
-                    help="torchvision ResNet .pth checkpoint to load as the backbone")
+                    help="backbone checkpoint to load: a torchvision ResNet or "
+                         "DenseNet .pth, or an HF BiT state dict")
     ap.add_argument("--store-dtype", choices=["f32", "bf16", "int8"], default="f32",
                     help="flat-store precision (bf16/int8: 2x/4x smaller index, "
                          "exact search over the rounded/quantized store); "

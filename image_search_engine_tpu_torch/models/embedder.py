@@ -1,9 +1,11 @@
 """Batched CNN embedding extractor.
 
-Port of ``image_search_engine_tpu/models/embedder.py`` for the ResNet
-backbones (BiT and DenseNet wait for ROADMAP.md queue 1 item 6). Images
-upload as they come (uint8 batches move 4x fewer bytes than f32) and are
-cast, resized and normalized on the device ahead of the backbone. The
+Port of ``image_search_engine_tpu/models/embedder.py`` over the JAX
+package's six backbones: ResNet-50, BiT-50 and DenseNet-121 and their tiny
+test variants. Images upload as they come (uint8 batches move 4x fewer
+bytes than f32) and are cast, resized and normalized on the device ahead
+of the backbone (ImageNet statistics for ResNet and DenseNet, (x - 0.5) /
+0.5 for BiT). The
 backbone computes in bfloat16 by default, as the JAX embedder does; in
 float32 the port turns TF32 off for cuDNN convolutions and cuBLAS
 matmuls, so f32 means IEEE f32.
@@ -22,24 +24,27 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
+from image_search_engine_tpu_torch.models.bit import BiT50, BiTTiny
+from image_search_engine_tpu_torch.models.densenet import DenseNet121, DenseNetTiny
 from image_search_engine_tpu_torch.models.resnet import ResNet18Thin, ResNet50
 from image_search_engine_tpu_torch.models.weights import (
     load_state_dict, load_torch_weights, read_state_dict)
 from image_search_engine_tpu_torch.ops.image_ops import preprocess_for_cnn, to_unit_f32
 from image_search_engine_tpu_torch.utils.device import resolve_device
-from image_search_engine_tpu_torch.utils.unported import not_ported
 
-# name -> (ctor, embedding dim); both take ImageNet-normalized input
+# name -> (ctor, embedding dim, input normalization), the JAX package's
 MODEL_REGISTRY = {
-    "resnet50": (ResNet50, 2048),
-    "resnet-tiny": (ResNet18Thin, 2048),  # tests / smoke runs
+    "resnet50": (ResNet50, 2048, "imagenet"),
+    "bit-50": (BiT50, 2048, "unit"),
+    "densenet121": (DenseNet121, 1024, "imagenet"),
+    # tiny variants for tests / smoke runs
+    "resnet-tiny": (ResNet18Thin, 2048, "imagenet"),
+    "bit-tiny": (BiTTiny, 512, "unit"),
+    "densenet-tiny": (DenseNetTiny, 32, "imagenet"),
 }
-_UNPORTED = ("bit-50", "bit-tiny", "densenet121", "densenet-tiny")
 
 
 def check_model_name(model_name: str) -> None:
-    if model_name in _UNPORTED:
-        raise not_ported(f"backbone {model_name!r}", "backbone")
     if model_name not in MODEL_REGISTRY:
         raise ValueError(f"unknown model {model_name!r}; want {sorted(MODEL_REGISTRY)}")
 
@@ -62,7 +67,7 @@ class CNNEmbedder:
         if state_dict is not None and torch_weights is not None:
             raise ValueError("pass either state_dict or torch_weights, not both")
         self.device = resolve_device(device)
-        ctor, self.dim = MODEL_REGISTRY[model_name]
+        ctor, self.dim, self.norm_name = MODEL_REGISTRY[model_name]
         self.model_name = model_name
         self.image_size = image_size
         self.batch_size = batch_size
@@ -82,7 +87,7 @@ class CNNEmbedder:
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 or float [0, 1] tensor on the embedder's
         device -> (B, D) float32 embeddings on the device."""
-        x = preprocess_for_cnn(to_unit_f32(images), self.image_size)
+        x = preprocess_for_cnn(to_unit_f32(images), self.image_size, self.norm_name)
         return self.model(x.to(self.dtype))
 
     def embed_batch(self, images: np.ndarray) -> np.ndarray:
@@ -104,7 +109,7 @@ class CNNEmbedder:
         torch.save({k: v.cpu() for k, v in self.model.state_dict().items()}, str(path))
 
     def load(self, path: str | Path) -> "CNNEmbedder":
-        """Load a state dict written by :meth:`save` (or any
-        torchvision-layout checkpoint of this architecture)."""
+        """Load a state dict written by :meth:`save` (or any checkpoint of
+        this architecture in its source layout: torchvision, HF BiT)."""
         load_state_dict(self.model, read_state_dict(path))
         return self

@@ -1,10 +1,11 @@
 """Batched image preprocessing on the device.
 
 Port of ``image_search_engine_tpu/ops/image_ops.py``: the CNN input
-(resize, ImageNet normalization) and the descriptors' colour ops (gray,
-HSV, the masked HSV histogram, the colour descriptor's five regions). Images
-are NHWC at every public function, as in the JAX package: float32 RGB in
-[0, 1] or uint8 in [0, 255], shape (B, H, W, 3) or (H, W, 3).
+(resize, then ImageNet or BiT's unit normalization) and the descriptors'
+colour ops (gray, HSV, the masked HSV histogram, the colour descriptor's
+five regions). Images are NHWC at every public function, as in the JAX
+package: float32 RGB in [0, 1] or uint8 in [0, 255], shape (B, H, W, 3) or
+(H, W, 3).
 """
 
 from __future__ import annotations
@@ -55,11 +56,16 @@ def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
     return (img - mean) / std
 
 
-def preprocess_for_cnn(img: torch.Tensor, size: int = 224) -> torch.Tensor:
-    """resize to (size, size) + ImageNet normalization, the input of the
-    torchvision-layout backbones (BiT's ``"unit"`` normalization comes
-    with BiT, ROADMAP.md queue 1 item 6)."""
-    return normalize_imagenet(resize(img, size, size))
+def preprocess_for_cnn(img: torch.Tensor, size: int = 224, norm: str = "imagenet") -> torch.Tensor:
+    """resize to (size, size) + normalization: ``"imagenet"`` (the
+    torchvision-layout backbones, ResNet and DenseNet) or ``"unit"``,
+    (x - 0.5) / 0.5 (HF ``BitImageProcessor``'s, for BiT)."""
+    x = resize(img, size, size)
+    if norm == "unit":
+        return (x - 0.5) / 0.5
+    if norm != "imagenet":
+        raise ValueError(f"norm must be 'imagenet' or 'unit', got {norm!r}")
+    return normalize_imagenet(x)
 
 
 def resize_weights(n_in: int, n_out: int) -> np.ndarray:

@@ -1,7 +1,6 @@
 """What the port does not do yet, and the ROADMAP.md item that brings it."""
 
 ROADMAP_ITEMS = {
-    "backbone": "queue 1 item 6, other backbones and training",
     "multi-device": "queue 1 item 7, multi-device",
 }
 

@@ -153,5 +153,12 @@ def test_embedder_arch_tag_matches_jax():
 
 
 def test_unported_backbones_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CNNEmbedder("bit-50", device="cpu")
+    # every backbone of the JAX registry is ported (its dim and input
+    # normalization too); only a name outside it raises
+    from image_search_engine_tpu.models.embedder import MODEL_REGISTRY as JAX_REGISTRY
+    from image_search_engine_tpu_torch.models.embedder import MODEL_REGISTRY
+
+    assert ({k: v[1:] for k, v in MODEL_REGISTRY.items()}
+            == {k: v[1:] for k, v in JAX_REGISTRY.items()})
+    with pytest.raises(ValueError, match="unknown model"):
+        CNNEmbedder("bit-101", device="cpu")

@@ -21,10 +21,16 @@ def port_modules():
 def test_port_and_chip_smoke_import_no_jax():
     mods = port_modules()
     assert "image_search_engine_tpu_torch.ops.topk" in mods and len(mods) >= 20
+    for new in ("models.densenet", "models.bit", "utils.checkpoint",
+                "examples.siamese_workflow", *(f"training.siamese.{m}" for m in (
+                    "config", "losses", "augmentations", "dataset", "model", "train",
+                    "create_index", "eval", "serve"))):
+        assert f"image_search_engine_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke', 'probed_scan_sweep']!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+            "    'optax', 'orbax', 'torchvision', 'transformers'))\n"
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
@@ -35,13 +41,16 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     """Not even the JAX package's jax-free host modules: the port keeps its
     own copies (config, image I/O, native loader, serving stats, the HTTP
     handler and its page, the micro-batcher, the descriptors, the BoVW
-    pipeline, the corner ops), and its own entry-point twins (graft_entry,
-    the quickstart). Lazy imports are reached too: the upload
-    page and the native loader's bindings."""
+    pipeline, the corner ops, the siamese config and pair batches), and its
+    own entry-point twins (graft_entry, the quickstart, the siamese
+    workflow). Lazy imports are reached too: the upload page and the native
+    loader's bindings."""
     mods = port_modules()
     for own in ("config", "utils.imageio", "utils.native_loader", "utils.profiling",
                 "serving.http", "serving.batching", "frontend", "graft_entry",
-                "examples.quickstart", "descriptors", "bovw.pipeline", "ops.corners"):
+                "examples.quickstart", "descriptors", "bovw.pipeline", "ops.corners",
+                "training.siamese.config", "training.siamese.dataset",
+                "examples.siamese_workflow"):
         assert f"image_search_engine_tpu_torch.{own}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke', 'probed_scan_sweep']!r}:\n"
@@ -65,6 +74,26 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
         FlatIndex("l2", device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         CNNEmbedder("resnet-tiny", device="cuda")
+
+
+def test_siamese_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Without CUDA every siamese entry point refuses its default device
+    instead of moving to the CPU."""
+    from image_search_engine_tpu_torch.training.siamese import create_index, eval, serve, train
+    from image_search_engine_tpu_torch.training.siamese.config import SiameseConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SiameseConfig(backbone="densenet-tiny", image_size=(32, 32), ckpt_dir=tmp_path)
+    calls = (lambda: train.Trainer(cfg),
+             lambda: create_index.create_index(cfg, tmp_path, tmp_path / "i.npz", tmp_path / "c"),
+             lambda: serve.SiameseQueryEngine(cfg, tmp_path / "i.npz", tmp_path / "c"),
+             lambda: eval.card_retrieval_metrics(lambda x: x.reshape(len(x), -1),
+                                                 *eval.make_synthetic_card_corpus(2, 8, 1)),
+             lambda: train.main(["--train-dir", str(tmp_path), "--valid-dir", str(tmp_path),
+                                 "--backbone", "densenet-tiny"]))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_kernel_build_names_missing_nvcc(monkeypatch, tmp_path):
