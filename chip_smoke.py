@@ -170,21 +170,41 @@ Phases (each raises on failure; the script then exits non-zero):
      kernels' launches per served query and their outputs on the index
      against their plain versions; then training improves retrieval
      (densenet-tiny, 64 px, 32 cards, 96 steps, five seeds: median
-     recall@1 gain >= 0.25, gap gain >= 0.2).
+     recall@1 gain >= 0.25, gap gain >= 0.2);
+ 10. multi-device search and serving (run after phase 3, on phase 3's
+     IVF-PQ index and rows and phase 2's PNGs), meshes of 4 shards of the
+     card: phase 3's index resharded (``ShardedIVFPQ.from_index``),
+     ``search`` and ``search_batched`` without and with rerank 64 against
+     exact search and the unsharded index; the 1M x 2048 rows as flat f32,
+     bf16 and int8 stores sharded, at Q = 1 and 64, against the unsharded
+     ``FlatIndex.search`` (ids equal, distances bit-equal or within
+     score_tol, certificates true, each kernel launched once a shard, its
+     outputs on shard 0 against its plain version, times); one-process
+     NCCL; ``ShardedIVF`` at the batched-IVF point (f32 and bf16 tables, Q =
+     1 and 1024) against the unsharded ``search_batched``; ``lloyd_sharded``
+     against ``lloyd`` from one init; the indexer with ``--sharded`` over
+     512 PNGs (flat, IVF-PQ with rerank 64, BoVW DAISY), each served by the
+     unsharded server, the ``--sharded`` server and a 4-shard engine over
+     HTTP (answers equal where the search is exact; one replay a request
+     and replay = eager at B = 1 and 8); two engine processes on the card
+     (``--dcn-*``, gloo), batching off and on, answering as one process
+     and exiting 0 after the sentinel; the ``scale_out`` twin.
 
 Before its last three lines it prints a JSON object of the serving
 figures (per family: replays and eager runs of the served queries, the
 replay checks, latencies, QPS with batching off and on, the batched run's
 launches and agreement, the captured programs and their graph pool; the
-auto calibration; the entry-point twins; phase 8's and phase 9's
-figures). Before its
+auto calibration; the entry-point twins; phase 8's, phase 9's and phase
+10's figures). Before its
 last two lines it prints a JSON object describing the 16 kernels
 (launches, errors, times, bounds; ``groupmin`` and ``rescore`` per store
 dtype and, for f32, per route; the extract-min select's launches in each
 main-path run, which must be 0; for ``groupmin``, ``select_topt``,
 ``rescore`` and ``kmeans_assign`` their launches while serving BoVW and
 their errors at its shapes, and for the first three their launches while
-serving the siamese index and their errors on it) and the card's name and
+serving the siamese index and their errors on it; for the flat, IVF and
+k-means kernels their launches and errors over phase 10's meshes) and the
+card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
 """
@@ -1186,16 +1206,19 @@ def served_counts() -> dict:
 
 
 @contextlib.contextmanager
-def running_server(art: Path, index_type: str, *flags: str):
+def running_server(art: Path, index_type: str, *flags: str, mesh=None):
     """The port's engine (prewarm builds the kernels, runs and captures the
     serving programs) and its HTTP server on ``art`` with the CLI
-    ``flags``, serving on a thread; yields (engine, base URL), then stops
-    both."""
+    ``flags``, serving on a thread, over ``mesh`` or the one the flags ask
+    for (``--sharded``), as the CLI's ``serve``; yields (engine, base URL),
+    then stops both."""
     from image_search_engine_tpu_torch import engine as port_engine
+    from image_search_engine_tpu_torch.parallel.mesh import mesh_from_config
 
     cfg, device = port_engine.parse_args(["--artifacts-dir", str(art), "--index-type", index_type,
                                           "--port", "0", "--device", "cuda", *flags])
-    engine, httpd = port_engine.make_server(cfg, device)
+    engine, httpd = port_engine.make_server(cfg, device,
+                                            mesh=mesh or mesh_from_config(cfg, device))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
@@ -2017,9 +2040,10 @@ def phase3_scale() -> dict:
         f"recall@10 vs exact {rec1000:.4f}; select launches by route {wide} and {rerank}")
     log(f"  search_batched(k={K}, rerank=64) incl. host transfer: Q=1 {serve_ms[1]:.3f} ms, "
         f"Q=64 {serve_ms[64]:.3f} ms")
-    del index, recon, rnorms, x
+    del recon, rnorms  # the index keeps its table (recon_cache) for phase 10
     torch.cuda.empty_cache()
     return {"build_s": build_s, "scan": scan, "nprobe": nprobe, "cap": cap,
+            "for_phase10": {"index": index, "x": x, "q64": q64, "i_true": i_true},
             "beyond_256_launches": {"k300": wide, "rerank1000": rerank},
             "assign": {"max_abs_err": max(err_c, err_b), "ms": assign_ms,
                        "plain_ms": assign_plain_ms, "bound": a_bound,
@@ -4810,6 +4834,543 @@ def phase9(workdir: Path, paths: list, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: multi-device search and serving
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # phase 10's meshes: four shards of the one card
+STEP5_IMAGES = 512  # phase 2's first PNGs, the corpus of the sharded CLI runs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def recall_at(i, i_true) -> float:
+    """Mean overlap of each row's ids with the reference row's."""
+    k = i_true.shape[1]
+    return float(np.mean([len(set(a[:k].tolist()) & set(b.tolist())) / k
+                          for a, b in zip(i, i_true)]))
+
+
+def sum_tol(qf, x, norms) -> float:
+    """score_tol, or the rounding of a sum of d products added in another
+    order where the products add up to more than the magnitudes score_tol
+    scales (rows with a large shared component, as phase 3's latent rows
+    are): 4 sqrt(d) ulps of twice the largest sum of |q_i x_i| over the
+    rows, which a random walk of the d roundings stays within."""
+    a = max(float((qf.float().abs() @ x[s:s + 65536].float().abs().T).max())
+            for s in range(0, x.shape[0], 65536))
+    return max(score_tol(qf, norms), 4 * math.sqrt(x.shape[1]) * EPS32 * 2 * a)
+
+
+def sharded_flat(x, q64, mesh, flush) -> dict:
+    """Step 1: 1M x 2048 flat stores (f32, bf16, int8) over ``mesh`` against
+    the unsharded FlatIndex at Q = 1 and 64: ids equal (positions that
+    differ allowed only within score_tol of each other), distances bit-equal
+    or within score_tol (reported), every certificate true, each kernel
+    launched once a shard (counts set to 0 just before the sharded search,
+    read just after), each kernel's outputs on shard 0 against its plain
+    version (within ``sum_tol``; int8 bit for bit), and both searches timed
+    (host transfer included), and their cores' device time alone (one
+    replay of each captured)."""
+    import torch
+
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.parallel.topk import distributed_topk
+
+    out = {}
+    for dtype in ("f32", "bf16", "int8"):
+        one = FlatIndex("l2", dtype, device="cuda").add(x)
+        sh = FlatIndex("l2", dtype, mesh=mesh).add(x)
+        st = sh.store
+        for nq in (1, 64):
+            q = q64[:nq]
+            name = f"sharded {dtype} Q={nq}"
+            T.reset_launch_counts()
+            d1, i1 = one.search(q, K)
+            want = {k: v for k, v in T.launch_counts().items() if v}
+            route1 = (T.groupmin.tensor_core_launches, T.rescore.tensor_core_launches)
+            T.reset_launch_counts()
+            d2, i2, cert = distributed_topk(q, st.vectors, st.norms, K, "l2", mesh,
+                                            use_kernels=True, scales_shards=st.scales,
+                                            with_certificate=True)
+            got = {k: v for k, v in T.launch_counts().items() if v}
+            route2 = (T.groupmin.tensor_core_launches, T.rescore.tensor_core_launches)
+            d2, i2 = d2.cpu().numpy(), i2.cpu().numpy()
+            if not bool(cert.all()):
+                raise AssertionError(f"{name}: certificate false for {int((~cert).sum())} queries")
+            if any(got.get(k, 0) < MESH_SHARDS * v for k, v in want.items()):
+                raise AssertionError(f"{name}: a kernel did not launch once a shard: {got} "
+                                     f"(unsharded {want})")
+            _, i3 = sh.search(q, K)
+            if not np.array_equal(i3, i2):
+                raise AssertionError(f"{name}: FlatIndex.search differs from distributed_topk")
+            qf = q.to(st.vectors[0].dtype) if dtype != "int8" else q
+            tol = score_tol(qf, st.norms[0])
+            assert_same_topk(d2, i2, d1, i1, 2 * tol, name)
+            bit_equal = bool(np.array_equal(d1, d2))
+            if dtype == "int8":
+                qi, qscale = T.quantize_int8(q)
+                errs = check_kernels_q8(f"{name} shard 0", qi, qscale, st.vectors[0],
+                                        st.scales[0], st.norms[0])[0]
+            else:
+                errs = check_kernels(f"{name} shard 0", qf, st.vectors[0], st.norms[0],
+                                     sum_tol(qf, st.vectors[0], st.norms[0]))[0]
+            ms = median_ms(lambda: sh.search(q, K), flush, reps=5)
+            ms_one = median_ms(lambda: one.search(q, K), flush, reps=5)
+            dev = graph_ms(lambda: distributed_topk(
+                q, st.vectors, st.norms, K, "l2", mesh, use_kernels=True,
+                scales_shards=st.scales, with_certificate=True), flush, reps=5)
+            dev_one = graph_ms(lambda: T.topk_twophase(
+                q, one.store.vectors, K, "l2", x_norms=one.store.norms,
+                x_scale=one.store.scales, with_certificate=True), flush, reps=5)
+            out[f"{dtype}_Q{nq}"] = {
+                "launches": got, "unsharded_launches": want,
+                "tensor_core_launches": {"sharded": route2, "unsharded": route1},
+                "ids_differing": int((i1 != i2).sum()), "distances_bit_equal": bit_equal,
+                "max_distance_diff": float(np.abs(d1 - d2).max()), "score_tol": tol,
+                "shard0_max_abs_err": errs, "ms": ms, "unsharded_ms": ms_one,
+                "device_ms": dev, "unsharded_device_ms": dev_one}
+            log(f"  {name}: ids = unsharded ({int((i1 != i2).sum())} positions differ), "
+                f"distances {'bit-equal' if bit_equal else 'within score_tol'} (max diff "
+                f"{np.abs(d1 - d2).max():.3g}, tol {tol:.3g}), certificates true; launches "
+                f"{got} (unsharded {want}; tensor-core groupmin/rescore {route2} vs {route1}); "
+                f"shard 0 kernels vs plain {errs}; search {ms:.4f} ms vs unsharded "
+                f"{ms_one:.4f} ms; its device time {dev:.4f} ms vs {dev_one:.4f} ms")
+        del one, sh, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_ivfpq(index, q64, i_true, mesh, flush) -> dict:
+    """Step 2: phase 3's IVF-PQ index resharded over ``mesh``
+    (ShardedIVFPQ.from_index, its raw rows kept for the rerank): ``search``
+    (ADC) and ``search_batched``, without and with rerank 64, at Q = 64:
+    recall@10 against exact search and against the unsharded index's same
+    search; the probed scan and the select launched once a shard; shard
+    0's probed top-k against the plain route; the served path (prebuilt
+    tables) timed beside the unsharded search_batched, and the two serving
+    cores' device time alone (one replay of each captured)."""
+    import torch
+
+    from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.parallel.ivf import ShardedIVFPQ
+    from image_search_engine_tpu_torch.serving import fused
+
+    t0 = time.perf_counter()
+    sp = ShardedIVFPQ.from_index(index, mesh)
+    torch.cuda.synchronize()
+    res = {"reshard_s": time.perf_counter() - t0, "nbuckets_per_shard": sp.nbuckets,
+           "cap": sp.cap, "nprobe_per_shard": sp.nprobe}
+    for method in ("search", "search_batched"):
+        for rerank in (0, 64):
+            _, i_one = getattr(index, method)(q64, 10, rerank=rerank)
+            T.reset_launch_counts()
+            reset_scan_counts()
+            _, i = getattr(sp, method)(q64, 10, rerank=rerank)
+            counts = {"probed_scan": IV.probed_scan.launches,
+                      "select_topt": T.select_topt.launches}
+            want = MESH_SHARDS if method == "search_batched" else 0
+            if counts["probed_scan"] != want:
+                raise AssertionError(f"ShardedIVFPQ.{method}: {counts} (want {want} scans)")
+            r, r_one = recall_at(i, i_true), recall_at(i_one, i_true)
+            res[f"{method}_rerank{rerank}"] = {
+                "recall_at_10": r, "unsharded_recall_at_10": r_one,
+                "overlap_with_unsharded": recall_at(i, i_one), "launches": counts}
+            if r < r_one - 0.05:
+                raise AssertionError(f"ShardedIVFPQ.{method}(rerank={rerank}): recall@10 {r} "
+                                     f"vs unsharded {r_one}")
+    recon = sp.build_recon_tables()
+    lists, bc = sp.lists[0], sp.bucket_centroids[0]
+    d, i, _ = IV.ivf_probed_topk(q64, bc, recon[0][0], recon[1][0], lists, K, sp.nprobe)
+    rd, ri = plain_probed_topk(q64, bc, recon[0][0], recon[1][0], lists, K, sp.nprobe)
+    assert_same_topk(d.cpu().numpy(), i.cpu().numpy(), rd.cpu().numpy(), ri.cpu().numpy(),
+                     2 * score_tol(q64.to(torch.bfloat16), recon[1][0]), "ShardedIVFPQ shard 0")
+    res["shard0_max_abs_err"] = float(np.abs(d.cpu().numpy() - rd.cpu().numpy()).max())
+    index.rerank = 64  # the unsharded serving core's shortlist
+    core1, statics1, _ = fused.ivfpq_family(index)
+    for nq in (1, 64):
+        q = q64[:nq]
+        k_eff = sp.k_eff(K)
+        c = sp.batched_shortlist(k_eff, 64)
+        res[f"served_Q{nq}_ms"] = median_ms(lambda: [t.cpu() for t in sp.process_scan_batched(
+            q, k_eff, c, recon)], flush, reps=5)
+        res[f"unsharded_Q{nq}_ms"] = median_ms(lambda: index.search_batched(q, K, rerank=64),
+                                               flush, reps=5)
+        res[f"served_Q{nq}_device_ms"] = graph_ms(
+            lambda: sp.process_scan_batched(q, k_eff, c, recon), flush, reps=5)
+        res[f"unsharded_Q{nq}_device_ms"] = graph_ms(
+            lambda: core1(q, statics1(K), None), flush, reps=5)
+    log(f"  IVF-PQ resharded in {res['reshard_s']:.1f} s ({sp.nbuckets} buckets of cap "
+        f"{sp.cap} a shard, {sp.nprobe} probed a shard): recall@10 (unsharded) " + "; ".join(
+            f"{m} rerank {r} {res[f'{m}_rerank{r}']['recall_at_10']:.4f} "
+            f"({res[f'{m}_rerank{r}']['unsharded_recall_at_10']:.4f})"
+            for m in ("search", "search_batched") for r in (0, 64))
+        + f"; served rerank 64 Q=1 {res['served_Q1_ms']:.3f} ms, Q=64 "
+          f"{res['served_Q64_ms']:.3f} ms (unsharded {res['unsharded_Q1_ms']:.3f}, "
+          f"{res['unsharded_Q64_ms']:.3f} ms); device Q=1 {res['served_Q1_device_ms']:.4f} ms, "
+          f"Q=64 {res['served_Q64_device_ms']:.4f} ms (unsharded "
+          f"{res['unsharded_Q1_device_ms']:.4f}, {res['unsharded_Q64_device_ms']:.4f} ms)")
+    del sp, recon
+    return res
+
+
+def sharded_ivf_and_kmeans(mesh, flush) -> dict:
+    """Steps 3 and 4 on the batched-IVF point (1M x 128, nlist 1024, nprobe
+    4): ShardedIVF with an f32 and a bf16 table at Q = 1 and 1024 against
+    the unsharded search_batched (recall@10 against exact search; launches;
+    shard 0's probed top-k against the plain route; times, and the
+    searches' device time alone); then
+    lloyd_sharded over the mesh against lloyd from one init."""
+    import torch
+
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.index.ivf import IVFIndex
+    from image_search_engine_tpu_torch.ops import ivf as IV
+    from image_search_engine_tpu_torch.ops import kmeans as KM
+    from image_search_engine_tpu_torch.ops import topk as T
+    from image_search_engine_tpu_torch.parallel.ivf import ShardedIVF
+    from image_search_engine_tpu_torch.parallel.kmeans import lloyd_sharded
+    from image_search_engine_tpu_torch.parallel.mesh import shard_rows
+
+    xh, qh = batched_ivf_data()
+    x, q = torch.from_numpy(xh).cuda(), torch.from_numpy(qh).cuda()
+    del xh, qh
+    _, i_true = FlatIndex("l2", device="cuda").add(x).search(q, 10)
+    idx = IVFIndex(nlist=BATCHED_NLIST, nprobe=BATCHED_NPROBE, device="cuda").add(x)
+    res = {}
+    for dtype in ("f32", "bf16"):
+        if dtype == "bf16":
+            idx.table_dtype = "bf16"
+            idx._pack()
+        KM.assign.launches = 0
+        s = ShardedIVF.from_components(x, idx.centroids, BATCHED_NPROBE, mesh, table_dtype=dtype)
+        r = {"build_assign_launches": KM.assign.launches, "nprobe_per_shard": s.nprobe,
+             "cap": s.cap, "nbuckets_per_shard": s.nbuckets}
+        bc1, lists1, packed1, norms1 = idx._device_arrays()
+        for nq in (1, 1024):
+            T.reset_launch_counts()
+            reset_scan_counts()
+            _, i = s.search(q[:nq], 10)
+            counts = {"probed_scan": IV.probed_scan.launches,
+                      "select_topt": T.select_topt.launches}
+            if counts["probed_scan"] != MESH_SHARDS:
+                raise AssertionError(f"ShardedIVF {dtype} Q={nq}: launches {counts}")
+            _, i1 = idx.search_batched(q[:nq], 10)
+            rec, rec1 = recall_at(i, i_true[:nq]), recall_at(i1, i_true[:nq])
+            if nq > 1 and rec < rec1 - 0.05:
+                raise AssertionError(f"ShardedIVF {dtype}: recall@10 {rec} vs unsharded {rec1}")
+            r[f"Q{nq}"] = {
+                "launches": counts, "recall_at_10": rec, "unsharded_recall_at_10": rec1,
+                "overlap_with_unsharded": recall_at(i, i1),
+                "ms": median_ms(lambda: s.search(q[:nq], 10), flush, reps=5),
+                "unsharded_ms": median_ms(lambda: idx.search_batched(q[:nq], 10), flush, reps=5),
+                "device_ms": graph_ms(lambda: s.process_scan(q[:nq], 10), flush, reps=5),
+                "unsharded_device_ms": graph_ms(lambda: IV.ivf_probed_topk(
+                    q[:nq], bc1, packed1, norms1, lists1, 10, idx._effective_nprobe()),
+                    flush, reps=5)}
+        qs = s._prep_query(q[:64])
+        args = (qs, s.bucket_centroids[0], s.packed[0], s.packed_norms[0], s.lists[0], 10,
+                s.nprobe)
+        d, i, _ = IV.ivf_probed_topk(*args)
+        rd, ri = plain_probed_topk(*args)
+        assert_same_topk(d.cpu().numpy(), i.cpu().numpy(), rd.cpu().numpy(), ri.cpu().numpy(),
+                         2 * score_tol(qs.to(s.packed[0].dtype), s.packed_norms[0]),
+                         f"ShardedIVF {dtype} shard 0")
+        r["shard0_max_abs_err"] = float(np.abs(d.cpu().numpy() - rd.cpu().numpy()).max())
+        res[dtype] = r
+        log(f"  ShardedIVF {dtype}: {s.nbuckets} buckets of cap {s.cap} a shard, {s.nprobe} "
+            f"probed; recall@10 Q=1024 {r['Q1024']['recall_at_10']:.4f} (unsharded "
+            f"{r['Q1024']['unsharded_recall_at_10']:.4f}, overlap "
+            f"{r['Q1024']['overlap_with_unsharded']:.4f}); search Q=1 {r['Q1']['ms']:.4f} ms, "
+            f"Q=1024 {r['Q1024']['ms']:.4f} ms (unsharded {r['Q1']['unsharded_ms']:.4f}, "
+            f"{r['Q1024']['unsharded_ms']:.4f} ms); device Q=1 {r['Q1']['device_ms']:.4f} ms, "
+            f"Q=1024 {r['Q1024']['device_ms']:.4f} ms (unsharded "
+            f"{r['Q1']['unsharded_device_ms']:.4f}, {r['Q1024']['unsharded_device_ms']:.4f} ms)")
+        del s
+    del idx
+    # step 4: Lloyd over the mesh from the init the unsharded run takes
+    niter, k = 3, BATCHED_NLIST
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    init = x[torch.randperm(x.shape[0], generator=gen, device="cuda")[:k]]
+    c1, in1 = KM.lloyd(x, init, k, niter=niter)
+    xs, ws = shard_rows(x, mesh), shard_rows(torch.ones(x.shape[0], device="cuda"), mesh)
+    KM.assign.launches = 0
+    t0 = time.perf_counter()
+    c2, in2 = lloyd_sharded(xs, ws, init, k, mesh, niter=niter)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = KM.assign.launches
+    diff = float((c2 - c1).abs().max())
+    rel = abs(float(in2) - float(in1)) / float(in1)
+    if launches != MESH_SHARDS * (niter + 1) or rel > 1e-4 or diff > 0.05:
+        raise AssertionError(f"lloyd_sharded: {launches} assign launches, centroids differ by "
+                             f"{diff}, inertia by {rel} (relative) from lloyd's")
+    res["kmeans"] = {"N": x.shape[0], "d": x.shape[1], "K": k, "niter": niter,
+                     "assign_launches": launches, "max_centroid_diff": diff,
+                     "inertia_rel_diff": rel, "seconds": secs}
+    log(f"  lloyd_sharded ({x.shape[0]:,} x {x.shape[1]}, K={k}, {niter} iterations, "
+        f"{MESH_SHARDS} shards): {launches} assign launches, centroids within {diff:.3g} of "
+        f"lloyd's, inertia within {rel:.3g} (relative); {secs:.2f} s")
+    return res
+
+
+def serve_eight(art: Path, index_type: str, flags: tuple, paths: list, label: str, *,
+                mesh=None, own_first: bool = True, tie_first: bool = False,
+                replays: bool = False, latency: bool = False) -> tuple:
+    """The port's server on ``art`` (CLI ``flags``, or ``mesh``): 8 corpus
+    images posted, each answered 200 with its own file first (``own_first``,
+    or among the K; ``tie_first`` as ``answered``). With ``replays``: each
+    request one replay, and replay = eager at B = 1 and 8. With ``latency``,
+    the server-side search at B = 1 (search_latency). Returns ({row:
+    [(distance, path)]}, {launches, replays, shards[, latency]})."""
+    from image_search_engine_tpu_torch.ops import kmeans as KM
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    rows = np.linspace(0, len(paths) - 1, 8).astype(int)
+    answers, info = {}, {}
+    with running_server(art, index_type, *flags, mesh=mesh) as (engine, base):
+        bs = engine._batched_search
+        T.reset_launch_counts()
+        reset_scan_counts()
+        KM.assign.launches = 0
+        replays0, eager0 = bs.replays, bs.eager_runs
+        for i in rows:
+            status, js = post_image(base + "/similar_images", paths[i].read_bytes())
+            if status != 200 or not answered(js["prediction"], str(paths[i]), own_first,
+                                             tie_first):
+                raise AssertionError(f"{label} query {i}: HTTP {status}, top-1 "
+                                     f"{js.get('prediction', [[0, 0, None]])[0][2]}")
+            answers[int(i)] = [(p[0], p[2]) for p in js["prediction"]]
+        info["launches"] = {k: v for k, v in served_counts().items() if v}
+        info["replays"] = (bs.replays - replays0, bs.eager_runs - eager0)
+        if replays:
+            if info["replays"] != (8, 0):
+                raise AssertionError(f"{label}: the 8 requests ran {info['replays']} "
+                                     "(replays, eager dispatches), want (8, 0)")
+            info["replay_equals_eager"] = check_replays(label, bs, corpus_batch(paths, rows),
+                                                        run=engine._on_device)
+        info["shards"] = 0 if engine.mesh is None else engine.mesh.size
+        if latency:
+            info["latency"] = search_latency(engine, corpus_batch(paths, rows[:1]))
+    return answers, info
+
+
+def same_answers(label: str, got: dict, ref: dict) -> int:
+    """Each query's answers ({row: [(distance, path)]}) as the reference
+    server's: distances within 2e-4 (the JSON rounds to 4 decimals), and
+    a path in one list only where its distance ties the list's last within
+    that (assert_same_topk); returns the positions whose paths differ."""
+    names = {p: n for n, p in enumerate(sorted({p for a in ref.values() for _, p in a}
+                                               | {p for a in got.values() for _, p in a}))}
+
+    def arrays(ans):
+        return (np.array([[d for d, _ in ans]], np.float64),
+                np.array([[names[p] for _, p in ans]]))
+
+    differ = 0
+    for i, ans in got.items():
+        (d, ids), (rd, rids) = arrays(ans), arrays(ref[i])
+        if d.shape != rd.shape:
+            raise AssertionError(f"{label} query {i}: {d.shape[1]} answers vs {rd.shape[1]}")
+        assert_same_topk(d, ids, rd, rids, 2e-4, f"{label} query {i}")
+        differ += int((ids != rids).sum())
+    return differ
+
+
+def sharded_cli(workdir: Path, paths: list) -> tuple:
+    """Step 5: the indexer with ``--sharded`` (a one-shard mesh of this
+    card) over phase 2's first 512 PNGs for flat l2, IVF-PQ with a rerank
+    shortlist of 64 and BoVW (DAISY); each served by the unsharded server,
+    the server with ``--sharded``, and ``QueryEngine(cfg,
+    mesh=Mesh([cuda:0] * 4))`` over HTTP. The one-shard server's answers
+    equal the unsharded server's in every family (its buckets are the
+    unsharded index's); the four-shard server's too in the exact families
+    (flat, BoVW), each request one replay and replay = eager at B = 1 and
+    8; four-shard IVF-PQ buckets per shard, so its answers may differ at
+    the probe frontier: own file among the K, overlap reported. Returns
+    (figures, the 512 PNGs, the flat unsharded server's answers)."""
+    from image_search_engine_tpu_torch.parallel.mesh import Mesh
+
+    data = workdir / "images_512"
+    data.mkdir()
+    sub = []
+    for p in paths[:STEP5_IMAGES]:
+        (data / p.name).symlink_to(p)
+        sub.append(data / p.name)
+    mesh4 = Mesh(["cuda:0"] * MESH_SHARDS)
+    res, refs = {}, {}
+    for fam, build, serve_flags, index_type, kw in (
+            ("flat", ("--method", "dnn", "--dnn-model", "resnet50", "--index-type", "l2"), (),
+             "l2", {}),
+            ("ivfpq", ("--method", "dnn", "--dnn-model", "resnet50", "--index-type", "ivfpq",
+                       "--pq-rerank", "64"), (), "ivfpq", {"own_first": False}),
+            ("bovw", ("--method", "bovw", "--corner-descriptor", "daisy", "--num-clusters", "200"),
+             ("--method", "bovw"), "l2", {"tie_first": True})):
+        art, build_s = index_method(workdir, f"sharded_{fam}", *build, "--sharded",
+                                    "--no-thumbnails", data="images_512")
+        ref, info0 = serve_eight(art, index_type, serve_flags, sub, f"{fam} unsharded",
+                                 latency=True, **kw)
+        refs[fam] = ref
+        one, info1 = serve_eight(art, index_type, (*serve_flags, "--sharded"), sub,
+                                 f"{fam} --sharded", **kw)
+        info1["paths_differing"] = same_answers(f"{fam} --sharded", one, ref)
+        four, info4 = serve_eight(art, index_type, serve_flags, sub, f"{fam} 4 shards",
+                                  mesh=mesh4, replays=True, latency=True, **kw)
+        overlap = float(np.mean([len({p for _, p in four[i]} & {p for _, p in ref[i]}) / K
+                                 for i in ref]))
+        if fam != "ivfpq":
+            info4["paths_differing"] = same_answers(f"{fam} 4 shards", four, ref)
+        res[fam] = {"build_s": build_s, "unsharded": info0, "one_shard": info1,
+                    "four_shards": info4, "four_shard_overlap_with_unsharded": overlap}
+        log(f"  {fam}: built with --sharded in {build_s:.1f} s; 8 requests each to the "
+            f"unsharded, --sharded ({info1['shards']} shard) and {info4['shards']}-shard "
+            f"servers; answers equal{'' if fam != 'ivfpq' else ' (1 shard)'} but at ties "
+            f"(paths differing: 1 shard {info1['paths_differing']}, 4 shards "
+            f"{info4.get('paths_differing', '-')}), 4-shard overlap {overlap:.4f}; 4-shard "
+            f"launches {info4['launches']}, (replays, eager) {info4['replays']}; one replay "
+            f"{info4['latency']['replay_device_ms']:.4f} ms on the device (unsharded "
+            f"{info0['latency']['replay_device_ms']:.4f}), server-side p50 replayed "
+            f"{info4['latency']['replay_search_p50_ms']:.4f} ms (unsharded "
+            f"{info0['latency']['replay_search_p50_ms']:.4f})")
+    return res, sub, refs["flat"]
+
+
+def two_process_server(workdir: Path, art: Path, paths: list, ref: dict, micro: bool) -> dict:
+    """Step 6: two engine processes on this card (``--dcn-*``; they share
+    the card, so gloo through host memory): process 0 serves HTTP and
+    broadcasts each dispatch, process 1 follows. 8 requests to process 0
+    (concurrently, so ``--micro-batch on`` coalesces them); answers equal
+    the one-process server's; SIGINT to process 0 sends the sentinel and
+    both exit 0."""
+    import signal
+
+    port, coord = free_port(), free_port()
+    logs = [workdir / f"dcn{pid}_{'on' if micro else 'off'}.log" for pid in (0, 1)]
+    cmd = [sys.executable, "-m", "image_search_engine_tpu_torch.engine", "--artifacts-dir",
+           str(art), "--port", str(port), "--device", "cuda", "--dcn-coordinator",
+           f"127.0.0.1:{coord}", "--dcn-processes", "2",
+           *(("--micro-batch", "on") if micro else ())]
+    root = Path(__file__).resolve().parent
+    files = [open(p, "w") for p in logs]
+    procs = [subprocess.Popen(cmd + ["--dcn-process-id", str(pid)], cwd=root, stdout=f,
+                              stderr=subprocess.STDOUT) for pid, f in enumerate(files)]
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    try:
+        while True:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("a serving process exited during start-up")
+            try:
+                with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                    if json.loads(r.read()).get("status") == "ok":
+                        break
+            except (urllib.error.URLError, ConnectionError, TimeoutError):
+                pass
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("two-process server not up after 300 s")
+            time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        rows = sorted(ref)
+        got, _ = post_rows(base, {i: paths[i] for i in rows}, CLIENTS)
+        differing = same_answers(f"two processes (micro-batch {'on' if micro else 'off'})",
+                                 {i: [(p[0], p[2]) for p in got[i]] for i in rows}, ref)
+        procs[0].send_signal(signal.SIGINT)
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for f in files:
+            f.close()
+    text = [p.read_text() for p in logs]
+    if rcs != [0, 0] or "shutdown after" not in text[1] or "gloo data plane" not in text[0]:
+        raise AssertionError(f"two-process server: exit codes {rcs}; logs:\n"
+                             + "\n".join(t[-3000:] for t in text))
+    dispatches = int(re.search(r"shutdown after (\d+) dispatches", text[1]).group(1))
+    log(f"  two engine processes (micro-batch {'on' if micro else 'off'}): up in {up_s:.1f} s, "
+        f"8 requests to process 0 answered as the one-process server; process 1 ran "
+        f"{dispatches} dispatches and both exited 0 after the sentinel")
+    return {"up_s": up_s, "worker_dispatches": dispatches, "exit_codes": rcs,
+            "paths_differing": differing}
+
+
+def nccl_one_process(x, q64) -> dict:
+    """Step 7: ``distributed_topk`` over a one-process NCCL group on the
+    card (the data plane a process with its own card takes) against the
+    same search with no group: ids and distances equal, certificates
+    true. The group is destroyed after."""
+    import torch
+    import torch.distributed as dist
+
+    from image_search_engine_tpu_torch.index.store import VectorStore
+    from image_search_engine_tpu_torch.parallel.mesh import Mesh, init_multihost, make_mesh
+    from image_search_engine_tpu_torch.parallel.topk import distributed_topk
+
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(None, "cuda")
+        backend = dist.get_backend(mesh.group)
+        if mesh.staged or backend != "nccl":
+            raise AssertionError(f"one process on its own card: {backend}, staged {mesh.staged}")
+        rows = x[:200_000]
+        st, st1 = (VectorStore.build(rows, mesh=m) for m in (mesh, Mesh(["cuda:0"])))
+        d, i, c = distributed_topk(q64, st.vectors, st.norms, K, "l2", mesh, use_kernels=True,
+                                   with_certificate=True)
+        d1, i1, c1 = distributed_topk(q64, st1.vectors, st1.norms, K, "l2", st1.mesh,
+                                      use_kernels=True, with_certificate=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(i, i1) and torch.equal(d, d1) and bool(c.all())):
+            raise AssertionError("distributed_topk over NCCL differs from the group-less search")
+    finally:
+        dist.destroy_process_group()
+    log(f"  distributed_topk over a one-process NCCL group (Q=64 over 200,000 x 2048): ids and "
+        f"distances = the group-less search's, certificates true")
+    return {"backend": backend, "equal": True}
+
+
+def phase10(workdir: Path, paths: list, pq: dict, card: str) -> dict:
+    """Multi-device search and serving on one card (meshes of 4 shards of
+    it); see the module docstring's phase 10."""
+    import torch
+
+    from image_search_engine_tpu_torch.examples import scale_out
+    from image_search_engine_tpu_torch.parallel.mesh import Mesh
+
+    log(f"phase 10: multi-device search and serving ({MESH_SHARDS} shards of the card)")
+    t0 = time.perf_counter()
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > L2
+    mesh = Mesh(["cuda:0"] * MESH_SHARDS)
+    res = {"ivfpq": sharded_ivfpq(pq["index"], pq["q64"], pq["i_true"], mesh, flush)}
+    x, q64 = pq["x"], pq["q64"]
+    pq.clear()  # phase 3's index and tables go; its rows stay for the flat stores
+    torch.cuda.empty_cache()
+    res["flat"] = sharded_flat(x, q64, mesh, flush)
+    res["nccl"] = nccl_one_process(x, q64)
+    del x, q64
+    torch.cuda.empty_cache()
+    res["ivf"] = sharded_ivf_and_kmeans(mesh, flush)
+    res["cli"], sub, ref = sharded_cli(workdir, paths)
+    res["two_process"] = {m: two_process_server(workdir, workdir / "sharded_flat", sub, ref,
+                                                m == "on") for m in ("off", "on")}
+    out = scale_out.main(["--device", "cuda"])
+    if any(out[s] != [0, 1, 2, 3] for s in ("flat", "ivf", "ivfpq", "ivfpq_rerank")):
+        raise AssertionError(f"scale_out twin on the card: {out}")
+    res["scale_out"] = out
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"  scale_out twin on the card: every step's top-1 ids [0, 1, 2, 3]; phase 10 took "
+        f"{res['wall_s']:.1f} s on {card}")
+    return res
+
+
 def qps_line(fam: dict) -> str:
     q = fam["qps"]
     return (f"off {q['off'][1]:.2f} / {q['off'][CLIENTS]:.2f}, on {q['on'][1]:.2f} / "
@@ -4846,6 +5407,7 @@ def main() -> int:
     try:
         served = phase2(workdir)
         scale = phase3_scale()
+        tenth = phase10(workdir, served["paths"], scale.pop("for_phase10"), card)
         pq_served = phase3_entry(workdir, served["paths"])
         batched = phase3_batched()
         shapes_q8 = phase4_kernels()
@@ -5052,9 +5614,35 @@ def main() -> int:
                 "max_abs_err": siamese["kernel_errors"][entry["name"]],
                 "shape": f"Q=1 (served, k={siamese['n_results']}) and Q=1, 8 (checked, k={K}) "
                          f"N={CHAIN_CARDS:,} d={CHAIN_DIM} f32 ip (the siamese index)"}
+    # the sharded searches' launches (phase 10, four shards of the card;
+    # counts set to 0 just before each search, read just after) and each
+    # kernel's error on shard 0 against its plain version
+    multi = {}
+    for c, r in tenth["flat"].items():
+        for name, err in r["shard0_max_abs_err"].items():
+            multi.setdefault(name, {})[f"flat_{c}"] = {
+                "launches": r["launches"].get(name, 0), "max_abs_err": err,
+                "search_ms": r["ms"], "unsharded_search_ms": r["unsharded_ms"],
+                "distances_bit_equal": r["distances_bit_equal"]}
+    multi["probed_scan"] = {
+        "ivfpq_search_batched": {f"rerank{rr}": tenth["ivfpq"][f"search_batched_rerank{rr}"]
+                                 ["launches"]["probed_scan"] for rr in (0, 64)},
+        "ivfpq_max_abs_err": tenth["ivfpq"]["shard0_max_abs_err"],
+        **{f"ivf_{dt}": {f"Q{nq}": tenth["ivf"][dt][f"Q{nq}"]["launches"]["probed_scan"]
+                         for nq in (1, 1024)} for dt in ("f32", "bf16")},
+        **{f"ivf_{dt}_max_abs_err": tenth["ivf"][dt]["shard0_max_abs_err"]
+           for dt in ("f32", "bf16")}}
+    multi["kmeans_assign"] = {
+        "lloyd_sharded": tenth["ivf"]["kmeans"]["assign_launches"],
+        "sharded_ivf_build": {dt: tenth["ivf"][dt]["build_assign_launches"]
+                              for dt in ("f32", "bf16")}}
+    for entry in kernels:
+        if entry["name"] in multi:
+            entry["sharded"] = {"mesh": f"{MESH_SHARDS} shards of the card",
+                                **multi[entry["name"]]}
     serving = {**served["serving"], "ivfpq": pq_served["serving"], **q8_served["serving"],
                "entry_twins": twins, "descriptors_bovw_dhash": eighth,
-               "backbones_siamese": ninth, "card": card}
+               "backbones_siamese": ninth, "multi_device": tenth, "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "
         f"{served['p50_ms']:.2f} ms, escalations {served['escalations']}; IVF-PQ build "
         f"{scale['build_s']:.1f} s, IVF-PQ serving p50 {pq_served['p50_ms']:.2f} ms; int8 "
@@ -5065,7 +5653,8 @@ def main() -> int:
         f"{qps_line(serving['flat'])}, IVF-PQ {qps_line(serving['ivfpq'])}; siamese train step "
         f"(bf16, unfrozen, {CHAIN_GEOMETRY[0]} x {CHAIN_GEOMETRY[1]}, batch {CHAIN_BATCH}) "
         f"{ninth['chain']['step']['bf16_unfrozen']['step_ms']:.2f} ms, served p50 "
-        f"{siamese['p50_ms']:.2f} ms; phase 9 {ninth['wall_s']:.1f} s")
+        f"{siamese['p50_ms']:.2f} ms; phase 9 {ninth['wall_s']:.1f} s; phase 10 "
+        f"{tenth['wall_s']:.1f} s")
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,11 +14,15 @@ dispatch (the method's prologue + the index family's search core,
 serving/fused.py; on a CUDA device a CUDA graph captured at prewarm and
 replayed), then thumbnails from the packed cache. ``--micro-batch
 on|auto`` coalesces concurrent requests into one padded batch
-(serving/batching.py). Sharded serving waits for ROADMAP.md.
+(serving/batching.py). ``--sharded`` serves the index row-sharded over a
+mesh of local devices (parallel/), and ``--dcn-*`` over several
+processes: process 0 serves HTTP and broadcasts each dispatch to the
+others (serving/multihost.py).
 
 Usage:
     python -m image_search_engine_tpu_torch.engine --artifacts-dir artifacts \\
-        --device cuda --port 5000 [--micro-batch [off|on|auto]] [--prewarm-wide-margin]
+        --device cuda --port 5000 [--micro-batch [off|on|auto]] [--prewarm-wide-margin] \\
+        [--sharded [N]] [--dcn-coordinator HOST:PORT --dcn-processes P --dcn-process-id I]
 """
 
 from __future__ import annotations
@@ -39,8 +43,8 @@ from image_search_engine_tpu_torch.serving.http import make_handler
 from image_search_engine_tpu_torch.utils.imageio import ThumbnailCache, load_paths_csv, thumbnail_b64
 from image_search_engine_tpu_torch.utils.profiling import ServingStats
 from image_search_engine_tpu_torch.indexer import (
-    BACKEND, EMBEDDER_ARCH, _torch_weights_sha, check_supported, warn_if_random_backbone)
-from image_search_engine_tpu_torch.utils.device import resolve_device
+    BACKEND, EMBEDDER_ARCH, _torch_weights_sha, warn_if_random_backbone)
+from image_search_engine_tpu_torch.utils.device import resolve_device, same_device
 
 log = logging.getLogger(__name__)
 
@@ -48,12 +52,14 @@ Prediction = List[Tuple[float, str, str]]  # (distance, b64 thumb, path)
 
 
 class QueryEngine:
-    """Image -> ranked (distance, thumbnail, path) results."""
+    """Image -> ranked (distance, thumbnail, path) results; with a ``mesh``
+    (parallel/mesh.py) the index is served row-sharded over it, and the
+    backbone stays on ``device``."""
 
-    def __init__(self, cfg: Config, device="cuda", prewarm: bool = True):
-        check_supported(cfg)
+    def __init__(self, cfg: Config, device="cuda", mesh=None, prewarm: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.paths = load_paths_csv(cfg.paths_file)
         self.stats = ServingStats()
         self.thumbs = None
@@ -72,6 +78,10 @@ class QueryEngine:
         self._mb_calibrated = False
         self._batcher = None
         self.mb_calibration = None  # the auto calibration's figures, once it ran
+        # multi-process serving (serving/multihost.py): the coordinator, and
+        # the served dispatch without its broadcast, which workers run
+        self._mh_coordinator = None
+        self._fused_raw = None
         self._search = self._build(cfg)
         if prewarm:
             self.prewarm()
@@ -148,8 +158,41 @@ class QueryEngine:
         prologue, family, size = build(cfg)
         from image_search_engine_tpu_torch.serving import fused
 
-        self._batched_search = fused.make_batched_search(prologue, *family, device=self.device)
+        mesh = self.mesh if self.index is not None else None  # dhash never shards
+        capture = mesh is None or (mesh.one_device and same_device(mesh.home, self.device))
+        if not capture:
+            log.info("the mesh's shards span several devices: dispatches run uncaptured")
+        self._batched_search = fused.make_batched_search(
+            prologue, *family, device=self.device, capture=capture,
+            across=fused.across_processes(self.index),
+            coordinator=self._make_coordinator(cfg, size, mesh))
+        self._fused_raw = self._batched_search.run
         return fused.wrap_serving(self, self._batched_search, size, cfg)
+
+    def _make_coordinator(self, cfg: Config, image_size: int, mesh):
+        """The broadcast coordinator (serving/multihost.py) when the mesh
+        spans processes: a query landing on this process's HTTP server must
+        reach every process's part of the search. None otherwise."""
+        if mesh is None or mesh.world <= 1:
+            return None
+        from image_search_engine_tpu_torch.serving.multihost import MultihostCoordinator
+
+        bmax = cfg.micro_batch_max if cfg.micro_batch_mode() != "off" else 1
+        self._mh_coordinator = MultihostCoordinator(bmax, image_size)
+        log.info("multi-host serving: %d processes, broadcast shape (%d, %d, %d, 3)",
+                 mesh.world, bmax, image_size, image_size)
+        return self._mh_coordinator
+
+    @staticmethod
+    def _require_fused_for_multihost(mesh, what: str) -> None:
+        """Paths without a broadcast hook would leave the workers out of the
+        search (a hang, not an error): refuse them on a mesh over
+        processes."""
+        if mesh is not None and mesh.world > 1:
+            raise RuntimeError(
+                f"multi-host serving supports fused index families only; "
+                f"{what} has no broadcast-dispatch path. Serve it "
+                f"single-host (drop --dcn-*).")
 
     def _build_bovw(self, cfg: Config):
         """Rebuild the descriptor the pipeline artifact records (another
@@ -177,7 +220,10 @@ class QueryEngine:
                 corner_scale_step=float(dp.get("scale_step", 1.25)))
             size = int(dp.get("resize_size", cfg.resize_size))
         descriptor = make_descriptor(art_cfg, device=self.device)
-        self.index = FlatIndex.load(cfg.bovw_index_path, device=self.device)
+        if not hasattr(descriptor, "describe_device"):
+            self._require_fused_for_multihost(
+                self.mesh, f"descriptor {type(descriptor).__name__} (host-only)")
+        self.index = FlatIndex.load(cfg.bovw_index_path, device=self.device, mesh=self.mesh)
         self._index_n = max(1, self.index.ntotal)
         prologue = fused.bovw_prologue(descriptor, pipeline,
                                        normalize=self.index.metric == "cosine")
@@ -186,6 +232,9 @@ class QueryEngine:
     def _build_dhash(self, cfg: Config):
         from image_search_engine_tpu_torch.serving import fused
 
+        # dhash never shards (64-bit hashes fit anywhere); a worker would
+        # wait in a loop no dispatch ever feeds
+        self._require_fused_for_multihost(self.mesh, "method dhash")
         bits = np.load(cfg.dhash_store_path, allow_pickle=False)["bits"]
         self.index = None
         self._index_n = max(1, bits.shape[0])
@@ -194,17 +243,24 @@ class QueryEngine:
     def _build_dnn(self, cfg: Config):
         from image_search_engine_tpu_torch.index.ivf import IVFIndex, IVFPQIndex
         from image_search_engine_tpu_torch.models.embedder import CNNEmbedder
+        from image_search_engine_tpu_torch.parallel.ivf import ShardedIVF, ShardedIVFPQ
         from image_search_engine_tpu_torch.serving import fused
 
         self._check_embedder_provenance(cfg)
         warn_if_random_backbone(cfg, "serving queries")
+        # the mesh shards the index; a serving batch is too small to split,
+        # so the backbone runs on one device
         self.embedder = CNNEmbedder(cfg.dnn_model.value, image_size=cfg.resize_size,
                                     batch_size=1, device=self.device,
                                     torch_weights=cfg.torch_weights)
-        self.index = self._load_index(cfg.dnn_index_path, cfg, self.device)
+        self.index = self._load_index(cfg.dnn_index_path, cfg, self.device, self.mesh)
         self._index_n = max(1, self.index.ntotal)
         prologue = fused.cnn_prologue(self.embedder, normalize=self.index.metric == "cosine")
-        if type(self.index) is IVFPQIndex:
+        if isinstance(self.index, ShardedIVFPQ):  # a ShardedIVF too: first
+            family = fused.sharded_ivfpq_family(self.index)
+        elif isinstance(self.index, ShardedIVF):
+            family = fused.sharded_ivf_family(self.index)
+        elif type(self.index) is IVFPQIndex:
             family = fused.ivfpq_family(self.index)
         elif type(self.index) is IVFIndex:
             family = fused.ivf_family(self.index)
@@ -213,16 +269,27 @@ class QueryEngine:
         return prologue, family, cfg.resize_size
 
     @staticmethod
-    def _load_index(path, cfg: Config, device):
-        """The index the config names, loaded onto ``device``."""
+    def _load_index(path, cfg: Config, device, mesh=None):
+        """The index the config names, loaded onto ``device``, or resharded
+        over ``mesh``: IVF-PQ keeps its compression (per-shard packed codes,
+        and the shard-local exact rerank when the artifact has raw rows),
+        cell-probe rebuilds per-shard buckets from its raw rows, flat
+        shards its store."""
         from image_search_engine_tpu_torch.index.flat import FlatIndex
         from image_search_engine_tpu_torch.index.ivf import IVFIndex, IVFPQIndex
+        from image_search_engine_tpu_torch.parallel.ivf import ShardedIVF, ShardedIVFPQ
 
         if cfg.index_type == IndexType.IVFPQ:
-            return IVFPQIndex.load(path, device=device)
+            index = IVFPQIndex.load(path, device=device, mesh=mesh)
+            return index if mesh is None else ShardedIVFPQ.from_index(index, mesh)
         if cfg.index_type == IndexType.CELL_PROBE:
-            return IVFIndex.load(path, device=device)
-        return FlatIndex.load(path, device=device)
+            index = IVFIndex.load(path, device=device, mesh=mesh)
+            if mesh is None:
+                return index
+            return ShardedIVF.from_components(index.vectors, index.centroids, index.nprobe,
+                                              mesh, metric=index.metric,
+                                              table_dtype=index.table_dtype)
+        return FlatIndex.load(path, device=device, mesh=mesh)
 
     @staticmethod
     def _check_embedder_provenance(cfg: Config) -> None:
@@ -300,15 +367,36 @@ class QueryHTTPServer(ThreadingHTTPServer):
     request_queue_size = 1024
 
 
-def make_server(cfg: Config, device="cuda", prewarm: Optional[bool] = None):
+def make_server(cfg: Config, device="cuda", prewarm: Optional[bool] = None, mesh=None):
     """(engine, QueryHTTPServer bound to cfg.host:cfg.port)."""
     prewarm = cfg.prewarm if prewarm is None else prewarm
-    engine = QueryEngine(cfg, device=device, prewarm=prewarm)
+    engine = QueryEngine(cfg, device=device, mesh=mesh, prewarm=prewarm)
     return engine, QueryHTTPServer((cfg.host, cfg.port), make_handler(engine))
 
 
-def serve(cfg: Config, device="cuda", prewarm: Optional[bool] = None) -> None:
-    engine, httpd = make_server(cfg, device, prewarm)
+def serve(cfg: Config, device="cuda", prewarm: Optional[bool] = None, mesh=None) -> None:
+    """Serve HTTP on cfg.host:cfg.port until stopped. The mesh comes from
+    ``--sharded`` / ``--dcn-*`` unless given; on a mesh over processes,
+    processes > 0 build the same engine without prewarm and follow process
+    0's dispatches (serving/multihost.worker_loop) instead of serving
+    HTTP, and process 0 releases them when it stops."""
+    if mesh is None:
+        from image_search_engine_tpu_torch.parallel.mesh import mesh_from_config
+
+        mesh = mesh_from_config(cfg, device)
+        if mesh is not None:
+            log.info("sharded serving over a %d-shard mesh", mesh.size)
+    multihost = mesh is not None and mesh.world > 1
+    if multihost and mesh.rank != 0:
+        from image_search_engine_tpu_torch.serving.multihost import worker_loop
+
+        engine = QueryEngine(cfg, device=device, mesh=mesh, prewarm=False)
+        try:
+            worker_loop(engine)
+        finally:
+            engine.close()
+        return
+    engine, httpd = make_server(cfg, device, prewarm, mesh)
     log.info("serving %s on http://%s:%d (corpus: %d images, device %s, micro-batch %s)",
              cfg.method.value, cfg.host, httpd.server_address[1], len(engine.paths),
              engine.device, cfg.micro_batch_mode())
@@ -316,6 +404,9 @@ def serve(cfg: Config, device="cuda", prewarm: Optional[bool] = None) -> None:
         with httpd:
             httpd.serve_forever()
     finally:
+        if engine._mh_coordinator is not None:  # release the workers from their loop
+            with engine._mh_coordinator.lock:
+                engine._mh_coordinator.shutdown()
         engine.close()
 
 
@@ -348,21 +439,35 @@ def parse_args(argv=None):
                          "escalation captures it inside the request path)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (kernels) or cpu (plain versions)")
+    from image_search_engine_tpu_torch.utils.cli import add_scaleout_args, apply_scaleout_args
+
+    add_scaleout_args(ap, verb="serve")
     a = ap.parse_args(argv)
     cfg = Config(
         artifacts_dir=a.artifacts_dir, method=Method(a.method),
         index_type=IndexType(a.index_type), dnn_model=DnnModel(a.dnn_model),
         host=a.host, port=a.port, resize_size=a.resize_size,
         micro_batch=a.micro_batch, torch_weights=a.torch_weights,
-        prewarm=not a.no_prewarm, prewarm_wide=a.prewarm_wide_margin)
+        prewarm=not a.no_prewarm, prewarm_wide=a.prewarm_wide_margin,
+        **apply_scaleout_args(a))
     return cfg, a.device
 
 
 def cli_main(argv=None) -> None:
-    """``python -m image_search_engine_tpu_torch.engine`` body."""
+    """``python -m image_search_engine_tpu_torch.engine`` body. An interrupt
+    (SIGINT) stops the server cleanly: on a mesh over processes process 0
+    releases the workers first, and every process exits 0."""
+    import torch.distributed as dist
+
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     cfg, device = parse_args(argv)
-    serve(cfg, device)
+    try:
+        serve(cfg, device)
+    except KeyboardInterrupt:
+        log.info("interrupted: server stopped")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -14,15 +14,18 @@ Search runs the certified two-phase top-k (ops/topk.py: CUDA kernels on a
 CUDA store, their plain versions on the CPU; an int8 store takes the int8
 kernels with its per-row scales) and escalates once to a wide candidate
 margin when a certificate fails; k > 128 and chi2 take the plain full scan,
-the JAX package's own rule. Serialization is the JAX package's ``.npz``
-format (int8 adds a ``scales`` key), so an index saved by either package
-loads in the other. Sharding waits for ROADMAP.md.
+the JAX package's own rule. With a mesh (parallel/mesh.py) the store is
+row-sharded and searched by ``parallel/topk.distributed_topk``, the same
+search per shard and the certificate AND-ed over the shards.
+Serialization is the JAX package's ``.npz`` format (int8 adds a ``scales``
+key), so an index saved by either package loads in the other.
 """
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,8 +33,11 @@ import torch
 from image_search_engine_tpu_torch.index.store import VectorStore, check_store_dtype
 from image_search_engine_tpu_torch.ops.distances import l2_normalize
 from image_search_engine_tpu_torch.ops.topk import topk_twophase_safe
-from image_search_engine_tpu_torch.parallel.topk import local_topk_with_norms
+from image_search_engine_tpu_torch.parallel.mesh import Mesh
+from image_search_engine_tpu_torch.parallel.topk import distributed_topk, local_topk_with_norms
 from image_search_engine_tpu_torch.utils.device import resolve_device
+
+log = logging.getLogger(__name__)
 
 WIDE_MARGIN = 32  # escalation margin for certificate violations
 MAX_KERNEL_K = 128  # past this, the exact full scan (index/flat.py:109 rule)
@@ -49,12 +55,14 @@ def faiss_tail(d: np.ndarray, i: np.ndarray, k: int,
 
 
 class FlatIndex:
-    """Exact k-NN index over a device-resident store."""
+    """Exact k-NN index over a device-resident store, row-sharded over
+    ``mesh`` when one is given (the index then lives on the mesh's devices
+    and ``device`` is its home device)."""
 
     metric_kind = "flat"
 
     def __init__(self, metric: str = "l2", dtype: str = "f32",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh: Optional[Mesh] = None):
         if metric not in ("l2", "ip", "cosine", "chi2"):
             raise ValueError(f"unsupported metric {metric!r}")
         if metric == "chi2" and dtype != "f32":
@@ -62,7 +70,8 @@ class FlatIndex:
         check_store_dtype(dtype)
         self.metric = metric
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.home if mesh is not None else resolve_device(device)
         self.store: VectorStore | None = None
 
     @property
@@ -78,7 +87,7 @@ class FlatIndex:
             x = l2_normalize(x)
         if self.store is not None:
             x = torch.cat([self.store.values(), x])
-        self.store = VectorStore.build(x, dtype=self.dtype, device=self.device)
+        self.store = VectorStore.build(x, dtype=self.dtype, device=self.device, mesh=self.mesh)
         return self
 
     def search(self, q, k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -96,7 +105,9 @@ class FlatIndex:
             metric = "ip"
         store = self.store
         k_eff = min(k, store.n)
-        if k_eff > MAX_KERNEL_K or metric == "chi2":
+        if self.mesh is not None:
+            d, i = self._search_sharded(q, k_eff, metric)
+        elif k_eff > MAX_KERNEL_K or metric == "chi2":
             d, i = local_topk_with_norms(q, store.vectors, store.norms, k_eff, metric,
                                          scales=store.scales)
         else:
@@ -106,6 +117,27 @@ class FlatIndex:
         # return them (both searches above give int64, topk_flat's contract)
         return faiss_tail(d.cpu().numpy(), i.cpu().numpy().astype(np.int32), k,
                           descending=metric == "ip")
+
+    def _search_sharded(self, q: torch.Tensor, k: int, metric: str):
+        """``distributed_topk`` with the certificate enforced: a failure on
+        any query re-runs the search at the wide margin; a failure there
+        too is logged as an error, as the JAX package's sharded search."""
+        store = self.store
+
+        def run(t_margin=None):
+            return distributed_topk(q, store.vectors, store.norms, k, metric, self.mesh,
+                                    use_kernels=k <= MAX_KERNEL_K and metric != "chi2",
+                                    scales_shards=store.scales, with_certificate=True,
+                                    t_margin=t_margin)
+
+        d, i, ok = run()
+        if not bool(ok.all()):
+            d, i, ok = run(WIDE_MARGIN)
+            if not bool(ok.all()):
+                log.error("sharded exactness certificate still failing after wide-margin "
+                          "(%d) escalation on %d/%d queries", WIDE_MARGIN,
+                          int((~ok).sum()), ok.numel())
+        return d, i
 
     def save(self, path: str | Path) -> None:
         """The JAX package's ``.npz`` layout (bf16 as uint16 bits; int8 codes
@@ -119,17 +151,18 @@ class FlatIndex:
             dtype=np.array(self.dtype), vectors=vectors, **extra)
 
     @classmethod
-    def load(cls, path: str | Path, device: str | torch.device = "cuda") -> "FlatIndex":
+    def load(cls, path: str | Path, device: str | torch.device = "cuda",
+             mesh: Optional[Mesh] = None) -> "FlatIndex":
         with np.load(path, allow_pickle=False) as z:
             dtype = str(z["dtype"]) if "dtype" in z else "f32"
-            idx = cls(metric=str(z["metric"]), dtype=dtype, device=device)
+            idx = cls(metric=str(z["metric"]), dtype=dtype, device=device, mesh=mesh)
             vec = z["vectors"]
             scales = z["scales"] if dtype == "int8" else None
         if dtype == "int8":  # the stored codes as they are: no requantization
-            idx.store = VectorStore.from_quantized(vec, scales, device=idx.device)
+            idx.store = VectorStore.from_quantized(vec, scales, device=idx.device, mesh=mesh)
             return idx
         if dtype == "bf16":
             vec = torch.from_numpy(vec.view(np.int16)).view(torch.bfloat16).float()
         # rows were normalized at save time for cosine: build, don't re-add
-        idx.store = VectorStore.build(vec, dtype=dtype, device=idx.device)
+        idx.store = VectorStore.build(vec, dtype=dtype, device=idx.device, mesh=mesh)
         return idx

@@ -1,7 +1,7 @@
 """IVF ("cell-probe") and IVF-PQ indexes on a torch device.
 
-Port of ``image_search_engine_tpu/index/ivf.py`` (single device; the sharded
-classes wait for ROADMAP.md queue 1 item 7):
+Port of ``image_search_engine_tpu/index/ivf.py`` (one device; the sharded
+classes are parallel/ivf.py's, which reshard these):
 
   * coarse quantizer = the k-means trainer of ops/kmeans.py;
   * inverted lists as balanced fixed-width buckets (a cell larger than the
@@ -35,6 +35,7 @@ from image_search_engine_tpu_torch.ops import round_up
 from image_search_engine_tpu_torch.ops.distances import l2_normalize, stable_smallest
 from image_search_engine_tpu_torch.ops.ivf import ivf_probed_topk, rank_buckets
 from image_search_engine_tpu_torch.ops.kmeans import KMeans, assign, subspace_kmeans
+from image_search_engine_tpu_torch.parallel.mesh import Mesh
 from image_search_engine_tpu_torch.utils.device import resolve_device
 
 #: bytes of f32 rows per search / pack / rescore chunk (bounds the transients)
@@ -81,13 +82,53 @@ def _rows_per_chunk(row_bytes: int) -> int:
     return max(1, _CHUNK_BYTES // max(row_bytes, 1))
 
 
+def _pack_table(vectors: torch.Tensor, lists: torch.Tensor,
+                table_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The list-contiguous (nbuckets, cap, d) table of ``vectors`` rows by
+    ``lists`` (-1 pad slots: zero rows) and its (nbuckets, cap) norms, +inf
+    at pad slots, built in chunks of buckets. Norms come from the stored
+    (rounded) values, so the probed scan is exact over the table it scans."""
+    nb, cap = lists.shape
+    d = vectors.shape[1]
+    lists = lists.to(vectors.device).long()
+    packed = torch.zeros((nb, cap, d), dtype=STORE_DTYPES[table_dtype], device=vectors.device)
+    norms = torch.full((nb, cap), float("inf"), device=vectors.device)
+    chunk = _rows_per_chunk(cap * d * 4)
+    for s in range(0, nb, chunk):
+        lst = lists[s:s + chunk]
+        valid = lst >= 0
+        blk = vectors[lst.clamp(min=0)]
+        blk[~valid] = 0.0
+        packed[s:s + chunk] = blk  # casts on assignment (bf16)
+        rows = _sq_norms(packed[s:s + chunk].reshape(-1, d)).view(lst.shape)
+        norms[s:s + chunk] = torch.where(valid, rows, torch.full_like(rows, float("inf")))
+    return packed, norms
+
+
+def host_finish(outs, k: int, metric: str):
+    """Host results of probed searches: (d, i, ok) parts joined, invalid
+    slots to -1 (Faiss returns -1 when the probes hold < k candidates), k
+    padding, and for cosine the L2 over normalized rows as the descending
+    similarity 1 - d / 2 that FlatIndex("cosine") returns."""
+    d, i, ok = (torch.cat(parts).cpu().numpy() for parts in zip(*outs))
+    i = i.astype(np.int32)
+    i[~ok] = -1
+    d, i = _pad_results(d, i, k)
+    if metric == "cosine":
+        d = np.where(i >= 0, 1.0 - d / 2.0, -np.inf)
+    return d, i
+
+
 class IVFIndex:
     """Cell-probe index: coarse k-means partition + probed exact scan."""
 
     metric_kind = "ivf"
 
     def __init__(self, metric: str = "l2", nlist: int = 8, nprobe: int = 5, seed: int = 42,
-                 table_dtype: str = "f32", device: str | torch.device = "cuda"):
+                 table_dtype: str = "f32", device: str | torch.device = "cuda",
+                 mesh: Optional[Mesh] = None):
+        """With a ``mesh`` the index is built and held on the mesh's home
+        device; parallel/ivf.py's classes reshard it over the mesh."""
         if metric not in ("l2", "cosine"):
             raise ValueError("IVFIndex supports l2/cosine")
         if table_dtype not in ("f32", "bf16"):
@@ -97,7 +138,7 @@ class IVFIndex:
         self.nlist = nlist
         self.nprobe = min(nprobe, nlist)
         self.seed = seed
-        self.device = resolve_device(device)
+        self.device = mesh.home if mesh is not None else resolve_device(device)
         self.centroids: Optional[np.ndarray] = None  # (nlist, d) cell centroids
         self.bucket_cell: Optional[np.ndarray] = None  # (nbuckets,) cell of each bucket
         self.bucket_centroids: Optional[np.ndarray] = None
@@ -149,28 +190,21 @@ class IVFIndex:
         return codes
 
     def _pack(self) -> None:
-        """List-contiguous table on the device, built in chunks of buckets.
-        Norms come from the stored (rounded) values, so the probed scan is
-        exact over the table it actually scans."""
-        nb, cap = self.lists.shape
-        d = self.vectors.shape[1]
-        lists = torch.as_tensor(self.lists, device=self.device).long()
-        self.packed = torch.zeros((nb, cap, d), dtype=STORE_DTYPES[self.table_dtype],
-                                  device=self.device)
-        self.packed_norms = torch.full((nb, cap), float("inf"), device=self.device)
-        chunk = _rows_per_chunk(cap * d * 4)
-        for s in range(0, nb, chunk):
-            lst = lists[s:s + chunk]
-            valid = lst >= 0
-            blk = self.vectors[lst.clamp(min=0)]
-            blk[~valid] = 0.0
-            self.packed[s:s + chunk] = blk  # casts on assignment (bf16)
-            stored = self.packed[s:s + chunk].reshape(-1, d)
-            norms = _sq_norms(stored).view(lst.shape)
-            self.packed_norms[s:s + chunk] = torch.where(
-                valid, norms, torch.full_like(norms, float("inf")))
+        """The list-contiguous table of the lists on the device."""
+        self.packed, self.packed_norms = _pack_table(
+            self.vectors, torch.as_tensor(self.lists), self.table_dtype)
         self.bucket_centroids = self.centroids[self.bucket_cell]
         self._dev = None
+
+    def row_cells(self) -> np.ndarray:
+        """Every row's coarse cell (N,) int32, read off the inverted lists:
+        what resharding (parallel/ivf.ShardedIVFPQ) needs without running
+        the coarse quantizer again or holding raw vectors."""
+        rc = np.full(self.ntotal, -1, np.int32)
+        valid = self.lists >= 0
+        owner = np.broadcast_to(self.bucket_cell[:, None], self.lists.shape)
+        rc[self.lists[valid]] = owner[valid]
+        return rc
 
     def _effective_nprobe(self) -> int:
         """Buckets to probe so the expected scanned-row count matches the
@@ -232,18 +266,7 @@ class IVFIndex:
         return self._host_finish([out], k)
 
     def _host_finish(self, outs, k: int):
-        d, i, ok = (torch.cat(parts).cpu().numpy() for parts in zip(*outs))
-        i = i.astype(np.int32)
-        i[~ok] = -1  # Faiss returns -1 when the probes hold < k candidates
-        return self._finish(d, i, k)
-
-    def _finish(self, d: np.ndarray, i: np.ndarray, k: int):
-        d, i = _pad_results(d, i, k)
-        if self.metric == "cosine":
-            # rows are L2-normalized, so L2^2 = 2 - 2 cos: the descending
-            # similarity FlatIndex("cosine") returns
-            d = np.where(i >= 0, 1.0 - d / 2.0, -np.inf)
-        return d, i
+        return host_finish(outs, k, self.metric)
 
     def save(self, path: str | Path) -> None:
         np.savez_compressed(
@@ -253,10 +276,11 @@ class IVFIndex:
             table_dtype=np.array(self.table_dtype))
 
     @classmethod
-    def load(cls, path: str | Path, device: str | torch.device = "cuda") -> "IVFIndex":
+    def load(cls, path: str | Path, device: str | torch.device = "cuda",
+             mesh: Optional[Mesh] = None) -> "IVFIndex":
         with np.load(path, allow_pickle=False) as z:
             self = cls(metric=str(z["metric"]), nlist=z["centroids"].shape[0],
-                       nprobe=int(z["nprobe"]), device=device,
+                       nprobe=int(z["nprobe"]), device=device, mesh=mesh,
                        table_dtype=str(z["table_dtype"]) if "table_dtype" in z else "f32")
             self.vectors = torch.as_tensor(z["vectors"], device=self.device)
             self.centroids = z["centroids"]
@@ -336,8 +360,9 @@ class IVFPQIndex(IVFIndex):
 
     def __init__(self, metric: str = "l2", nlist: int = 8, nprobe: int = 5, m: int = 16,
                  seed: int = 42, rerank: int = 0, recon_cache: bool = False,
-                 device: str | torch.device = "cuda"):
-        super().__init__(metric=metric, nlist=nlist, nprobe=nprobe, seed=seed, device=device)
+                 device: str | torch.device = "cuda", mesh: Optional[Mesh] = None):
+        super().__init__(metric=metric, nlist=nlist, nprobe=nprobe, seed=seed, device=device,
+                         mesh=mesh)
         self.m = m
         # default exact-rerank shortlist (0 = ADC ranking only); needs the
         # raw vectors, which add() keeps and save(store_raw=True) stores
@@ -496,10 +521,11 @@ class IVFPQIndex(IVFIndex):
         np.savez_compressed(path, **payload)
 
     @classmethod
-    def load(cls, path: str | Path, device: str | torch.device = "cuda") -> "IVFPQIndex":
+    def load(cls, path: str | Path, device: str | torch.device = "cuda",
+             mesh: Optional[Mesh] = None) -> "IVFPQIndex":
         with np.load(path, allow_pickle=False) as z:
             self = cls(metric=str(z["metric"]), nlist=z["centroids"].shape[0],
-                       nprobe=int(z["nprobe"]), m=z["codes"].shape[1], device=device,
+                       nprobe=int(z["nprobe"]), m=z["codes"].shape[1], device=device, mesh=mesh,
                        rerank=int(z["rerank"]) if "rerank" in z.files else 0)
             if "vectors" in z.files:
                 self.vectors = torch.as_tensor(z["vectors"], device=self.device)

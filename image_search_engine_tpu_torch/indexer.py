@@ -15,6 +15,12 @@ packed thumbnails. Per method:
     ``descriptions_<kind>.npz``);
   * dhash: 64-bit difference hashes -> a bit matrix (``dhash.npz``).
 
+``--sharded [N]`` builds over a mesh of local devices (parallel/): the
+backbone runs a replica on each device and the flat stores are
+row-sharded while built; the artifacts are the same files. Builds over
+several processes (``--dcn-*``) are refused, as in the JAX package: build
+on one host, serve multi-host.
+
 Usage:
     python -m image_search_engine_tpu_torch.indexer --data-dir photos/ \\
         --method dnn --index-type ivfpq --pq-rerank 64 --device cuda
@@ -39,7 +45,6 @@ from image_search_engine_tpu_torch.descriptors import (
     DHashDescriptor, describe_dataset, make_descriptor)
 from image_search_engine_tpu_torch.utils.imageio import (
     ThumbnailCache, get_image_paths, load_images_batched, load_paths_csv, save_paths_csv)
-from image_search_engine_tpu_torch.utils.unported import not_ported
 
 log = logging.getLogger(__name__)
 
@@ -74,14 +79,10 @@ def warn_if_random_backbone(cfg: Config, doing: str) -> bool:
     return True
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for what the port does not serve yet."""
-    if cfg.shard_devices is not None or cfg.dcn_coordinator is not None:
-        raise not_ported("--sharded / --dcn-*", "multi-device")
-
-
-def _build_index(cfg: Config, feats: np.ndarray, device):
-    """The configured index over ``feats`` (flat, cell-probe or IVF-PQ)."""
+def _build_index(cfg: Config, feats: np.ndarray, device, mesh=None):
+    """The configured index over ``feats`` (flat, cell-probe or IVF-PQ); on
+    a mesh the flat store is row-sharded, and the IVF indexes are built on
+    the mesh's home device (the engine reshards them)."""
     from image_search_engine_tpu_torch.index.flat import FlatIndex
     from image_search_engine_tpu_torch.index.ivf import IVFIndex, IVFPQIndex
 
@@ -89,20 +90,23 @@ def _build_index(cfg: Config, feats: np.ndarray, device):
         # the reference's "cell-probe" index: m sub-quantizers x 8 bits
         # over coarse residuals
         return IVFPQIndex(metric="l2", nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe,
-                          m=cfg.pq_m, rerank=cfg.pq_rerank, device=device).add(feats)
+                          m=cfg.pq_m, rerank=cfg.pq_rerank, device=device,
+                          mesh=mesh).add(feats)
     if cfg.index_type == IndexType.CELL_PROBE:
         return IVFIndex(metric="l2", nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe,
-                        table_dtype=cfg.store_dtype, device=device).add(feats)
-    return FlatIndex(cfg.index_type.value, dtype=cfg.store_dtype, device=device).add(feats)
+                        table_dtype=cfg.store_dtype, device=device, mesh=mesh).add(feats)
+    return FlatIndex(cfg.index_type.value, dtype=cfg.store_dtype, device=device,
+                     mesh=mesh).add(feats)
 
 
-def build_dnn_index(cfg: Config, paths, device="cuda", use_native: bool = False) -> None:
+def build_dnn_index(cfg: Config, paths, device="cuda", use_native: bool = False,
+                    mesh=None) -> None:
     from image_search_engine_tpu_torch.models.embedder import CNNEmbedder
 
     warn_if_random_backbone(cfg, "building a DNN index")
     embedder = CNNEmbedder(cfg.dnn_model.value, image_size=cfg.resize_size,
                            batch_size=cfg.embed_batch_size, device=device,
-                           torch_weights=cfg.torch_weights)
+                           torch_weights=cfg.torch_weights, mesh=mesh)
     feats, kept = [], []
     for batch, idx in load_images_batched(paths, cfg.embed_batch_size,
                                           (cfg.resize_size, cfg.resize_size),
@@ -112,7 +116,7 @@ def build_dnn_index(cfg: Config, paths, device="cuda", use_native: bool = False)
     if not feats:
         raise SystemExit("no image could be decoded")
     feats = np.concatenate(feats)
-    index = _build_index(cfg, feats, device)
+    index = _build_index(cfg, feats, device, mesh)
     if cfg.index_type == IndexType.IVFPQ:
         # a rerank-enabled artifact carries the raw vectors the rerank scores
         index.save(cfg.dnn_index_path, store_raw=cfg.pq_rerank > 0)
@@ -138,7 +142,8 @@ def _save_embedder_provenance(cfg: Config) -> None:
     }))
 
 
-def build_bovw_index(cfg: Config, paths, device="cuda", use_native: bool = False) -> None:
+def build_bovw_index(cfg: Config, paths, device="cuda", use_native: bool = False,
+                     mesh=None) -> None:
     from image_search_engine_tpu_torch.bovw.pipeline import BoVWPipeline, sweep_num_clusters
     from image_search_engine_tpu_torch.index.flat import FlatIndex
 
@@ -173,7 +178,8 @@ def build_bovw_index(cfg: Config, paths, device="cuda", use_native: bool = False
     hists = pipeline.fit_transform(feats, valid)
     pipeline.save(cfg.bovw_pipeline_path)
     metric = {"cosine": "cosine", "chi2": "chi2"}.get(cfg.index_type.value, "l2")
-    FlatIndex(metric, dtype=cfg.store_dtype, device=device).add(hists).save(cfg.bovw_index_path)
+    FlatIndex(metric, dtype=cfg.store_dtype, device=device, mesh=mesh).add(hists).save(
+        cfg.bovw_index_path)
     save_paths_csv([paths[i] for i in kept], cfg.paths_file)
     log.info("BoVW index: %d images, k=%d -> %s", len(kept), n_clusters, cfg.bovw_index_path)
 
@@ -196,8 +202,24 @@ def build_thumbnails(cfg: Config) -> None:
              cfg.thumbnails_path, time.time() - t0)
 
 
-def main(cfg: Config, device="cuda", use_native: bool = False) -> None:
-    check_supported(cfg)
+def main(cfg: Config, device="cuda", use_native: bool = False, mesh=None) -> None:
+    """Build the configured artifacts; over ``mesh``, or the one that
+    ``--sharded`` / ``--dcn-*`` ask for."""
+    if mesh is None:
+        from image_search_engine_tpu_torch.parallel.mesh import mesh_from_config
+
+        mesh = mesh_from_config(cfg, device)  # None unless --sharded / --dcn-* asked
+        if mesh is not None:
+            log.info("sharded build over a %d-shard mesh", mesh.size)
+    if mesh is not None and mesh.world > 1:
+        # the build has no multi-process coordination (host decode and
+        # artifact writes are per process; on a shared file system every
+        # process would race the same .npz); serving multi-host works
+        raise SystemExit(
+            "ise-index does not support multi-host (--dcn-*) builds: "
+            "build the index on one host, share the artifacts "
+            "directory, then serve it multi-host with ise-serve "
+            "--dcn-*.")
     if cfg.store_dtype == "int8" and cfg.index_type in (IndexType.CELL_PROBE, IndexType.IVFPQ):
         raise SystemExit("--store-dtype int8 applies to flat indexes only (IVF tables "
                          "support f32/bf16; IVFPQ is already byte-coded)")
@@ -207,8 +229,12 @@ def main(cfg: Config, device="cuda", use_native: bool = False) -> None:
     if not paths:
         raise SystemExit(f"no images found under {cfg.data_dir}")
     log.info("indexing %d images with method=%s", len(paths), cfg.method.value)
-    {Method.DNN: build_dnn_index, Method.BOVW: build_bovw_index,
-     Method.DHASH: build_dhash_index}[cfg.method](cfg, paths, device, use_native)
+    if cfg.method == Method.DNN:
+        build_dnn_index(cfg, paths, device, use_native, mesh)
+    elif cfg.method == Method.BOVW:
+        build_bovw_index(cfg, paths, device, use_native, mesh)
+    else:
+        build_dhash_index(cfg, paths, device, use_native)
     if cfg.precompute_thumbnails:
         build_thumbnails(cfg)
     log.info("index build finished in %.1fs", time.time() - t0)
@@ -261,6 +287,9 @@ def parse_args(argv=None):
                     help="skip the packed thumbnail cache (thumbnails.npz)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (kernels) or cpu (plain versions)")
+    from image_search_engine_tpu_torch.utils.cli import add_scaleout_args, apply_scaleout_args
+
+    add_scaleout_args(ap, verb="build")
     a = ap.parse_args(argv)
     cfg = Config(
         data_dir=a.data_dir, artifacts_dir=a.artifacts_dir, method=Method(a.method),
@@ -273,7 +302,7 @@ def parse_args(argv=None):
         precompute_thumbnails=not a.no_thumbnails, store_dtype=a.store_dtype,
         torch_weights=a.torch_weights, pq_rerank=a.pq_rerank, ivf_nlist=a.ivf_nlist,
         ivf_nprobe=a.ivf_nprobe, pq_m=a.pq_m, daisy_step=a.daisy_step,
-        daisy_radius=a.daisy_radius)
+        daisy_radius=a.daisy_radius, **apply_scaleout_args(a))
     return cfg, a.device, a.native_loader
 
 

@@ -10,6 +10,11 @@ backbone computes in bfloat16 by default, as the JAX embedder does; in
 float32 the port turns TF32 off for cuDNN convolutions and cuBLAS
 matmuls, so f32 means IEEE f32.
 
+With a mesh (the indexer's ``--sharded``), ``embed_batch`` splits each
+batch over the mesh's distinct devices, one replica of the backbone on
+each, and gathers the embeddings in order; serving embeds stay on one
+device, as the JAX engine's do.
+
 The weights file of ``save`` / ``load`` is the torch state dict
 (``torch.save``, read back by ``models/weights.read_state_dict``). The JAX
 embedder writes flax msgpack, which the port cannot read without flax; JAX
@@ -18,8 +23,9 @@ parameters cross through ``models/weights.state_dict_from_flax``.
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
-from typing import Iterable, Mapping
+from typing import Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -30,6 +36,7 @@ from image_search_engine_tpu_torch.models.resnet import ResNet18Thin, ResNet50
 from image_search_engine_tpu_torch.models.weights import (
     load_state_dict, load_torch_weights, read_state_dict)
 from image_search_engine_tpu_torch.ops.image_ops import preprocess_for_cnn, to_unit_f32
+from image_search_engine_tpu_torch.parallel.mesh import Mesh
 from image_search_engine_tpu_torch.utils.device import resolve_device
 
 # name -> (ctor, embedding dim, input normalization), the JAX package's
@@ -62,11 +69,14 @@ class CNNEmbedder:
         seed: int = 0,
         state_dict: Mapping[str, torch.Tensor] | None = None,
         torch_weights: str | Path | None = None,
+        mesh: Optional[Mesh] = None,
     ):
+        """With a ``mesh``, ``device`` is the mesh's home device and
+        ``embed_batch`` runs a replica on each of its distinct devices."""
         check_model_name(model_name)
         if state_dict is not None and torch_weights is not None:
             raise ValueError("pass either state_dict or torch_weights, not both")
-        self.device = resolve_device(device)
+        self.device = mesh.home if mesh is not None else resolve_device(device)
         ctor, self.dim, self.norm_name = MODEL_REGISTRY[model_name]
         self.model_name = model_name
         self.image_size = image_size
@@ -82,22 +92,35 @@ class CNNEmbedder:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.model = model.eval().to(device=self.device, dtype=dtype,
                                      memory_format=torch.channels_last)
+        # the backbone on each distinct device of the mesh, home first
+        devices = dict.fromkeys(mesh.devices if mesh is not None else (self.device,))
+        self.replicas = [(dev, self.model if dev == self.device else
+                          copy.deepcopy(self.model).to(dev)) for dev in devices]
 
     @torch.inference_mode()
-    def embed(self, images: torch.Tensor) -> torch.Tensor:
+    def embed(self, images: torch.Tensor, model: Optional[torch.nn.Module] = None
+              ) -> torch.Tensor:
         """(B, H, W, 3) uint8 or float [0, 1] tensor on the embedder's
-        device -> (B, D) float32 embeddings on the device."""
+        device (or on ``model``'s, a replica's) -> (B, D) float32
+        embeddings on that device."""
         x = preprocess_for_cnn(to_unit_f32(images), self.image_size, self.norm_name)
-        return self.model(x.to(self.dtype))
+        return (model or self.model)(x.to(self.dtype))
 
     def embed_batch(self, images: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) host images -> (B, D) host float32, in chunks of
-        ``batch_size``."""
+        ``batch_size``, each chunk split over the replicas (their launches
+        overlap: each device runs its part asynchronously until the copies
+        back)."""
         images = np.asarray(images)
         out = np.empty((images.shape[0], self.dim), np.float32)
         for s in range(0, images.shape[0], self.batch_size):
-            chunk = torch.from_numpy(images[s:s + self.batch_size]).to(self.device)
-            out[s:s + chunk.shape[0]] = self.embed(chunk).cpu().numpy()
+            chunk = torch.from_numpy(images[s:s + self.batch_size])
+            parts = [(self.embed(part.to(dev), model), part.shape[0]) for part, (dev, model) in
+                     zip(chunk.tensor_split(len(self.replicas)), self.replicas) if part.shape[0]]
+            o = s
+            for emb, rows in parts:
+                out[o:o + rows] = emb.cpu().numpy()
+                o += rows
         return out
 
     def embed_iter(self, batches: Iterable[np.ndarray]) -> np.ndarray:

@@ -1,2 +1,3 @@
-"""Single-device search helpers (the multi-device half waits for
-ROADMAP.md queue 1 item 7)."""
+"""The mesh layer: device meshes, row-sharded stores, the distributed top-k
+merge, distributed k-means and the sharded IVF and IVF-PQ indexes
+(parallel/mesh.py, topk.py, kmeans.py, ivf.py)."""

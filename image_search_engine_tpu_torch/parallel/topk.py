@@ -1,14 +1,23 @@
-"""Single-device exact top-k honoring poisoned pad norms.
+"""Exact top-k honoring poisoned pad norms, on one device or a mesh.
 
-Port of the single-device half of ``image_search_engine_tpu/parallel/
-topk.py`` (``PAD_NORM``, ``CHI2_CHUNK``, ``_chi2_topk_chunked``,
-``local_topk_with_norms``). The sharded search (``distributed_topk``) waits
-for ROADMAP.md queue 1 item 7.
+Port of ``image_search_engine_tpu/parallel/topk.py``: ``PAD_NORM``,
+``CHI2_CHUNK``, ``_chi2_topk_chunked``, ``local_topk_with_norms`` and the
+sharded search ``distributed_topk``. Each shard scans its (N/S, d) block
+with the local search (on the card, the certified two-phase kernels),
+then the (dist, global id) candidates merge with one stable top-k, first
+over this process's shards on its home device (:func:`process_topk`), then
+over the processes (:func:`merge_processes`, one all_gather). Ties go to
+the lowest global id, as ``lax.top_k`` over the concatenation in the JAX
+package, and merging in two stages keeps the one-stage answer.
+
+Padding protocol: the store is padded to a multiple of the mesh size with
+zero rows whose cached norm is poisoned to PAD_NORM (index/store.py), so
+pad rows never win: validity is carried in data.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -16,7 +25,9 @@ from image_search_engine_tpu_torch.ops.distances import (
     pairwise_chi2,
     stable_largest,
     stable_smallest,
+    stable_topk,
 )
+from image_search_engine_tpu_torch.parallel.mesh import Mesh, all_gather_processes
 
 PAD_NORM = 1e30  # poisoned squared norm marking padded store rows
 
@@ -107,3 +118,115 @@ def local_topk_with_norms(
         vals, idx = stable_largest(cross - ip_penalty(norms)[None, :], k)
         return (vals, idx) + exact
     raise ValueError(f"unsupported metric {metric!r} (cosine: normalize first)")
+
+
+def process_topk(
+    q: torch.Tensor,
+    x_shards: Sequence[torch.Tensor],
+    norms_shards: Sequence[torch.Tensor],
+    k: int,
+    metric: str,
+    mesh: Mesh,
+    use_kernels: bool,
+    scales_shards: Optional[Sequence[torch.Tensor]] = None,
+    with_certificate: bool = False,
+    t_margin: int | None = None,
+) -> Tuple[torch.Tensor, ...]:
+    """This process's half of :func:`distributed_topk`: each local shard's
+    top-``min(k, rows per shard)`` by :func:`local_topk_with_norms`, its
+    ids offset to global int32 ids, merged on ``mesh.home`` to the best
+    ``min(k_final, candidates)`` (k_final as in :func:`distributed_topk`);
+    with ``with_certificate`` the AND of the shards' certificates."""
+    r = x_shards[0].shape[0]
+    k_local = min(k, r)
+    k_final = min(k, mesh.size * k_local)
+    home = mesh.home
+    ds, ids, certs = [], [], []
+    for s, (x, norms) in enumerate(zip(x_shards, norms_shards)):
+        out = local_topk_with_norms(
+            q.to(x.device), x, norms, k_local, metric, use_kernels,
+            scales=None if scales_shards is None else scales_shards[s],
+            with_certificate=with_certificate, t_margin=t_margin)
+        ds.append(out[0].to(home))
+        ids.append((out[1] + (mesh.first_shard + s) * r).to(torch.int32).to(home))
+        if with_certificate:
+            certs.append(out[2].to(home))
+    d_cat, i_cat = torch.cat(ds, 1), torch.cat(ids, 1)
+    vals, pos = stable_topk(d_cat, min(k_final, d_cat.shape[1]), largest=metric == "ip")
+    res = (vals, torch.gather(i_cat, 1, pos))
+    if with_certificate:
+        res += (torch.stack(certs).all(0),)
+    return res
+
+
+def merge_processes(out: Tuple[torch.Tensor, ...], mesh: Mesh, k: int,
+                    descending: bool) -> Tuple[torch.Tensor, ...]:
+    """The cross-process half of a sharded search: ``out`` = (d (Q, w),
+    int32 ids (Q, w)[, extra]) merged over this process's shards, gathered
+    from every process in rank order (global shard order) with one
+    all_gather, and merged to the best ``k``. An extra (Q,) bool (the
+    certificate) is AND-ed over the processes; an extra (Q, w) bool (the
+    probed families' slot validity) rides with its candidates. Without a
+    process group, ``out`` as it is."""
+    if mesh.group is None:
+        return out
+    d, i = out[0], out[1]
+    nq, w = d.shape
+    parts = [d.float(), i.to(torch.int32).view(torch.float32)]
+    if len(out) > 2:
+        parts.append(out[2].to(torch.float32).reshape(nq, -1))
+    gathered = torch.stack(all_gather_processes(torch.cat(parts, 1), mesh))  # (P, Q, cols)
+    d_all = gathered[:, :, :w].permute(1, 0, 2).reshape(nq, -1)
+    i_all = gathered[:, :, w:2 * w].contiguous().view(torch.int32).permute(1, 0, 2).reshape(nq, -1)
+    vals, pos = stable_topk(d_all, min(k, d_all.shape[1]), largest=descending)
+    res = (vals, torch.gather(i_all, 1, pos))
+    if len(out) > 2:
+        extra = gathered[:, :, 2 * w:]
+        if out[2].dim() == 1:  # per query: AND over the processes
+            res += (extra[:, :, 0].min(0).values > 0,)
+        else:
+            res += (torch.gather(extra.permute(1, 0, 2).reshape(nq, -1), 1, pos) > 0,)
+    return res
+
+
+def distributed_topk(
+    q: torch.Tensor,
+    x_shards: Sequence[torch.Tensor],
+    norms_shards: Sequence[torch.Tensor],
+    k: int,
+    metric: str,
+    mesh: Mesh,
+    use_kernels: bool | None = None,
+    scales_shards: Optional[Sequence[torch.Tensor]] = None,
+    with_certificate: bool = False,
+    t_margin: int | None = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Exact k-NN over a row-sharded store.
+
+    Args:
+      q: (Q, d) queries.
+      x_shards: this process's (N/S, d) blocks of the padded (N, d) store,
+        each on its shard's device (parallel/mesh.shard_rows).
+      norms_shards: their squared norms, PAD_NORM at padding rows.
+      k: neighbours.
+      metric: "l2" | "ip" | "chi2" (cosine: normalize rows and queries,
+        then "ip").
+      mesh: the 1-D mesh.
+      use_kernels: the certified two-phase search per shard (default: on
+        a CUDA mesh); chi2 always scans in plain chunks.
+      scales_shards: per-row dequant scales of an int8 store, sharded like
+        the rows.
+    Returns:
+      (distances (Q, k'), global int32 ids (Q, k')[, certificate (Q,)]) on
+      ``mesh.home``, k' = min(k, S * min(k, N/S)); the certificate is True
+      where every shard's local top-k was certified (a lost local
+      neighbour can be a lost global one).
+    """
+    if use_kernels is None:
+        use_kernels = mesh.home.type == "cuda"
+    if metric == "chi2":
+        use_kernels = False
+    out = process_topk(q, x_shards, norms_shards, k, metric, mesh, use_kernels,
+                       scales_shards, with_certificate, t_margin)
+    k_final = min(k, mesh.size * min(k, x_shards[0].shape[0]))
+    return merge_processes(out, mesh, k_final, descending=metric == "ip")

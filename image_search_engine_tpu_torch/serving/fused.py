@@ -21,8 +21,19 @@ the device thread and request micro-batching (serving/batching.py). The
 BoVW method serves through the flat family with its own prologue (describe,
 quantize, histogram, BM25); dHash through a Hamming-scan core (the JAX
 engine runs dHash eagerly per request; here it is one captured dispatch
-like the others). The multi-host coordinator waits for ROADMAP.md (queue 1
-item 7).
+like the others).
+
+On a mesh (parallel/mesh.py) the flat family searches the row-sharded
+store with ``parallel/topk.process_topk`` and the IVF and IVF-PQ families
+are ``sharded_ivf_family`` and ``sharded_ivfpq_family``: every shard's
+search and the merge over this process's shards run in the dispatch, which
+on a mesh of one device is one captured replay like any other. Across
+processes, the cross-process gather and merge (``across``) run after the
+replay on the device thread: a gloo collective cannot be captured. A mesh
+of several local devices dispatches eagerly. With a multi-process
+coordinator (serving/multihost.py) every dispatch, the certificate retry
+included, broadcasts its batch to the worker processes first, under the
+coordinator's lock, so the broadcast order is the dispatch order.
 """
 
 from __future__ import annotations
@@ -42,7 +53,8 @@ import torch
 from image_search_engine_tpu_torch.index.flat import MAX_KERNEL_K, WIDE_MARGIN, faiss_tail
 from image_search_engine_tpu_torch.ops.distances import l2_normalize
 from image_search_engine_tpu_torch.ops.ivf import ivf_probed_topk
-from image_search_engine_tpu_torch.parallel.topk import local_topk_with_norms
+from image_search_engine_tpu_torch.parallel.topk import (
+    local_topk_with_norms, merge_processes, process_topk)
 
 log = logging.getLogger(__name__)
 
@@ -135,18 +147,30 @@ class BatchedSearch:
     capture raises rather than falling back to eager runs. A capture
     launches nothing, so the kernels' launch counters it moved are put
     back and each replay adds the launches the capture recorded: counts
-    stay per dispatch run. ``raw_dispatch`` is the eager, uncaptured
-    dispatch; ``dispatch`` the served one. ``replays`` and ``eager_runs``
+    stay per dispatch run. ``capture=False`` runs every dispatch eagerly
+    (a mesh of several devices). ``across(out, statics)``, when given,
+    runs after each dispatch, outside any capture: the cross-process merge
+    of a mesh over processes. ``raw_dispatch`` is the eager, uncaptured
+    dispatch; ``run`` the served one; ``dispatch`` broadcasts the batch to
+    the worker processes first when there is a ``coordinator``
+    (serving/multihost.py), then runs. ``replays`` and ``eager_runs``
     count served dispatches by how they ran (the warm run before each
     capture is an eager run; ``raw_dispatch`` counts in neither).
     """
 
     def __init__(self, prologue: Callable, core: Callable, statics_fn: Callable,
-                 epilogue: Callable, device, graphs=None):
+                 epilogue: Callable, device, graphs=None, *, capture: bool = True,
+                 across: Callable | None = None, coordinator=None):
         self.device = torch.device(device)
-        self.graphs = CudaGraphs() if graphs is None and self.device.type == "cuda" else graphs
+        if not capture:
+            graphs = None
+        elif graphs is None and self.device.type == "cuda":
+            graphs = CudaGraphs()
+        self.graphs = graphs
         self._prologue, self._core, self._statics_fn = prologue, core, statics_fn
         self._epilogue = epilogue
+        self._across = across
+        self.coordinator = coordinator
         self.programs: dict = {}
         self.eager_runs = 0
         # one dispatch at a time: a replay's static buffers are reused
@@ -160,14 +184,20 @@ class BatchedSearch:
     def _run(self, x: torch.Tensor, statics, t_margin):
         return self._core(self._prologue(x), statics, t_margin)
 
-    def raw_dispatch(self, images: np.ndarray, k: int, t_margin=None):
-        """The dispatch run eagerly: upload, prologue, core."""
-        x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
-        return self._run(x, self._statics_fn(k), t_margin)
+    def _finish(self, out, statics):
+        return out if self._across is None else self._across(out, statics)
 
-    def dispatch(self, images: np.ndarray, k: int, t_margin=None):
+    def raw_dispatch(self, images: np.ndarray, k: int, t_margin=None):
+        """The dispatch run eagerly: upload, prologue, core (and the
+        cross-process merge)."""
+        x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
+        statics = self._statics_fn(k)
+        return self._finish(self._run(x, statics, t_margin), statics)
+
+    def run(self, images: np.ndarray, k: int, t_margin=None):
         """The served dispatch: the key's program replayed (captured at its
-        first call), or an eager run where there is no capture backend."""
+        first call), or an eager run where there is no capture backend;
+        then the cross-process merge. What a worker process runs."""
         if self.graphs is None:
             with self._lock:
                 self.eager_runs += 1
@@ -184,7 +214,17 @@ class BatchedSearch:
             for (fn, attr), n in prog.launches.items():
                 setattr(fn, attr, getattr(fn, attr) + n)
             prog.replays += 1
-            return prog.out
+            return self._finish(prog.out, statics)
+
+    def dispatch(self, images: np.ndarray, k: int, t_margin=None):
+        """``run``, announced to the worker processes first when there is a
+        coordinator: the broadcast and the run under its lock, so the
+        workers see the dispatches in this process's order."""
+        if self.coordinator is None:
+            return self.run(images, k, t_margin)
+        with self.coordinator.lock:
+            self.coordinator.announce(images, k, t_margin)
+            return self.run(images, k, t_margin)
 
     def _capture(self, images: np.ndarray, statics, t_margin) -> Program:
         static_in = torch.empty(images.shape, dtype=torch.float32, device=self.device)
@@ -218,12 +258,13 @@ class BatchedSearch:
 
 
 def make_batched_search(prologue: Callable, core: Callable, statics_fn: Callable,
-                        epilogue: Callable, device, graphs=None) -> BatchedSearch:
+                        epilogue: Callable, device, graphs=None, **kw) -> BatchedSearch:
     """Compose ``prologue(images) -> feats`` and ``core(feats, statics,
     t_margin) -> out`` into one dispatch, wrapped by the family's
     ``epilogue(out, k, retry) -> (d, i)``, replayed as CUDA graphs on a
-    CUDA device (:class:`BatchedSearch`)."""
-    return BatchedSearch(prologue, core, statics_fn, epilogue, device, graphs)
+    CUDA device (:class:`BatchedSearch`, whose keywords ``capture``,
+    ``across`` and ``coordinator`` pass through)."""
+    return BatchedSearch(prologue, core, statics_fn, epilogue, device, graphs, **kw)
 
 
 def certificate_epilogue(descending: bool, stats=None, label: str = ""):
@@ -343,15 +384,22 @@ def flat_family(index, stats=None, label: str = ""):
     kernels for an int8 store), the plain full scan past that (the
     index/flat.py rule) and for chi2, which has no kernel (elementwise, the
     chunked scan). Emits the certificate either way (the full scan's is True
-    by construction). Returns (core, statics_fn, epilogue)."""
+    by construction). On a mesh, the same search per shard, merged over
+    this process's shards with the certificates AND-ed
+    (parallel/topk.process_topk; ``across_processes`` adds the rest).
+    Returns (core, statics_fn, epilogue)."""
     search_metric = "ip" if index.metric in ("ip", "cosine") else index.metric
     store, norms, scales = index.store.vectors, index.store.norms, index.store.scales
     n_valid = index.store.n
+    mesh = index.mesh
 
     def core(emb, k, t_margin):
+        use_kernels = k <= MAX_KERNEL_K and search_metric != "chi2"
+        if mesh is not None:
+            return process_topk(emb, store, norms, k, search_metric, mesh, use_kernels,
+                                scales_shards=scales, with_certificate=True, t_margin=t_margin)
         return local_topk_with_norms(
-            emb, store, norms, k, search_metric,
-            use_kernels=k <= MAX_KERNEL_K and search_metric != "chi2", scales=scales,
+            emb, store, norms, k, search_metric, use_kernels=use_kernels, scales=scales,
             with_certificate=True, t_margin=t_margin)
 
     epilogue = certificate_epilogue(descending=search_metric == "ip", stats=stats, label=label)
@@ -420,6 +468,57 @@ def ivfpq_family(index):
         return k_eff, (min(max(rerank, k_eff), pool) if rerank else 0)
 
     return core, statics_fn, finish_epilogue(index)
+
+
+def sharded_ivf_family(index):
+    """Cell-probe on a mesh (parallel/ivf.ShardedIVF): each shard's
+    probed-scan kernel, merged over this process's shards. Returns (core,
+    statics_fn, epilogue)."""
+
+    def core(emb, k, t_margin):
+        del t_margin
+        return index.process_scan(emb, k)
+
+    return core, index.k_eff, finish_epilogue(index)
+
+
+def sharded_ivfpq_family(index):
+    """IVF-PQ on a mesh (parallel/ivf.ShardedIVFPQ): each shard's bf16
+    reconstruction table built once here, at engine start, then per
+    dispatch the probed scan over it, the optional shard-local exact
+    rerank, the merge over this process's shards. Returns (core,
+    statics_fn, epilogue); the statics are (k_eff, rerank shortlist or 0)."""
+    recon = index.build_recon_tables()
+
+    def core(emb, statics, t_margin):
+        del t_margin
+        k, c = statics
+        return index.process_scan_batched(emb, k, c, recon)
+
+    def statics_fn(k):
+        k_eff = index.k_eff(k)
+        return k_eff, index.batched_shortlist(k_eff, index.rerank)
+
+    return core, statics_fn, finish_epilogue(index)
+
+
+def across_processes(index):
+    """The ``across(out, statics)`` stage of a family served on a mesh over
+    processes: every process's merged candidates gathered and merged to
+    the family's k (parallel/topk.merge_processes). None without a process
+    group."""
+    from image_search_engine_tpu_torch.parallel.ivf import ShardedIVF, ShardedIVFPQ
+
+    mesh = getattr(index, "mesh", None)
+    if mesh is None or mesh.group is None:
+        return None
+    if isinstance(index, ShardedIVFPQ):
+        return lambda out, statics: merge_processes(out, mesh, statics[0], descending=False)
+    if isinstance(index, ShardedIVF):
+        return lambda out, statics: merge_processes(out, mesh, statics, descending=False)
+    rows = index.store.vectors[0].shape[0]
+    descending = index.metric in ("ip", "cosine")
+    return lambda out, k: merge_processes(out, mesh, min(k, mesh.size * min(k, rows)), descending)
 
 
 def wrap_serving(engine, batched_search: BatchedSearch, image_size: int, cfg):

@@ -18,3 +18,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {str(device)!r}: want 'cuda' or 'cpu'")
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` means the current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)

@@ -1,7 +1,7 @@
 """What the port does not do yet, and the ROADMAP.md item that brings it."""
 
 ROADMAP_ITEMS = {
-    "multi-device": "queue 1 item 7, multi-device",
+    "multi-device": "queue 1 item 7c, data-parallel training",
 }
 
 

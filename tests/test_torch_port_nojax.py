@@ -24,7 +24,9 @@ def test_port_and_chip_smoke_import_no_jax():
     for new in ("models.densenet", "models.bit", "utils.checkpoint",
                 "examples.siamese_workflow", *(f"training.siamese.{m}" for m in (
                     "config", "losses", "augmentations", "dataset", "model", "train",
-                    "create_index", "eval", "serve"))):
+                    "create_index", "eval", "serve")),
+                "parallel.mesh", "parallel.topk", "parallel.kmeans", "parallel.ivf",
+                "serving.multihost", "utils.cli", "examples.scale_out"):
         assert f"image_search_engine_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke', 'probed_scan_sweep']!r}:\n"
@@ -50,7 +52,8 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
                 "serving.http", "serving.batching", "frontend", "graft_entry",
                 "examples.quickstart", "descriptors", "bovw.pipeline", "ops.corners",
                 "training.siamese.config", "training.siamese.dataset",
-                "examples.siamese_workflow"):
+                "examples.siamese_workflow", "utils.cli", "serving.multihost",
+                "examples.scale_out"):
         assert f"image_search_engine_tpu_torch.{own}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke', 'probed_scan_sweep']!r}:\n"

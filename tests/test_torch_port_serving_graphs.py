@@ -403,7 +403,7 @@ def test_cli_flags_match_the_jax_engines(argv, tmp_path):
 
 def test_nothing_raises_not_ported_for_serving():
     assert "serving" not in ROADMAP_ITEMS and "bovw" not in ROADMAP_ITEMS
-    assert ROADMAP_ITEMS == {"multi-device": "queue 1 item 7, multi-device"}
+    assert ROADMAP_ITEMS == {"multi-device": "queue 1 item 7c, data-parallel training"}
 
 
 # ---------------------------------------------------------------------------

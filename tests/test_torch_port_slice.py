@@ -127,11 +127,28 @@ def test_index_and_serve_matches_jax(tmp_path):
 
 
 def test_engine_refuses_unported_modes(tmp_path):
-    # every method is ported; sharded serving is not
-    cfg = port_config.Config(artifacts_dir=tmp_path, method=port_config.Method.BOVW,
-                             shard_devices=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine.QueryEngine(cfg, device="cpu")
+    # every method is ported, and so is sharded serving: --sharded
+    # (shard_devices=0: every local device, the one CPU) builds and serves
+    # the BoVW engine over the mesh
+    from image_search_engine_tpu_torch.parallel.mesh import mesh_from_config
+    from image_search_engine_tpu_torch.utils.imageio import load_image
+
+    make_corpus(tmp_path / "images", np.random.default_rng(0))
+    cfg = port_config.Config(
+        data_dir=tmp_path / "images", artifacts_dir=tmp_path / "bovw",
+        method=port_config.Method.BOVW, shard_devices=0,
+        corner_descriptor=port_config.CornerDescriptorKind.ORB, num_clusters=8,
+        max_descriptors_per_image=32, corner_n_levels=2, resize_size=64,
+        precompute_thumbnails=False)
+    port_indexer.main(cfg, device="cpu")
+    mesh = mesh_from_config(cfg, "cpu")
+    engine = port_engine.QueryEngine(cfg, device="cpu", mesh=mesh)
+    try:
+        assert mesh.size == 1 and engine.index.mesh is mesh
+        got = engine.query(load_image(engine.paths[0]))
+        assert got[0][0] == pytest.approx(0.0, abs=1e-4)  # its own histogram, or a twin
+    finally:
+        engine.close()
     # int8 is a flat-store precision only, in both packages
     for index_type in (port_config.IndexType.IVFPQ, port_config.IndexType.CELL_PROBE):
         cfg = port_config.Config(artifacts_dir=tmp_path, data_dir=tmp_path,
