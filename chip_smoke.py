@@ -188,7 +188,23 @@ Phases (each raises on failure; the script then exits non-zero):
      HTTP (answers equal where the search is exact; one replay a request
      and replay = eager at B = 1 and 8); two engine processes on the card
      (``--dcn-*``, gloo), batching off and on, answering as one process
-     and exiting 0 after the sentinel; the ``scale_out`` twin.
+     and exiting 0 after the sentinel; the ``scale_out`` twin;
+ 11. data-parallel siamese training (run after phase 9, on its cards),
+     meshes of 4 shards of the card: (1) one step of densenet-tiny (32 px,
+     batch 8, f32) against the unsharded step from the same seeds, frozen
+     and unfrozen, dropout 0 and 0.3, at ``step_compare.STEP_BOUNDS``, replicas
+     bit-equal, the running statistics moved once; (2) the reference
+     geometry (DenseNet-121 unfrozen, 352 x 256, batch 32): in f32 the
+     same, in bf16 the loss gap within ``BF16_DP_LOSS_RTOL``, both steps
+     timed by part with their peak memory, and one traced step of each
+     (``utils/profiling.trace``) with its five longest device operations;
+     (3) ``Trainer.run`` on the mesh (two epochs, a checkpoint, a resumed
+     trainer, one more epoch), ``create_index(mesh=)``, its sharded search
+     against the saved index and a served query; (4) two trainer
+     processes on the card (gloo, 2 shards each) against the one-process
+     step, only process 0 writing; (5) the step over a one-process NCCL
+     group bit-equal to the group-less step; (6)
+     ``graft_entry.dryrun_multichip(4, device="cuda")`` and its launches.
 
 Before its last three lines it prints a JSON object of the serving
 figures (per family: replays and eager runs of the served queries, the
@@ -203,9 +219,9 @@ main-path run, which must be 0; for ``groupmin``, ``select_topt``,
 ``rescore`` and ``kmeans_assign`` their launches while serving BoVW and
 their errors at its shapes, and for the first three their launches while
 serving the siamese index and their errors on it; for the flat, IVF and
-k-means kernels their launches and errors over phase 10's meshes) and the
-card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
+k-means kernels their launches and errors over phase 10's meshes, and
+their launches in phase 11's ``dryrun_multichip`` twin and its sharded
+siamese search) and the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any of them.
 """
 
@@ -5371,6 +5387,501 @@ def phase10(workdir: Path, paths: list, pq: dict, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: data-parallel siamese training
+# ---------------------------------------------------------------------------
+
+#: phase 11 (2): the bf16 sharded step's loss against the unsharded one's,
+#: relative. Looser than 1e-3 (PERF.md, Findings): under autocast each shard's
+#: BatchNorm rounds its output to bf16 from statistics summed in another
+#: order, so some elements land one bf16 ulp (3.9e-3 of them) apart, and
+#: 124 BatchNorms and the circle loss's scale of 256 carry that to the
+#: loss. The first reading was 7.8e-4 (the bf16 step 5.3e-4 from the f32
+#: one).
+BF16_DP_LOSS_RTOL = 2e-3
+DP_STEP_REPS = 3
+#: the wrappers whose kernels the dryrun_multichip twin must launch on the
+#: card (its flat searches, IVF scans and k-means; the select only where
+#: t < ngroups)
+DP_TWIN_KERNELS = ("groupmin", "rescore", "probed_scan", "assign")
+
+_DP_WORKER = r"""
+import dataclasses, hashlib, json, sys
+from pathlib import Path
+import numpy as np
+import torch
+import torch.distributed as dist
+
+coord, pid, root = sys.argv[1], int(sys.argv[2]), Path(sys.argv[3])
+from image_search_engine_tpu_torch.parallel.mesh import Mesh, init_multihost, make_mesh
+from image_search_engine_tpu_torch.training.siamese.config import SiameseConfig
+from image_search_engine_tpu_torch.training.siamese.step_compare import step_gap
+from image_search_engine_tpu_torch.training.siamese.train import Trainer
+
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+init_multihost(coord, 2, pid, device="cuda")
+m = make_mesh(1, "cuda")
+mesh = dataclasses.replace(m, devices=(m.home,) * 2)  # two shards of the card a process
+b = np.load(root / "batches.npz")
+cfg = SiameseConfig(backbone="densenet-tiny", image_size=(32, 32), embedding_dim=8,
+                    batch_size=8, compute_dtype="f32", freeze_backbone=False,
+                    loss="self_supervised_circle", ckpt_dir=root / f"ckpt{pid}",
+                    log_file=root / f"m{pid}.jsonl")
+dp, one = Trainer(cfg, mesh=mesh), Trainer(cfg, mesh=Mesh([m.home] * 4))
+got, want = float(dp.train_step(b["a"], b["n"])), float(one.train_step(b["a"], b["n"]))
+gap = step_gap(one, dp, want, got)
+digest = hashlib.sha256()
+for v in dp.model.state_dict().values():
+    digest.update(v.cpu().numpy().tobytes())
+for p in dp.model.parameters():
+    if p in dp.opt.state:
+        digest.update(dp.opt.state[p]["momentum_buffer"].cpu().numpy().tobytes())
+every = [None, None]
+dist.all_gather_object(every, digest.hexdigest())
+path = dp.save_checkpoint(0, got)
+print(json.dumps({"pid": pid, "loss": got, "one_process_loss": want, "gap": gap,
+                  "replicas_equal": every[0] == every[1], "staged": mesh.staged,
+                  "size": mesh.size, "wrote": path.exists()}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def zero_launch_counts() -> None:
+    """Every kernel wrapper's launch counters to 0."""
+    from image_search_engine_tpu_torch.serving.fused import launch_counters
+
+    for fn, attr in launch_counters():
+        setattr(fn, attr, 0)
+
+
+def launches_by_kernel() -> dict:
+    """{"wrapper.counter": n} of every launch counter that is not 0."""
+    from image_search_engine_tpu_torch.serving.fused import launch_counters
+
+    return {f"{fn.__name__}.{attr}": n for (fn, attr), n in launch_counters().items() if n}
+
+
+def bn_updated_once(trainer, frozen: bool) -> bool:
+    """Each training BatchNorm's running statistics moved once (a frozen
+    backbone's not at all)."""
+    counts = {k: int(v) for k, v in trainer.model.state_dict().items() if "num_batches" in k}
+    return bool(counts) and all(v == (0 if frozen and k.startswith("backbone") else 1)
+                                for k, v in counts.items())
+
+
+def dp_tiny_steps(workdir: Path, mesh) -> dict:
+    """Check (1): densenet-tiny, 32 px, batch 8, f32 (TF32 off), one step on
+    the mesh against the unsharded step from the same seeds, frozen
+    (circle) and unfrozen (self-supervised circle), dropout 0 and 0.3, at
+    ``step_compare.STEP_BOUNDS``; the replicas bit-equal; the running statistics
+    updated once."""
+    from image_search_engine_tpu_torch.training.siamese.config import SiameseConfig
+    from image_search_engine_tpu_torch.training.siamese.step_compare import (
+        STEP_BOUNDS, replicas_equal, step_gap)
+    from image_search_engine_tpu_torch.training.siamese.train import Trainer
+
+    res = {}
+    a, n = spread_batch(SEED, 8), spread_batch(SEED + 1, 8)
+    for frozen, loss in ((True, "circle"), (False, "self_supervised_circle")):
+        for dropout in (0.0, 0.3):
+            cfg = SiameseConfig(backbone="densenet-tiny", image_size=(32, 32), embedding_dim=8,
+                                batch_size=8, compute_dtype="f32", freeze_backbone=frozen,
+                                loss=loss, ckpt_dir=workdir / "dp_tiny",
+                                log_file=workdir / "dp_tiny.jsonl")
+            one = Trainer(cfg, device="cuda", dropout_rate=dropout)
+            dp = Trainer(cfg, dropout_rate=dropout, mesh=mesh)
+            want, got = float(one.train_step(a, n)), float(dp.train_step(a, n))
+            gap = step_gap(one, dp, want, got)
+            label = f"{'frozen' if frozen else 'unfrozen'} {loss}, dropout {dropout}"
+            res[label] = {"loss": got, "unsharded_loss": want, "gap": gap,
+                          "replicas_equal": replicas_equal(dp),
+                          "bn_once": bn_updated_once(dp, frozen)}
+            if not (np.isfinite(got) and gap["worst"] <= 1.0 and res[label]["replicas_equal"]
+                    and res[label]["bn_once"]):
+                raise AssertionError(f"data-parallel step {label}: {res[label]} "
+                                     f"(bounds {STEP_BOUNDS})")
+    log(f"  (1) densenet-tiny, 32 px, batch 8, f32: the {mesh.size}-shard step = the unsharded "
+        f"step within STEP_BOUNDS in 4 cases, worst "
+        f"{max(r['gap']['worst'] for r in res.values()):.3f} of a bound "
+        f"({ {k: round(r['gap']['worst'], 3) for k, r in res.items()} }); replicas bit-equal, "
+        f"running statistics moved once")
+    return res
+
+
+def dp_step_parts(tr, a, n, reps: int = DP_STEP_REPS) -> dict:
+    """``train_step`` split by CUDA events into forward + loss (the upload
+    and the augmentation included), backward, and the gradient reduction +
+    the optimizer; medians of ``reps`` after two warm steps, and the peak
+    memory the steps add."""
+    import torch
+
+    from image_search_engine_tpu_torch.parallel.data_parallel import reduce_gradients
+
+    for _ in range(2):
+        tr.train_step(a, n)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    parts = {k: [] for k in ("forward_loss", "backward", "reduce_optimizer", "step")}
+    for _ in range(reps):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        tr._train_mode(True)
+        e[0].record()
+        loss = tr._loss(a, n, None, True)
+        e[1].record()
+        for opt in tr.opts:
+            opt.zero_grad(set_to_none=True)
+        loss.backward()
+        e[2].record()
+        if tr.mesh is not None:
+            reduce_gradients(tr.replicas, tr.mesh)
+        for opt in tr.opts:
+            opt.step()
+        e[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(("forward_loss", "backward", "reduce_optimizer")):
+            parts[k].append(e[i].elapsed_time(e[i + 1]))
+        parts["step"].append(e[0].elapsed_time(e[3]))
+    out = {k: float(np.median(v)) for k, v in parts.items()}
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    return out
+
+
+def top_device_ops(prof, n: int = 5) -> dict:
+    """The traced region's device operations (kernels and copies; the
+    operators that launch them are not counted again): their total time
+    and the ``n`` longest by total time, names cut to 100 characters."""
+    evs = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in evs)
+    top = sorted(evs, key=lambda e: e.self_device_time_total, reverse=True)[:n]
+    return {"device_ms": total / 1e3, "kernels": sum(e.count for e in evs),
+            "top": [{"name": e.key[:100], "ms": e.self_device_time_total / 1e3,
+                     "calls": e.count, "share": e.self_device_time_total / total}
+                    for e in top]}
+
+
+def float64_step(cfg, a, n, mesh=None):
+    """The step in float64 (the net, the images and the loss; the same
+    draws), unsharded or on ``mesh``: check (2)'s references. Returns the
+    trainer and its loss."""
+    from image_search_engine_tpu_torch.training.siamese.train import Trainer
+
+    tr = Trainer(cfg, device="cuda", mesh=mesh)
+    tr.model.double()  # the optimizer holds the same parameters, now f64
+    upload = tr._upload
+    tr._upload = lambda images, device=None: upload(images, device).double()
+    return tr, float(tr.train_step(a, n))
+
+
+def dp_reference_geometry(root: Path, mesh, card: str) -> dict:
+    """Check (2), the JAX package's reference geometry
+    (``benchmarks/siamese_e2e_chip.py``): DenseNet-121 unfrozen, 352 x 256,
+    batch 32 (8 a shard), 128-D, self-supervised circle, over phase 9's
+    cards. The sharded step against the unsharded one from the same state
+    and draws, leaf by leaf (each parameter, running statistic and momentum
+    buffer; ``step_compare.leaf_gaps``) at ``step_compare.STEP_BOUNDS``, both
+    in float64 (the net, the images and the loss): the unsharded f32 step's
+    gradients are themselves far outside those bounds of the float64 ones
+    here (PERF.md, Findings), so f32 rounding would hide a fault. In f32
+    (TF32 off): the loss at ``STEP_BOUNDS`` of the unsharded loss, and for
+    each measure the sharded step's worst leaf within twice the unsharded
+    step's distance from the float64 step (or 1); the per-leaf ratios are
+    read. In bf16 the loss gap (``BF16_DP_LOSS_RTOL``), the step of each
+    timed by part with its peak memory, and one traced step of each
+    (``utils/profiling.trace``): their five longest device operations."""
+    import torch
+
+    from image_search_engine_tpu_torch.training.siamese.step_compare import (
+        MEASURES, STEP_BOUNDS, leaf_gaps, over_bound, replicas_equal, step_gap, worst_leaves)
+    from image_search_engine_tpu_torch.training.siamese.train import Trainer
+    from image_search_engine_tpu_torch.utils.imageio import load_image_u8
+    from image_search_engine_tpu_torch.utils.profiling import trace
+
+    cards = sorted((root / "cards").glob("*.png"))[:2 * CHAIN_BATCH]
+    imgs = np.stack([load_image_u8(p, CHAIN_GEOMETRY) for p in cards])
+    a, n = (torch.from_numpy(imgs[i::2]).cuda() for i in (0, 1))
+    res = {}
+    losses = {}
+    for cd in ("f32", "bf16"):
+        cfg = chain_cfg(root, compute_dtype=cd, ckpt_dir=root / f"dp_{cd}")
+        one, dp = Trainer(cfg, device="cuda"), Trainer(cfg, mesh=mesh)
+        want, got = float(one.train_step(a, n)), float(dp.train_step(a, n))
+        losses[cd] = (want, got)
+        if cd == "f32":
+            ref, l64 = float64_step(cfg, a, n)
+            dp64, s64 = float64_step(cfg, a, n, mesh)
+            logic = leaf_gaps(ref, dp64, l64, s64)
+            u, s = leaf_gaps(ref, one, l64, want), leaf_gaps(ref, dp, l64, got)
+            del ref, dp64
+            # f32 leaf by leaf: the sharded step's distance from the float64
+            # step over twice the unsharded step's (or 1), read, not bounded
+            sg = {"loss": s["loss"], **{f"{m}:{k}": v for m in MEASURES for k, v in s[m].items()}}
+            ug = {"loss": u["loss"], **{f"{m}:{k}": v for m in MEASURES for k, v in u[m].items()}}
+            margin = {k: sg[k] / max(1.0, 2 * ug[k]) for k in sg}
+            order = sorted(margin, key=margin.get, reverse=True)
+            res["f32"] = {"loss": got, "unsharded_loss": want, "float64_loss": l64,
+                          "float64_sharded_loss": s64,
+                          "float64_sharded_from_unsharded": worst_leaves(logic),
+                          "gap": step_gap(one, dp, want, got),
+                          "unsharded_from_float64": worst_leaves(u),
+                          "sharded_from_float64": worst_leaves(s),
+                          "leaves": len(margin) - 1,
+                          "leaf_margin_over_1": [(k, margin[k], sg[k], ug[k]) for k in order
+                                                 if margin[k] > 1.0],
+                          "leaf_margin_max": (order[0], margin[order[0]]),
+                          "replicas_equal": replicas_equal(dp)}
+            f32 = res["f32"]
+            far = [m for m in ("loss", *MEASURES) if f32["sharded_from_float64"][m]
+                   > max(1.0, 2 * f32["unsharded_from_float64"][m])]
+            if over_bound(logic) or far or f32["gap"]["loss"] > 1.0 or not f32["replicas_equal"]:
+                raise AssertionError(
+                    f"reference geometry: in float64 the sharded step's leaves over "
+                    f"STEP_BOUNDS of the unsharded step's: {list(over_bound(logic).items())[:8]} "
+                    f"({len(over_bound(logic))} of {f32['leaves']}); in f32 the measures "
+                    f"whose worst leaf is farther from float64 than twice the unsharded "
+                    f"step's: {far}; {res['f32']} (bounds {STEP_BOUNDS})")
+        else:
+            rel = abs(got - want) / abs(want)
+            res["bf16"] = {"loss": got, "unsharded_loss": want, "loss_rel": rel,
+                           "bound": BF16_DP_LOSS_RTOL,
+                           "bf16_vs_f32_unsharded_rel": abs(want - losses["f32"][0])
+                           / abs(losses["f32"][0])}
+            if not (np.isfinite(got) and rel <= BF16_DP_LOSS_RTOL):
+                raise AssertionError(f"reference geometry, bf16: loss {got} sharded against "
+                                     f"{want} ({rel:.3e} > {BF16_DP_LOSS_RTOL})")
+            for name, tr in (("unsharded", one), ("sharded", dp)):
+                res["bf16"][name] = dp_step_parts(tr, a, n)
+                with trace(root / f"trace_{name}") as prof:
+                    tr.train_step(a, n)
+                res["bf16"][name]["trace"] = top_device_ops(prof)
+        del one, dp
+        torch.cuda.empty_cache()
+    b16 = res["bf16"]
+    f32 = res["f32"]
+    log(f"  (2) reference geometry ({CHAIN_GEOMETRY[0]} x {CHAIN_GEOMETRY[1]}, batch "
+        f"{CHAIN_BATCH}, {mesh.size} shards), f32: loss {f32['loss']:.6f} sharded, "
+        f"{f32['unsharded_loss']:.6f} unsharded, {f32['float64_loss']:.6f} float64; in float64 "
+        f"the sharded step against the unsharded, worst leaf of each measure in STEP_BOUNDS "
+        f"units: {f32['float64_sharded_from_unsharded']} (loss {f32['float64_sharded_loss']!r} "
+        f"against {f32['float64_loss']!r}); in f32, in those units the unsharded step is "
+        f"{f32['unsharded_from_float64']} from the float64 step, the sharded "
+        f"{f32['sharded_from_float64']}, the sharded from the unsharded {f32['gap']}; leaf by "
+        f"leaf over {f32['leaves']} leaves the sharded f32 step's distance from float64 over "
+        f"max(1, twice the unsharded one's) is at most {f32['leaf_margin_max']}, over 1 in "
+        f"{len(f32['leaf_margin_over_1'])}: {f32['leaf_margin_over_1'][:10]}")
+    log(f"  (2) bf16 loss "
+        f"{b16['loss']:.6f} sharded, {b16['unsharded_loss']:.6f} unsharded ({b16['loss_rel']:.3e}"
+        f" relative, bound {BF16_DP_LOSS_RTOL}; bf16 against f32 unsharded "
+        f"{b16['bf16_vs_f32_unsharded_rel']:.3e}); bf16 step ms unsharded "
+        f"{ {k: round(v, 4) for k, v in b16['unsharded'].items() if k != 'trace'} }, sharded "
+        f"{ {k: round(v, 4) for k, v in b16['sharded'].items() if k != 'trace'} } on {card}")
+    for name in ("unsharded", "sharded"):
+        t = b16[name]["trace"]
+        t["busy_share"] = t["device_ms"] / b16[name]["step"]
+        log(f"  bf16 {name} step traced: {t['kernels']} device operations, {t['device_ms']:.3f} "
+            f"ms of device time ({100 * t['busy_share']:.1f}% of the timed step's "
+            f"{b16[name]['step']:.2f} ms); five longest: " + "; ".join(
+                f"{o['name']} {o['ms']:.3f} ms x{o['calls']} ({100 * o['share']:.1f}%)"
+                for o in t["top"]))
+    return res
+
+
+def dp_run_and_index(root: Path, mesh) -> dict:
+    """Check (3): ``Trainer.run`` on the mesh at the reference geometry
+    (bf16), two epochs of 2 steps, a checkpoint, a fresh trainer resumed
+    from it, one more epoch; then ``create_index(mesh=)`` over the 224
+    training cards, its sharded search against the saved index served
+    unsharded, each kernel's launches over one sharded search, and a
+    ``SiameseQueryEngine`` query (the card first)."""
+    import dataclasses
+
+    import torch
+
+    from image_search_engine_tpu_torch.index.flat import FlatIndex
+    from image_search_engine_tpu_torch.training.siamese.config import get_latest_checkpoint
+    from image_search_engine_tpu_torch.training.siamese.create_index import create_index
+    from image_search_engine_tpu_torch.training.siamese.serve import SiameseQueryEngine
+    from image_search_engine_tpu_torch.training.siamese.train import Trainer
+    from image_search_engine_tpu_torch.utils.checkpoint import load_tree_file
+    from image_search_engine_tpu_torch.utils.imageio import load_image
+
+    cfg = dataclasses.replace(chain_cfg(root, ckpt_dir=root / "dp_ckpts"),
+                              log_file=root / "dp_metrics.jsonl")
+    first = Trainer(cfg, mesh=mesh)
+    t0 = time.perf_counter()
+    out1 = first.run(epochs=2, steps_per_epoch=2, val_steps=1)
+    res = {"first_run_s": time.perf_counter() - t0}
+    first.save_checkpoint(1, out1["history"][-1]["val_loss"])
+    del first
+    resumed = Trainer(cfg, mesh=mesh)
+    resumed.maybe_resume()
+    state = load_tree_file(get_latest_checkpoint(cfg.ckpt_dir))["model"]
+    same = all(torch.equal(v.cpu(), state[k]) for k, v in resumed.model.state_dict().items())
+    if resumed.start_epoch != 2 or not same:
+        raise AssertionError(f"resume on the mesh: start_epoch {resumed.start_epoch}, params "
+                             f"equal {same}")
+    out2 = resumed.run(epochs=3, steps_per_epoch=2, val_steps=1)
+    hist = out1["history"] + out2["history"]
+    if [r["epoch"] for r in hist] != [0, 1, 2] or not all(
+            np.isfinite(r["loss"]) and np.isfinite(r["val_loss"]) for r in hist):
+        raise AssertionError(f"Trainer.run on the mesh: {hist}")
+    lines = cfg.log_file.read_text().splitlines()
+    if [json.loads(line)["epoch"] for line in lines] != [0, 1, 2]:
+        raise AssertionError(f"metrics: {lines}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    index = create_index(cfg, root / "train", root / "dp.index.npz", root / "dp.csv",
+                         device="cuda", mesh=mesh)
+    res["create_index_s"] = time.perf_counter() - t0
+    saved = FlatIndex.load(root / "dp.index.npz", device="cuda")
+    rows = saved.store.values()[:8]
+    zero_launch_counts()
+    d, i = index.search(rows, 9)
+    torch.cuda.synchronize()
+    launches = launches_by_kernel()
+    d1, i1 = saved.search(rows, 9)
+    if not ((i == i1).all() and (i[:, 0] == np.arange(8)).all()
+            and np.allclose(d, d1, rtol=0, atol=1e-5)):
+        raise AssertionError(f"the sharded siamese index: ids {i} against {i1}")
+    if any(launches.get(f"{k}.launches", 0) != MESH_SHARDS for k in ("groupmin", "rescore")):
+        raise AssertionError(f"the sharded siamese search's launches: {launches}")
+    engine = SiameseQueryEngine(cfg, root / "dp.index.npz", root / "dp.csv", device="cuda")
+    try:
+        pred = engine.query(load_image(engine.paths[5]))
+    finally:
+        engine.close()
+    if not pred or pred[0][2] != engine.paths[5] or pred[0][0] < 0.99:
+        raise AssertionError(f"siamese query on the mesh's index: {pred[:2]}")
+    res.update({"history": hist, "search_launches": launches})
+    log(f"  (3) Trainer.run on the mesh: epochs {[r['epoch'] for r in hist]} (2 epochs of 2 "
+        f"steps in {res['first_run_s']:.1f} s, then resumed at epoch 2 with the checkpoint's "
+        f"params), losses {[round(r['loss'], 3) for r in hist]}; create_index(mesh=) over 224 "
+        f"cards {res['create_index_s']:.1f} s, its sharded search = the saved index's (8 rows, "
+        f"each first), launches over one search {launches}; the served query's card first")
+    return res
+
+
+def dp_two_processes(root: Path) -> dict:
+    """Check (4): two trainer processes on the card (gloo through host
+    memory), 2 shards each: one step equals the one-process 4-shard step
+    at ``step_compare.STEP_BOUNDS``, both processes' replicas bit-equal, only
+    process 0 writes its checkpoint, both exit 0."""
+    (root / "dcn").mkdir()
+    np.savez(root / "dcn" / "batches.npz", a=spread_batch(SEED, 8), n=spread_batch(SEED + 1, 8))
+    coord = f"127.0.0.1:{free_port()}"
+    cwd = Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable, "-c", _DP_WORKER, coord, str(pid),
+                               str(root / "dcn")], cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    got = [json.loads(next(ln for ln in o.splitlines() if ln.startswith('{"pid"')))
+           if rc == 0 else None for o, rc in zip(outs, rcs)]
+    ok = rcs == [0, 0] and all(
+        g["gap"]["worst"] <= 1.0 and g["replicas_equal"] and g["staged"] and g["size"] == 4
+        and g["wrote"] is (g["pid"] == 0) for g in got)
+    ok = ok and (root / "dcn" / "ckpt0").is_dir() and not (root / "dcn" / "ckpt1").exists()
+    if not ok:
+        raise AssertionError(f"two trainer processes: exit codes {rcs}; " + "\n".join(
+            o[-3000:] for o in outs))
+    log(f"  (4) two trainer processes on the card (gloo through host memory, 2 shards each) in "
+        f"{wall:.1f} s: the step = the one-process 4-shard step (worst "
+        f"{max(g['gap']['worst'] for g in got):.3f} of a bound), replicas bit-equal, only "
+        f"process 0 wrote, both exit 0")
+    return {"wall_s": wall, "processes": got}
+
+
+def dp_nccl_one_process(workdir: Path) -> dict:
+    """Check (5): the data-parallel step over a one-process NCCL group (the
+    data plane a process with its own card takes), 4 shards of the card,
+    against the same step with no group: the BatchNorms' all-reduces, the
+    embeddings' all-gather and the gradients' all-reduce run over NCCL. The
+    loss is bit-equal, the state within ``step_compare.STEP_BOUNDS`` (the four
+    shards' gradients meet in one replica in the order autograd runs them,
+    which the extra nodes change)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from image_search_engine_tpu_torch.parallel.mesh import Mesh, init_multihost, make_mesh
+    from image_search_engine_tpu_torch.training.siamese.config import SiameseConfig
+    from image_search_engine_tpu_torch.training.siamese.step_compare import step_gap
+    from image_search_engine_tpu_torch.training.siamese.train import Trainer
+
+    a, n = spread_batch(SEED, 8), spread_batch(SEED + 1, 8)
+    cfg = SiameseConfig(backbone="densenet-tiny", image_size=(32, 32), embedding_dim=8,
+                        batch_size=8, compute_dtype="f32", freeze_backbone=False,
+                        loss="self_supervised_circle", ckpt_dir=workdir / "dp_nccl",
+                        log_file=workdir / "dp_nccl.jsonl")
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        m = make_mesh(None, "cuda")
+        backend = dist.get_backend(m.group)
+        if m.staged or backend != "nccl":
+            raise AssertionError(f"one process on its own card: {backend}, staged {m.staged}")
+        nccl = dataclasses.replace(m, devices=(m.home,) * MESH_SHARDS)
+        tr, ref = Trainer(cfg, mesh=nccl), Trainer(cfg, mesh=Mesh([m.home] * MESH_SHARDS))
+        got, want = float(tr.train_step(a, n)), float(ref.train_step(a, n))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    gap = step_gap(ref, tr, want, got)
+    if got != want or gap["worst"] > 1.0:
+        raise AssertionError(f"the step over NCCL differs from the group-less step: loss {got} "
+                             f"against {want}, {gap}")
+    log(f"  (5) the {MESH_SHARDS}-shard step over a one-process NCCL group: loss bit-equal to "
+        f"the group-less step's ({got:.6f}), the state within STEP_BOUNDS (worst "
+        f"{gap['worst']:.3f} of a bound)")
+    return {"backend": backend, "loss_bit_equal": True, "gap": gap}
+
+
+def phase11(workdir: Path, card: str) -> dict:
+    """Data-parallel siamese training on meshes of 4 shards of the card (run
+    after phase 9, on its cards); see the module docstring's phase 11."""
+    import torch
+
+    from image_search_engine_tpu_torch import graft_entry
+    from image_search_engine_tpu_torch.parallel.mesh import Mesh
+
+    log(f"phase 11: data-parallel siamese training ({MESH_SHARDS} shards of the card)")
+    t0 = time.perf_counter()
+    mesh = Mesh(["cuda:0"] * MESH_SHARDS)
+    root = workdir / "siamese"
+    res = {"tiny": dp_tiny_steps(workdir, mesh),
+           "reference": dp_reference_geometry(root, mesh, card),
+           "run": dp_run_and_index(root, mesh),
+           "two_processes": dp_two_processes(root),
+           "nccl": dp_nccl_one_process(workdir)}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    zero_launch_counts()
+    t1 = time.perf_counter()
+    twin = graft_entry.dryrun_multichip(MESH_SHARDS, device="cuda")
+    res["dryrun"] = {**twin, "wall_s": time.perf_counter() - t1}
+    missing = [k for k in DP_TWIN_KERNELS if not twin["launches"].get(f"{k}.launches")]
+    if missing:
+        raise AssertionError(f"dryrun_multichip on the card launched no {missing}: "
+                             f"{twin['launches']}")
+    log(f"  (6) graft_entry.dryrun_multichip({MESH_SHARDS}, device='cuda') in "
+        f"{res['dryrun']['wall_s']:.1f} s; launches {twin['launches']}" + (
+            "" if twin["launches"].get("select_topt.launches") else
+            "; select_topt not launched: a shard of <= 17 rows is one group, and at t = "
+            "ngroups the search skips the select"))
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 11 took {res['wall_s']:.1f} s on {card}")
+    return res
+
+
 def qps_line(fam: dict) -> str:
     q = fam["qps"]
     return (f"off {q['off'][1]:.2f} / {q['off'][CLIENTS]:.2f}, on {q['on'][1]:.2f} / "
@@ -5416,6 +5927,7 @@ def main() -> int:
         twins = check_entry_twins(workdir)
         eighth = phase8(workdir, served["paths"], card)
         ninth = phase9(workdir, served["paths"], card)
+        eleventh = phase11(workdir, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     last = phase5()
@@ -5640,9 +6152,23 @@ def main() -> int:
         if entry["name"] in multi:
             entry["sharded"] = {"mesh": f"{MESH_SHARDS} shards of the card",
                                 **multi[entry["name"]]}
+    # phase 11: the dryrun_multichip twin's launches (counts set to 0 just
+    # before it, read just after) and one search of the siamese index that
+    # create_index(mesh=) built
+    twin_launches = eleventh["dryrun"]["launches"]
+    for entry in kernels:
+        fn = "assign" if entry["name"] == "kmeans_assign" else entry["name"]
+        if f"{fn}.launches" in twin_launches or entry["name"] in ("groupmin", "select_topt",
+                                                                   "rescore"):
+            entry["data_parallel"] = {
+                "mesh": f"{MESH_SHARDS} shards of the card",
+                "dryrun_multichip_launches": twin_launches.get(f"{fn}.launches", 0),
+                "siamese_index_search_launches":
+                    eleventh["run"]["search_launches"].get(f"{fn}.launches", 0)}
     serving = {**served["serving"], "ivfpq": pq_served["serving"], **q8_served["serving"],
                "entry_twins": twins, "descriptors_bovw_dhash": eighth,
-               "backbones_siamese": ninth, "multi_device": tenth, "card": card}
+               "backbones_siamese": ninth, "multi_device": tenth,
+               "data_parallel_training": eleventh, "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s; flat serving p50 "
         f"{served['p50_ms']:.2f} ms, escalations {served['escalations']}; IVF-PQ build "
         f"{scale['build_s']:.1f} s, IVF-PQ serving p50 {pq_served['p50_ms']:.2f} ms; int8 "
@@ -5654,7 +6180,9 @@ def main() -> int:
         f"(bf16, unfrozen, {CHAIN_GEOMETRY[0]} x {CHAIN_GEOMETRY[1]}, batch {CHAIN_BATCH}) "
         f"{ninth['chain']['step']['bf16_unfrozen']['step_ms']:.2f} ms, served p50 "
         f"{siamese['p50_ms']:.2f} ms; phase 9 {ninth['wall_s']:.1f} s; phase 10 "
-        f"{tenth['wall_s']:.1f} s")
+        f"{tenth['wall_s']:.1f} s; phase 11 {eleventh['wall_s']:.1f} s (bf16 reference step "
+        f"{eleventh['reference']['bf16']['sharded']['step']:.2f} ms on {MESH_SHARDS} shards, "
+        f"{eleventh['reference']['bf16']['unsharded']['step']:.2f} unsharded)")
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card)

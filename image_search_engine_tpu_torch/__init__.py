@@ -8,10 +8,10 @@ not even its framework-free host modules: ``config``, ``utils/imageio``,
 ``utils/native_loader``, ``ServingStats``, the HTTP handler and the upload
 page are the port's own copies. Nothing here imports jax.
 
-The main path is ported: DNN (ResNet-50) embeddings into a flat exact index,
-searched by a certified two-phase top-k whose three kernels are hand-written
-CUDA (``csrc/topk_twophase.cu``), served over HTTP. Everything else raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+Everything the JAX package does is ported: DNN, BoVW and dHash indexes
+(flat, IVF, IVF-PQ) built and served over HTTP, every Pallas kernel as
+hand-written CUDA (``csrc/``), siamese training and serving, and scale-out
+over a mesh of devices and processes, data-parallel training included.
 """
 
 __version__ = "0.1.0"

@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from image_search_engine_tpu_torch.models.layers import BatchNorm2d, flax_init_
+from image_search_engine_tpu_torch.models.layers import BatchNorm2d, at_least_f32, flax_init_
 
 
 class DenseLayer(nn.Module):
@@ -83,7 +83,7 @@ class DenseNet(nn.Module):
             if name.startswith(("denseblock", "transition")):
                 x = block(x)
         x = torch.relu(f["norm5"](x))
-        return x.mean(dim=(2, 3)).float()  # global average pool
+        return at_least_f32(x.mean(dim=(2, 3)))  # global average pool
 
 
 DenseNet121 = partial(DenseNet, (6, 12, 24, 16))

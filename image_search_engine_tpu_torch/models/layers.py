@@ -12,6 +12,12 @@ momentum is torch's convention, 0.1 (Flax's 0.9), and the update is
 ``0.9 * running + 0.1 * batch`` in Flax's order of operations. In eval
 mode they are torch's layers.
 
+In a data-parallel train step (``parallel/data_parallel.py``) each shard
+of the global batch runs the net on its own thread under
+:func:`shard_batch_norm`. A BatchNorm in training mode then hands its
+input to that context, which normalizes it with the statistics of the
+global batch and updates the running statistics once for the step.
+
 ``flax_init_`` is the Flax modules' random init (``lecun_normal``
 kernels: a truncated normal at +-2 std, variance 1 / fan_in after
 truncation), which the port's random backbones and head mirror.
@@ -19,12 +25,29 @@ truncation), which the port's random backbones and head mirror.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn as nn
 
 from image_search_engine_tpu_torch.models.resnet import _TRUNC_STD
+
+
+_SHARD = threading.local()  # this thread's data-parallel shard, if any
+
+
+@contextlib.contextmanager
+def shard_batch_norm(sync):
+    """Route this thread's training-mode BatchNorms to ``sync.batch_norm(bn,
+    x)`` for the enclosed forward (one shard of a data-parallel step)."""
+    prev = getattr(_SHARD, "sync", None)
+    _SHARD.sync = sync
+    try:
+        yield
+    finally:
+        _SHARD.sync = prev
 
 
 class _FlaxRunningStats:
@@ -33,6 +56,9 @@ class _FlaxRunningStats:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        sync = getattr(_SHARD, "sync", None)
+        if sync is not None:
+            return sync.batch_norm(self, x)
         out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
                                                     0.0, self.eps)
         with torch.no_grad():
@@ -51,6 +77,12 @@ class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
     pass
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or as it is when it is f64 (a float64 run of the net
+    stays float64: the chip check's reference step)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 @torch.no_grad()

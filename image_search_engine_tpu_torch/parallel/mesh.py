@@ -230,3 +230,30 @@ def all_reduce_processes(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     buf = (t.cpu() if mesh.staged else t).contiguous().clone()
     dist.all_reduce(buf, group=mesh.group)
     return buf.to(t.device)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce_processes`` with a gradient: a sum's adjoint is the sum
+    of the incoming gradients over every process."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        return all_reduce_processes(t, mesh)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return all_reduce_processes(grad, ctx.mesh), None
+
+
+def gather_processes_differentiable(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """(world, *t.shape): ``t`` from every process in rank order, with a
+    gradient to this process's ``t``: one all-reduce of the tensor placed
+    in its rank's slot, whose backward all-reduces the incoming gradient.
+    Every process must call it in the same order, and so issue its
+    backward collectives in the same order; ``TIMEOUT_S`` bounds a
+    mismatch."""
+    if mesh.group is None:
+        return t[None]
+    slots = [t if r == mesh.rank else torch.zeros_like(t) for r in range(mesh.world)]
+    return _AllReduceSum.apply(torch.stack(slots), mesh)

@@ -5,7 +5,9 @@ one-head net embeds the corpus in batches on the device, the rows are
 L2-normalized and go into a 128-D flat inner-product index (``.npz``, the
 JAX package's format, so either package serves it); ``manual=True`` saves
 the raw (N, D) matrix instead (``.npz``, key ``embeddings``) for
-brute-force cross-checks; ``images.csv`` maps row id -> path.
+brute-force cross-checks; ``images.csv`` maps row id -> path. With a
+``mesh`` the trainer is built on it (the net embeds on its home device)
+and the index is row-sharded over it, as the JAX package's.
 
     python -m image_search_engine_tpu_torch.training.siamese.create_index \
         --images-dir cards/train --ckpt-dir artifacts/siamese_ckpts [--device cpu]
@@ -16,10 +18,12 @@ from __future__ import annotations
 import argparse
 import logging
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
 from image_search_engine_tpu_torch.index.flat import FlatIndex
+from image_search_engine_tpu_torch.parallel.mesh import Mesh
 from image_search_engine_tpu_torch.training.siamese.config import (
     SiameseConfig, get_latest_checkpoint)
 from image_search_engine_tpu_torch.training.siamese.train import Trainer
@@ -37,14 +41,16 @@ def create_index(
     checkpoint: str | Path | None = None,
     manual: bool = False,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> FlatIndex | np.ndarray:
-    """Embed a corpus with the trained net and build the index on ``device``.
+    """Embed a corpus with the trained net and build the index on ``device``
+    (on ``mesh``, sharded, when one is given).
 
     manual=False -> FlatIndex("ip") over normalized rows (faiss IndexFlatIP
     parity); manual=True -> the normalized (N, D) f32 matrix saved as .npz
     (the reference's pickle "manual" index, for brute-force cross-checks).
     """
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, device=device, mesh=mesh)
     ckpt = checkpoint or get_latest_checkpoint(cfg.ckpt_dir)
     if ckpt is not None:
         trainer.load_checkpoint(ckpt)
@@ -65,7 +71,7 @@ def create_index(
         np.savez_compressed(out_index, embeddings=emb)
         log.info("manual index: (%d, %d) matrix -> %s", *emb.shape, out_index)
         return emb
-    index = FlatIndex("ip", device=device).add(emb)
+    index = FlatIndex("ip", device=trainer.device, mesh=mesh).add(emb)
     index.save(out_index)
     log.info("flat IP index: %d x %d-D -> %s", emb.shape[0], emb.shape[1], out_index)
     return index

@@ -13,7 +13,10 @@ in eval mode (its running statistics) and without autograd, whatever
 Parameter names: the backbone's torchvision names under ``backbone.``, the
 head's ``fc0..fc3`` and ``bn0..bn2``; ``models/weights.state_dict_from_flax
 (..., arch="siamese")`` carries the JAX package's variables across. Dropout
-draws from an explicit ``torch.Generator`` passed to ``forward``.
+draws its keep-masks from an explicit ``torch.Generator`` passed to
+``forward``, layer by layer over the rows of the forward
+(``draw_masks``); a data-parallel step draws them once for the global
+batch and hands each shard its rows (``forward(..., masks=)``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 import torch.nn as nn
 
 from image_search_engine_tpu_torch.models.densenet import DenseNet121, DenseNetTiny
-from image_search_engine_tpu_torch.models.layers import BatchNorm1d, flax_init_
+from image_search_engine_tpu_torch.models.layers import BatchNorm1d, at_least_f32, flax_init_
 
 BACKBONES = {"densenet121": DenseNet121, "densenet-tiny": DenseNetTiny}
 
@@ -56,15 +59,30 @@ class EmbeddingNet(nn.Module):
             self.backbone.eval()
         return self
 
-    def _dropout(self, y: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    def draw_masks(self, rows: int, generator: torch.Generator | None,
+                   device: torch.device) -> list | None:
+        """The dropout keep-masks of a training forward over ``rows`` rows,
+        one (rows, width) bool tensor a head layer, in the order ``forward``
+        draws them; None where dropout is off."""
         if not self.training or self.dropout_rate == 0.0:
+            return None
+        keep = 1.0 - self.dropout_rate
+        return [torch.rand((rows, getattr(self, f"fc{i}").out_features), generator=generator,
+                           device=device) < keep for i in range(self.depth)]
+
+    def _dropout(self, y: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        if mask is None:
             return y
         keep = 1.0 - self.dropout_rate
-        mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
         return torch.where(mask, y / torch.full((), keep, dtype=y.dtype, device=y.device), 0.0)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        """(B, H, W, 3) images -> (B, embedding_dim) f32 embeddings."""
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                masks: list | None = None) -> torch.Tensor:
+        """(B, H, W, 3) images -> (B, embedding_dim) f32 embeddings. In
+        training, dropout uses ``masks`` where given, else draws them from
+        ``generator``."""
+        if masks is None:
+            masks = self.draw_masks(x.shape[0], generator, x.device)
         if self.freeze_backbone:
             with torch.no_grad():
                 y = self.backbone(x)
@@ -72,8 +90,8 @@ class EmbeddingNet(nn.Module):
             y = self.backbone(x)
         for i in range(self.depth):
             y = torch.relu(getattr(self, f"fc{i}")(y))
-            y = getattr(self, f"bn{i}")(self._dropout(y, generator))
-        return getattr(self, f"fc{self.depth}")(y).float()
+            y = getattr(self, f"bn{i}")(self._dropout(y, None if masks is None else masks[i]))
+        return at_least_f32(getattr(self, f"fc{self.depth}")(y))
 
 
 def apply_siamese(model: EmbeddingNet, triple, generator: torch.Generator | None = None):

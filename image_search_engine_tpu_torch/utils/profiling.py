@@ -1,15 +1,74 @@
-"""Serving metrics: ``ServingStats``, the rolling QPS / latency
-percentiles and certificate-escalation count exposed at GET /stats.
+"""Tracing, stage timings and serving metrics.
 
-A copy of ``ServingStats`` from the JAX package's ``utils/profiling.py``.
+Port of the JAX package's ``utils/profiling.py``:
+
+  * ``trace()``: a context manager around ``torch.profiler`` (CPU
+    activity, and CUDA where a device is there) that writes a Chrome trace
+    of the enclosed region into ``log_dir`` (open it in Perfetto or
+    ``chrome://tracing``); it yields the profiler, whose ``key_averages()``
+    give the region's operators by host and device time;
+  * ``StageTimer``: wall-clock totals per named stage;
+  * ``ServingStats``: the rolling QPS / latency percentiles and
+    certificate-escalation count exposed at GET /stats.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
 import time
 from collections import deque
+from pathlib import Path
 from typing import Dict, Optional
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | Path = "ise_trace", enabled: bool = True):
+    """Profile the enclosed region; on exit its Chrome trace goes to
+    ``log_dir/trace_<pid>_<ns>.json``. Yields the ``torch.profiler.profile``
+    (None when not enabled)."""
+    if not enabled:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # the region's device work inside the trace
+    prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class StageTimer:
+    """Accumulates wall-clock per named stage: ``with t.stage("embed"): ...``"""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        return {
+            k: {"total_s": round(v, 4), "count": self.counts[k],
+                "mean_ms": round(1e3 * v / self.counts[k], 3)}
+            for k, v in self.totals.items()
+        }
 
 
 class ServingStats:

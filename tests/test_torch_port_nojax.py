@@ -24,9 +24,10 @@ def test_port_and_chip_smoke_import_no_jax():
     for new in ("models.densenet", "models.bit", "utils.checkpoint",
                 "examples.siamese_workflow", *(f"training.siamese.{m}" for m in (
                     "config", "losses", "augmentations", "dataset", "model", "train",
-                    "create_index", "eval", "serve")),
+                    "create_index", "eval", "serve", "step_compare")),
                 "parallel.mesh", "parallel.topk", "parallel.kmeans", "parallel.ivf",
-                "serving.multihost", "utils.cli", "examples.scale_out"):
+                "serving.multihost", "utils.cli", "examples.scale_out",
+                "parallel.data_parallel", "utils.profiling", "graft_entry", "models.layers"):
         assert f"image_search_engine_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke', 'probed_scan_sweep']!r}:\n"
@@ -81,7 +82,10 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
 
 def test_siamese_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """Without CUDA every siamese entry point refuses its default device
-    instead of moving to the CPU."""
+    instead of moving to the CPU, a mesh on the card and the data-parallel
+    CLI and twin too."""
+    from image_search_engine_tpu_torch import graft_entry
+    from image_search_engine_tpu_torch.parallel.mesh import Mesh
     from image_search_engine_tpu_torch.training.siamese import create_index, eval, serve, train
     from image_search_engine_tpu_torch.training.siamese.config import SiameseConfig
 
@@ -93,7 +97,14 @@ def test_siamese_entry_points_default_to_the_card(monkeypatch, tmp_path):
              lambda: eval.card_retrieval_metrics(lambda x: x.reshape(len(x), -1),
                                                  *eval.make_synthetic_card_corpus(2, 8, 1)),
              lambda: train.main(["--train-dir", str(tmp_path), "--valid-dir", str(tmp_path),
-                                 "--backbone", "densenet-tiny"]))
+                                 "--backbone", "densenet-tiny"]),
+             lambda: train.main(["--train-dir", str(tmp_path), "--valid-dir", str(tmp_path),
+                                 "--backbone", "densenet-tiny", "--sharded", "2"]),
+             lambda: train.Trainer(cfg, device="cpu", mesh=Mesh(["cuda:0"] * 4)),
+             lambda: create_index.create_index(cfg, tmp_path, tmp_path / "i.npz",
+                                               tmp_path / "c", device="cpu",
+                                               mesh=Mesh(["cuda:0"] * 2)),
+             lambda: graft_entry.dryrun_multichip(4))
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

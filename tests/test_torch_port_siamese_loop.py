@@ -128,12 +128,21 @@ def test_average_meter_keeps_device_sums():
     assert torch.is_tensor(m.sum) and m.avg == 3.0
 
 
-def test_sharded_raises_and_cli_defaults_to_the_card(cards):
+def test_sharded_raises_and_cli_defaults_to_the_card(cards, tmp_path, monkeypatch):
+    """``--sharded 2 --device cpu`` trains data-parallel over two shards of
+    the CPU (it raised before data-parallel training was ported); the CLI
+    still defaults to the card."""
+    monkeypatch.chdir(tmp_path)  # the metrics file's default is relative
     argv = ["--train-dir", str(cards / "train"), "--valid-dir", str(cards / "valid")]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        port_train.main(argv + ["--sharded", "2"])
+    out = port_train.main(argv + [
+        "--sharded", "2", "--device", "cpu", "--backbone", "densenet-tiny", "--image-size",
+        str(SIZE), str(SIZE), "--embedding-dim", str(DIM), "--batch-size", str(B),
+        "--epochs", "1", "--ckpt-dir", str(tmp_path / "ckpts"), "--compute-dtype", "f32"])
+    assert [r["epoch"] for r in out["history"]] == [0] and np.isfinite(out["best_val"])
+    assert len(list((tmp_path / "ckpts").glob("epoch_00-*.pt"))) == 1
     cfg, a = port_train.parse_args(argv)
     assert a.device == "cuda" and cfg.compute_dtype == "bf16" and cfg.freeze_backbone
+    assert a.sharded is None and port_train.parse_args(argv + ["--sharded"])[1].sharded == 0
 
 
 # ---------------------------------------------------------------------------
