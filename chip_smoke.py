@@ -116,7 +116,18 @@ Phases (each raises on failure; the script then exits non-zero):
      row_dot kernels' 128-row mins equal to each other's bit for bit,
      production's within tolerance of them); then the tie order of the
      flat paths over a store whose second half repeats its first, and the
-     cost of the k > 128 full scan's stable sort at 1M rows;
+     cost of the k > 128 full scan's stable sort at 1M rows. Before the
+     kernel checks, the last five ``pallas_call`` sites and the margin
+     scripts (``margin_scripts``): the searches of ``twophase_breakdown``,
+     ``rescore_variants``, ``rescore_variants3``, ``margin_validation``
+     and ``certificate_cost`` once at Q = 2048 (every phase-1 launch a
+     CUDA kernel, counted by route; recall@10 beside production's), the
+     query-tile sweep ``groupmin_tiled`` at every tile at Q = 2048 and
+     4096 (= ``groupmin`` bit for bit, against its plain version), true
+     mismatches, boundary ties and certificate trips over 40,960 queries
+     at bf16 margins 0-3 and int8 margins 1-3 (fails on any certified
+     true mismatch), int8 recall@10 against float64, then every search
+     and tile timed and the certificate's cost;
   7. the same store: each ported phase-2 prototype script's searches once
      (fused gather and rescore, its QB sweep, the approximate select and Q
      = 4096, cross products only, the hierarchical select) with their
@@ -266,6 +277,7 @@ SOURCES = {
     "rescore_gather": CSRC + "rescore_variants.cu",
     "rescore_gather_sweep2": CSRC + "rescore_variants.cu",
     "rescore_cross": CSRC + "rescore_variants.cu",
+    "groupmin_tiled": CSRC + "topk_twophase.cu",  # production's sweep, groupmin_mma.cuh
 }
 # the f32 tensor-core route: one warpgroup-MMA kernel for both phases
 SOURCES_F32_TC = {"groupmin": CSRC + "groupmin_tf32.cu", "rescore": CSRC + "groupmin_tf32.cu"}
@@ -293,6 +305,7 @@ REPLACES = {
     "rescore_gather": "benchmarks/gather_kernel_proto.py:49",
     "rescore_gather_sweep2": "benchmarks/gather_kernel_sweep2.py:40",
     "rescore_cross": "benchmarks/rescore_dma_variants.py:33",
+    "groupmin_tiled": "benchmarks/twophase_breakdown.py:126",
 }
 EPS32 = float(np.finfo(np.float32).eps)
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
@@ -3359,6 +3372,178 @@ def twin_breakdown(q, x, norms, flush) -> dict:
     return res
 
 
+# the last five pallas_call sites (twophase_breakdown.py, rescore_variants.py,
+# rescore_variants3.py) and the margin scripts beside them, over the scripts'
+# 20 dispatches of 2048 queries (40,960)
+MARGIN_ITERS = 20
+MARGINS = {"bf16": (0, 1, 2, 3), "int8": (1, 2, 3)}
+# mismatches the TPU's summation order gave at margins 0, 1 and 2 per
+# 40,960 queries (benchmarks/certificate_cost.py:1-10), beside the port's
+TPU_MISMATCHES = {0: 1538, 1: 67, 2: 0}
+
+
+def margin_scripts(store, flush) -> dict:
+    """Phase 6, the last five ``pallas_call`` sites: each new script's
+    searches once at Q = 2048 (launch counts set to 0 just before, read just
+    after: every phase-1 launch a CUDA kernel, one per search and one per
+    sweep, none on a plain version) with recall@10 on 8 queries beside
+    production's; ``groupmin_tiled`` at every query tile at Q = 2048 and
+    4096 against ``groupmin`` (bit for bit) and its plain version; the
+    margin and certificate counts over all 40,960 queries for bf16 and int8
+    (fails on a certified true mismatch at any margin, or a twin's margin-2
+    miss its certificate passes); then every search and sweep timed."""
+    import torch
+
+    from image_search_engine_tpu_torch.benchmarks import certificate_cost as CC
+    from image_search_engine_tpu_torch.benchmarks import common
+    from image_search_engine_tpu_torch.benchmarks import margin_validation as MV
+    from image_search_engine_tpu_torch.benchmarks import rescore_variants as RV
+    from image_search_engine_tpu_torch.benchmarks import rescore_variants3 as RV3
+    from image_search_engine_tpu_torch.benchmarks import twophase_breakdown as TB
+    from image_search_engine_tpu_torch.ops import groupmin_variants as GV
+    from image_search_engine_tpu_torch.ops import topk as T
+
+    t0 = time.perf_counter()
+    x, nf32, nbf = store.x, store.norms_f32_rows(), store.norms_bf16_rows()
+    st = MV.stores(store)
+    codes, kw8 = st["int8"]
+    qs = common.queries(store, MARGIN_ITERS, PROTO_Q)
+    q = qs[0]
+    qb = q.to(torch.bfloat16).contiguous()
+    qb4 = common.queries(store, 1, BENCH_Q)[0].to(torch.bfloat16).contiguous()
+    t = min(TB.K + TB.MARGIN, T.num_groups(BENCH_N))
+    searches = [
+        *((f"rescore_variants {n}", fn) for n, fn in RV.searches(x, nf32)),
+        *((f"rescore_variants3 {n}", fn)
+          for n, fn in RV3.searches(x, nf32, codes, kw8["x_scale"], kw8["x_norms"])),
+        *((f"margin_validation {dt} margin={m}", MV.search(st, dt, m))
+          for dt, ms in MV.MARGINS.items() for m in ms),
+        *((f"certificate_cost margin={CC.SHIPPED} cert={c}", CC.search(x, nbf, CC.SHIPPED, c))
+          for c in (False, True)),
+        ("twophase_breakdown full topk_twophase",
+         lambda q: T.topk_twophase(q.to(torch.bfloat16), x, TB.K, "l2", x_norms=nbf,
+                                   t_margin=TB.MARGIN, with_certificate=True))]
+    int8_searches = sum("int8" in n for n, _ in searches)
+    torch.cuda.synchronize()
+    T.reset_launch_counts()
+    GV.reset_launch_counts()
+    outs = {n: fn(q) for n, fn in searches}
+    prod = T.groupmin(qb, x, nbf)  # twophase_breakdown (1), then (2) and (3)
+    tiled = {bq: GV.groupmin_tiled(qb, x, nbf, bq) for bq in T.MMA_BQ}
+    T.select_topt(prod, t)
+    torch.cuda.synchronize()
+    launches = {"groupmin": T.groupmin.launches,
+                "groupmin_tensor_cores": T.groupmin.tensor_core_launches,
+                "groupmin_q8": T.groupmin_q8.launches, "groupmin_tiled": GV.groupmin_tiled.launches,
+                "select_topt": T.select_topt.launches, "rescore": T.rescore.launches,
+                "rescore_q8": T.rescore_q8.launches}
+    note_extract_min("margin scripts")
+    want = {"groupmin": len(searches) - int8_searches + 1,
+            "groupmin_tensor_cores": len(searches) - int8_searches + 1,
+            "groupmin_q8": int8_searches, "groupmin_tiled": len(T.MMA_BQ)}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"margin scripts: phase-1 launches {launches}, want {want} "
+                             "(one CUDA kernel a search and a sweep)")
+    ref = common.float64_topk_ids(q[:8], store.x32, BENCH_K)
+    recalls = {n: common.recall(o[1][:8], ref) for n, o in outs.items()}
+    if min(recalls.values()) < 0.9:
+        raise AssertionError(f"margin scripts: recall@10 {recalls}")
+    for m in (1, 2):  # the int8 rescore on the codes: production's ids bit for bit
+        got = RV3.twophase_int8(q, codes, kw8["x_scale"], kw8["x_norms"], t_margin=m)[1]
+        if not torch.equal(got, MV.search(st, "int8", m)(q)[1]):
+            raise AssertionError(f"rescore_variants3 int8 t=k+{m}: ids differ from topk_twophase's")
+    cert = outs["twophase_breakdown full topk_twophase"][2]
+    if not bool(cert.all()):
+        raise AssertionError("twophase_breakdown: a query of the headline dispatch not certified")
+    log(f"  margin scripts' searches at Q={PROTO_Q}: launches {launches} (every phase 1 a CUDA "
+        f"kernel); recall@10 vs float64 (8 queries) " + ", ".join(
+            f"{n} {r:.3f}" for n, r in recalls.items())
+        + "; rescore_variants3's int8 ids = topk_twophase's at t = k + 1, k + 2")
+
+    # groupmin_tiled at every tile against groupmin (bit for bit) and the plain version
+    tol = score_tol(qb4, nbf)
+    tiled_err, bit_equal = 0.0, True
+    for qq, got in ((qb, tiled), (qb4, None)):
+        want = prod if got is tiled else T.groupmin(qq, x, nbf)
+        if got is None:
+            got = {bq: GV.groupmin_tiled(qq, x, nbf, bq) for bq in T.MMA_BQ}
+        for bq, m in got.items():
+            if not torch.equal(m, want):
+                bit_equal = False
+                if not torch.allclose(m, want, rtol=1e-5, atol=1e-5):
+                    raise AssertionError(f"groupmin_tiled bq={bq} Q={qq.shape[0]}: mins differ "
+                                         "from groupmin's beyond rtol = atol = 1e-5")
+        for s in range(0, qq.shape[0], 512):
+            ref_m = GV.groupmin_tiled_ref(qq[s:s + 512], x, nbf)
+            for m in got.values():
+                tiled_err = max(tiled_err, max_abs_err(m[s:s + 512], ref_m))
+        del got, want
+    del tiled
+    if tiled_err > tol:
+        raise AssertionError(f"groupmin_tiled: error {tiled_err} > tolerance {tol}")
+    log(f"  groupmin_tiled at bq {T.MMA_BQ}, Q = {PROTO_Q} and {BENCH_Q}: "
+        f"{'= groupmin bit for bit' if bit_equal else 'within 1e-5 of groupmin, not bit-equal'}, "
+        f"err vs plain {tiled_err:.3g} (tol {tol:.3g})")
+
+    # the margin and certificate counts over every dispatched query
+    valid = MV.validate(st, qs, MARGINS)
+    trips = CC.trips(x, nbf, qs)
+    rv3 = RV3.validate(x, nf32, qs)
+    recall_int8 = MV.int8_recall(st, q, store.x32)
+    bad = {k: c["certified_mismatches"] for k, c in [*valid.items(), *trips.items()]
+           if c["certified_mismatches"]}
+    for (dt, m), c in valid.items():
+        log(f"  margin_validation {dt} margin {m} vs {MV.WIDE[dt]} over {c['queries']} queries: "
+            f"{c['mismatches']} true mismatches, {c['ties']} boundary ties; certificate trips "
+            f"{c['trips']}, certified true mismatches {c['certified_mismatches']}")
+    for m, c in trips.items():
+        log(f"  certificate_cost margin {m} vs {CC.WIDE}: trips {c['trips']} / {c['queries']}, "
+            f"{c['mismatches']} true mismatches, {c['ties']} boundary ties, certified true "
+            f"mismatches {c['certified_mismatches']} (the TPU: {TPU_MISMATCHES[m]} mismatches)")
+    for m, c in rv3.items():
+        log(f"  rescore_variants3 bf16 t=k+{m} vs t=k+{RV3.WIDE} (torch rescore) over "
+            f"{c['queries']} queries: {c['mismatches']} true mismatches, {c['ties']} boundary ties")
+    log(f"  int8 margin 2 recall@10 vs float64 over {PROTO_Q} queries: {recall_int8:.5f}")
+    if bad:  # the twin's margin 2 among them (certificate_cost's store is the twin's)
+        raise AssertionError(f"certified queries whose ids are not the wide margin's: {bad}")
+
+    # timings: every search, each sweep tile, the certificate on and off
+    ms = lambda fn: median_ms(fn, flush, reps=SEARCH_REPS)  # noqa: E731
+    search_ms = {n: ms(lambda fn=fn: fn(q)) for n, fn in searches}
+    reps = lambda fn: median_ms(fn, flush, reps=PROTO_REPS)  # noqa: E731
+    sweep = {}
+    for nq, qq in ((PROTO_Q, qb), (BENCH_Q, qb4)):
+        sweep[nq] = {"groupmin_ms": reps(lambda: T.groupmin(qq, x, nbf)),
+                     "product_alone_ms": reps(lambda: torch.matmul(qq, x.T)),
+                     "ms_by_bq": {bq: reps(lambda bq=bq: GV.groupmin_tiled(qq, x, nbf, bq))
+                                  for bq in T.MMA_BQ}}
+    sweep[PROTO_Q]["plain_ms"] = median_ms(lambda: GV.groupmin_tiled_ref(qb, x, nbf), flush,
+                                           reps=2)
+    select_ms = {"select_topt": reps(lambda: T.select_topt(prod, t)),
+                 "torch_topk": reps(lambda: torch.topk(prod, t, dim=1, largest=False))}
+    on = search_ms[f"certificate_cost margin={CC.SHIPPED} cert=True"]
+    off = search_ms[f"certificate_cost margin={CC.SHIPPED} cert=False"]
+    for nq, r in sweep.items():
+        log(f"  groupmin_tiled Q={nq}: " + ", ".join(
+            f"bq={bq} {v:.4f}" for bq, v in r["ms_by_bq"].items())
+            + f" ms; groupmin {r['groupmin_ms']:.4f}, the bf16 product alone "
+            f"{r['product_alone_ms']:.4f} ms")
+    log(f"  margin scripts ms per dispatch (Q={PROTO_Q}): " + ", ".join(
+        f"{n} {v:.4f}" for n, v in search_ms.items())
+        + f"; select_topt {select_ms['select_topt']:.4f} ms (torch.topk "
+        f"{select_ms['torch_topk']:.4f}) over the (Q, ngroups) mins; certificate cost "
+        f"{(1 - off / on) * 100:.2f}% ({off:.4f} -> {on:.4f} ms); plain sweep "
+        f"{sweep[PROTO_Q]['plain_ms']:.4f} ms; {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "recalls": recalls, "tiled_max_abs_err": tiled_err,
+            "tiled_bit_equal": bit_equal, "sweep": sweep, "search_ms": search_ms,
+            "select_ms": select_ms, "certificate_cost_pct": (1 - off / on) * 100,
+            "int8_recall_at_10": recall_int8,
+            "margin_validation": {f"{dt}_margin{m}": c for (dt, m), c in valid.items()},
+            "certificate_trips": {f"margin{m}": c for m, c in trips.items()},
+            "rescore_variants3_bf16": {f"margin{m}": c for m, c in rv3.items()},
+            "tpu_mismatches": TPU_MISMATCHES}
+
+
 def phase6(store) -> dict:
     """bench.py's operating point: the main path (bench twin, then each
     ported script's searches once; launch counts set to 0 just before, read
@@ -3441,6 +3626,7 @@ def phase6(store) -> dict:
                              for name, fn, q in rs}
         log(f"  {script} ms per dispatch: " + ", ".join(
             f"{k} {v:.4f}" for k, v in search_ms[script].items()))
+    margins = margin_scripts(store, flush)
 
     # the bf16 tensor-core kernels against their plain versions, the twin's dispatch in steps
     qf = q2048.to(torch.bfloat16).contiguous()
@@ -3624,6 +3810,21 @@ def phase6(store) -> dict:
         "product_alone_ms": times["product"], "groupmin_ms": times["groupmin"], "variants": extra,
     } for name, tk, p, b, err, shape, extra in entries]
     b2048, b4096 = bnd(PROTO_Q, ng * PROTO_Q * 4), bnd(BENCH_Q, ng * BENCH_Q * 4)
+    sw, sw4 = margins["sweep"][PROTO_Q], margins["sweep"][BENCH_Q]
+    best = min(sw["ms_by_bq"], key=sw["ms_by_bq"].get)
+    kernels.append({
+        "name": "groupmin_tiled", "route": "cuda", "source": SOURCES["groupmin_tiled"],
+        "replaces": REPLACES["groupmin_tiled"], "launches": margins["launches"]["groupmin_tiled"],
+        "max_abs_err": margins["tiled_max_abs_err"], "ms": sw["ms_by_bq"][best],
+        "plain_ms": sw["plain_ms"], "bound_ms": b2048[0], "bound_by": b2048[1],
+        "library_ms": None, "shape": f"Q={PROTO_Q} N={n:,} d={d} bf16 bq={best} (the fastest "
+                                     "tile; bf16-row norms)",
+        "ms_by_bq": sw["ms_by_bq"], "groupmin_ms": sw["groupmin_ms"],
+        "product_alone_ms": sw["product_alone_ms"], "bit_equal_to_groupmin":
+            margins["tiled_bit_equal"],
+        "Q4096": {"ms_by_bq": sw4["ms_by_bq"], "bound_ms": b4096[0], "bound_by": b4096[1],
+                  "groupmin_ms": sw4["groupmin_ms"],
+                  "product_alone_ms": sw4["product_alone_ms"]}})
     worst_groupmin = max(v for k, v in mma_errs.items() if k.startswith("groupmin"))
     bf16 = {
         "groupmin": {
@@ -3632,14 +3833,19 @@ def phase6(store) -> dict:
             "bound_by": b2048[1], "shape": f"Q={PROTO_Q} N={n:,} d={d} bf16 (bench.py's point)",
             "Q4096_ms": times["groupmin_Q4096"], "Q4096_bound_ms": b4096[0],
             "product_alone_ms": times["product"], "product_alone_Q4096_ms": times["product_Q4096"],
-            "row_dot_sweep_ms": cuda_core["width128"]},
+            "row_dot_sweep_ms": cuda_core["width128"],
+            "margin_scripts_launches": {k: margins["launches"][k] for k in (
+                "groupmin", "groupmin_tensor_cores")},
+            "margins_over_40960_queries": {k: margins[k] for k in (
+                "margin_validation", "certificate_trips", "rescore_variants3_bf16",
+                "tpu_mismatches", "certificate_cost_pct", "int8_recall_at_10")}},
         "rescore": {"launches": launches["rescore"],
                     "max_abs_err": max(v for k, v in mma_errs.items() if k.startswith("rescore")),
                     "Q4096_t12_ms": split["rescore_ms"]},
     }
     return {"bench": out, "kernels": kernels, "times": times, "cuda_core_times": cuda_core,
             "search_ms": search_ms, "ties": tie, "sort": sort, "bf16": bf16,
-            "twin_split": split}
+            "twin_split": split, "margins": margins}
 
 
 # ---------------------------------------------------------------------------
@@ -6058,7 +6264,8 @@ def main() -> int:
         if name == "groupmin_q8":  # the int8 product alone; the compute-bound bench point
             at_q64["int_mm_product_ms"] = q64["int_mm_ms"]
             extra = {"bench_point": bench_q8,
-                     "kernel_ms_by_batch": {f"Q={q}": r for q, r in head["routes"].items()}}
+                     "kernel_ms_by_batch": {f"Q={q}": r for q, r in head["routes"].items()},
+                     "margin_scripts_launches": sixth["margins"]["launches"]["groupmin_q8"]}
         else:  # slot order and group order: device ms at each Q
             at_q64["device_ms_by_order"] = q64[name]["device_ms_by_order"]
             extra = {"device_ms_by_order": head[name]["device_ms_by_order"],

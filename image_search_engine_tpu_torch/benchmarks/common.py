@@ -175,15 +175,55 @@ def group_recall(blocks: torch.Tensor, ref: torch.Tensor, width: int) -> float:
 def timed(name: str, fn: Callable, qs: torch.Tensor, ref: torch.Tensor | None = None) -> str:
     """``fn`` warmed on the first dispatch, then timed over every dispatch
     of ``qs`` (iters, Q, d): the TPU scripts' line "name: ms/dispatch, k
-    QPS", with the recall@10 of the first dispatch's ids against ``ref``."""
+    QPS", with the recall@10 of the first dispatch's ids against ``ref``
+    (the ids of its first len(ref) queries)."""
     out, _ = first_call(fn, qs[0])
     el = max(time_dispatches(fn, qs), 1e-9)
     line = (f"{name}: {el / len(qs) * 1e3:.2f} ms/dispatch, "
             f"{len(qs) * qs.shape[1] / el / 1e3:.1f}k QPS")
-    return line if ref is None else f"{line}, recall@10={recall(out[1], ref):.5f}"
+    return line if ref is None else f"{line}, recall@10={recall(out[1][:len(ref)], ref):.5f}"
 
 
-def parse_args(doc: str, argv, *, n: int, q: int, iters: int) -> argparse.Namespace:
+#: a query whose ids differ from a wider margin's is a boundary tie when the
+#: two k-th distances agree within this share of the wider one's (at least
+#: 1), as ``rescore_variants3.py:192`` counts it: the answer is still exact
+TIE_RTOL = 1e-6
+
+
+def margin_split(d_ref: torch.Tensor, i_ref: torch.Tensor, d_m: torch.Tensor,
+                 i_m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(true mismatches, boundary ties), (Q,) bool each, of a search's
+    (distances, ids) ``d_m, i_m`` against a wider margin's ``d_ref, i_ref``:
+    a query whose id set differs is a tie when |d_ref[k-1] - d_m[k-1]| <=
+    TIE_RTOL * max(1, |d_ref[k-1]|) (in float64), else a true mismatch."""
+    differ = ~same_id_sets(i_ref, i_m)
+    a, b = d_ref[:, -1].double(), d_m[:, -1].double()
+    tie = (a - b).abs() <= TIE_RTOL * torch.clamp(a.abs(), min=1.0)
+    return differ & ~tie, differ & tie
+
+
+def margin_counts(fn: Callable, truth: Callable, qs: torch.Tensor) -> dict:
+    """``fn`` against ``truth`` (each q -> (distances, ids[, certificates]))
+    over every dispatch of ``qs`` (iters, Q, d): the queries, true
+    mismatches and boundary ties (:func:`margin_split`), and where ``fn``
+    returns certificates the trips (queries not certified) and the
+    certified true mismatches, which a sound certificate never gives."""
+    sums = {}
+    for q in qs:
+        got, want = fn(q), truth(q)
+        miss, tie = margin_split(want[0], want[1], got[0], got[1])
+        counts = {"mismatches": miss, "ties": tie}
+        if len(got) > 2:
+            counts.update(trips=~got[2], certified_mismatches=miss & got[2])
+        for key, v in counts.items():  # summed on the device: one read at the end
+            sums[key] = sums.get(key, 0) + v.sum()
+    return {"queries": qs.shape[0] * qs.shape[1], **{k: int(v) for k, v in sums.items()}}
+
+
+def parse_args(doc: str, argv, *, n: int, q: int, iters: int,
+               extra: Callable[[argparse.ArgumentParser], None] | None = None
+               ) -> argparse.Namespace:
+    """The scripts' command line (``extra`` adds a script's own options)."""
     ap = argparse.ArgumentParser(description=doc,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", default="cuda",
@@ -191,6 +231,8 @@ def parse_args(doc: str, argv, *, n: int, q: int, iters: int) -> argparse.Namesp
     ap.add_argument("--n", type=int, default=n, help=f"store rows (default {n:,})")
     ap.add_argument("--q", type=int, default=q, help=f"queries per dispatch (default {q})")
     ap.add_argument("--iters", type=int, default=iters, help=f"timed dispatches (default {iters})")
+    if extra is not None:
+        extra(ap)
     args = ap.parse_args(argv)
     args.device = resolve_device(args.device)
     return args

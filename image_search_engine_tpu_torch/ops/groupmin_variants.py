@@ -12,7 +12,9 @@ the min of norms - 2 q.x over groups of store rows) with one thing changed:
     sweep, the 32-row subgroup mins rounded to bf16, in three output layouts
     (``subgroup_proto.py``, ``subgroup_variants.py``);
   * :func:`groupmin_chunked`: each 4096-row tile's product done 512 or 1024
-    rows at a time, each chunk's mins before the next (``sweep_chunked.py``).
+    rows at a time, each chunk's mins before the next (``sweep_chunked.py``);
+  * :func:`groupmin_tiled`: the production sweep itself on a query tile the
+    caller picks (``twophase_breakdown.py``'s 2-D grid).
 
 The width and two-level kernels are production's bf16 tensor-core sweep
 (``csrc/groupmin_mma.cuh``, on :func:`~image_search_engine_tpu_torch.ops.
@@ -29,7 +31,8 @@ stay as the ``cuda_core`` route, which only ``chip_smoke.py`` takes,
 through :data:`ROUTE`.
 
 As in the prototypes, the query and the store are bf16 (f32 sums) and the
-mins are group-major, (groups, Q). Rows of a ragged last group past N count
+mins are group-major, (groups, Q), but for :func:`groupmin_tiled`'s, which
+are ``groupmin``'s (Q, ngroups). Rows of a ragged last group past N count
 as +inf; nothing is padded. Each wrapper launches its CUDA kernel for CUDA
 tensors (or raises) and runs its plain PyTorch version (``*_ref``: one f32
 product, then mins over slices) for CPU tensors, and counts its launches in
@@ -46,9 +49,9 @@ import torch
 import torch.nn.functional as F
 
 from image_search_engine_tpu_torch.ops import _kernels
-from image_search_engine_tpu_torch.ops.topk import (_BLOCK_SMEM_MAX, GROUP, MmaPlan, SweepGrid,
-                                                    _on_cuda, _query_tile, _stream, _vec_mma,
-                                                    mma_plan, num_groups)
+from image_search_engine_tpu_torch.ops.topk import (_BLOCK_SMEM_MAX, GROUP, MMA_BQ, MmaPlan,
+                                                    SweepGrid, _on_cuda, _query_tile, _stream,
+                                                    _vec_mma, groupmin_ref, mma_plan, num_groups)
 
 SUB = 32  # subgroup width of the two-level sweep
 WIDTHS = (128, 64, 32)
@@ -407,6 +410,61 @@ def groupmin_chunked_ref(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) 
     return groupmin_width_ref(q, x, norms, GROUP)
 
 
+# ---------------------------------------------------------------------------
+# twophase_breakdown.py: production's sweep on a chosen query tile
+# ---------------------------------------------------------------------------
+
+
+def groupmin_tiled(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor,
+                   bq: int) -> torch.Tensor:
+    """``groupmin``'s bf16 sweep with ``bq`` (one of ``MMA_BQ``: 16, 32, 64,
+    128) queries a block, where production takes the smallest tile that
+    holds min(Q, 128): the same (Q, ngroups) f32 mins, query-major.
+
+    Replaces ``phase1_2d`` (benchmarks/twophase_breakdown.py:126), the
+    production ``_groupmin_kernel`` on a 2-D grid of row tiles outer and
+    256- or 512-query blocks inner. What bounds it on the card: the 2*Q*N*d
+    products, as ``groupmin``. The kernel is ``groupmin``'s own
+    (``groupmin_mma_kernel`` in ``csrc/groupmin_mma.cuh``, output policy
+    ``QueryMajorMins``) on ``mma_plan(..., bq=bq)``: block b takes query
+    tile b % nqt and slice b // nqt, so the query tiles of a slice run back
+    to back and find it in L2, the TPU variant's order. A tile changes which
+    warp holds a (query, row) sum and how the copies are staged, not the
+    order of a sum's k-steps, so the mins are ``groupmin``'s bit for bit.
+    The sweep's tile stops at 128 queries: the TPU's 256 and 512 are VMEM
+    blocks, and its 1-D grid (every query in one block) has no counterpart.
+    Counts its launches in ``groupmin_tiled.launches``; raises for a tile
+    the kernel does not take.
+    """
+    _check(q, x, norms)
+    if bq not in MMA_BQ:
+        raise ValueError(f"query tile bq={bq} not in {MMA_BQ}")
+    if not _on_cuda(q, x, norms):
+        return groupmin_tiled_ref(q, x, norms)
+    nq, d = q.shape
+    n = x.shape[0]
+    out = torch.empty((nq, num_groups(n)), dtype=torch.float32, device=x.device)
+    if nq == 0 or n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        p = mma_plan(nq, n, d, bq=bq)
+        err = _kernels.library().ise_groupmin_mma(
+            q.data_ptr(), norms.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, d, p.bq, p.dp,
+            p.kc, p.gps, int(p.resident), p.smem, _vec_mma(q, x), _stream(x))
+    _kernels.check(err, "groupmin_tiled")
+    groupmin_tiled.launches += 1
+    return out
+
+
+groupmin_tiled.launches = 0
+
+
+def groupmin_tiled_ref(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`groupmin_tiled` (every tile gives the same
+    function): ``groupmin``'s, an f32 product, then 128-row mins."""
+    return groupmin_ref(q, x, norms)
+
+
 KERNELS = (groupmin_width, groupmin_two_level, groupmin_chunked)
 
 
@@ -415,3 +473,4 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         for route in ROUTES:
             setattr(fn, f"{route}_launches", 0)
+    groupmin_tiled.launches = 0  # one route: production's sweep

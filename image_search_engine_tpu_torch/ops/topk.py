@@ -258,11 +258,13 @@ class MmaPlan(SweepGrid):
         return self.nq * t
 
 
-def mma_plan(nq: int, n: int, d: int, itemsize: int = 2, staged: int = 0) -> MmaPlan:
+def mma_plan(nq: int, n: int, d: int, itemsize: int = 2, staged: int = 0,
+             bq: int | None = None) -> MmaPlan:
     """The tile plan of the tensor-core sweep for Q = nq queries over an (n,
     d) store of ``itemsize``-byte elements (2: bf16, also the plan of the
     bf16 rescore; 1: int8), the one the wrappers launch with. bq is the
-    smallest query tile that holds min(Q, 128) queries. Two blocks should
+    smallest query tile that holds min(Q, 128) queries, or the ``bq`` of
+    ``MMA_BQ`` given (``groupmin_variants.groupmin_tiled``). Two blocks should
     share an SM: the tile stays resident in shared memory if they still do,
     else it streams with the store if they then do (one block an SM only
     when neither does), with the widest k-chunk that allows it. The slice
@@ -275,7 +277,10 @@ def mma_plan(nq: int, n: int, d: int, itemsize: int = 2, staged: int = 0) -> Mma
     step = _MMA_K_BYTES // itemsize
     dp = -(-d // step) * step
     kcs = sorted({min(dp, kc // itemsize) for kc in _MMA_KC_BYTES}, reverse=True)
-    bq = next(b for b in MMA_BQ if b >= min(nq, MMA_BQ[-1]))
+    if bq is None:
+        bq = next(b for b in MMA_BQ if b >= min(nq, MMA_BQ[-1]))
+    elif bq not in MMA_BQ:
+        raise ValueError(f"query tile bq={bq} not in {MMA_BQ}")
     nqt, ng = -(-nq // bq), num_groups(n)
     gps = min(ng, max(_MMA_MIN_SLICE, bq // 32,
                       min(_MMA_MAX_SLICE, ng * nqt // _MMA_TARGET_BLOCKS)))

@@ -27,7 +27,10 @@ def test_port_and_chip_smoke_import_no_jax():
                     "create_index", "eval", "serve", "step_compare")),
                 "parallel.mesh", "parallel.topk", "parallel.kmeans", "parallel.ivf",
                 "serving.multihost", "utils.cli", "examples.scale_out",
-                "parallel.data_parallel", "utils.profiling", "graft_entry", "models.layers"):
+                "parallel.data_parallel", "utils.profiling", "graft_entry", "models.layers",
+                *(f"benchmarks.{m}" for m in ("twophase_breakdown", "rescore_variants",
+                                              "rescore_variants3", "margin_validation",
+                                              "certificate_cost"))):
         assert f"image_search_engine_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke', 'probed_scan_sweep']!r}:\n"
